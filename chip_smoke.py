@@ -3,18 +3,30 @@
 
     python3 chip_smoke.py            # needs one CUDA device and nvcc
 
-Builds the hand-written kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, then drives the port's main
-path once at full width — a static RFS query, ``TNKDE(solution='rfs',
-engine='torch', executor='fused').query(ts)`` over the Table-3 berkeley
-replica — and checks the answer against the port's plain-torch ``packed``
-executor and the index-free SPS oracle. Any failed check raises (non-zero
-exit). Without a CUDA device it exits non-zero and prints no result.
+Builds the hand-written kernels from the sources in this checkout (one
+``nvcc`` per source, all started together), holds each against its plain
+PyTorch version on the card, then drives the port's two paths at full width
+over the Table-3 berkeley replica:
+
+* ``[main]`` a static RFS query, ``TNKDE(solution='rfs', engine='torch',
+  executor='fused').query(ts)``, checked against the plain-torch ``packed``
+  executor and the index-free SPS oracle;
+* ``[drfs]`` the streaming index, ``TNKDE(solution='drfs', engine='torch',
+  executor='fused', drfs_depth=8, auto_seal=False, horizon_s=0.9·span)``
+  built from the first 90 % of the events: queries in both modes
+  (quantized: ``fused_leaf``; exact: ``fused_walk`` on the complete tree),
+  a pinned snapshot, two inserts of 5 % each, ``query(at=snapshot)`` and
+  ``compact()``, each answer checked against the ``packed`` executor and,
+  in exact mode, the SPS oracle over the surviving events.
+
+Any failed check raises (non-zero exit). Without a CUDA device it exits
+non-zero and prints no result.
 
 Output, in order: the card's name and power limit as ``nvidia-smi`` gives
-them; one line per phase; one JSON line ``{"kernels": [...]}`` with each
-kernel's launches on the main path, its error against the plain version, its
-time, the plain version's time and its roofline bound; and as the last line
+them; one line per phase and step (with its time); one JSON line
+``{"kernels": [...]}`` with one entry per (kernel, path): launches on that
+path, error against the plain version, time, the plain version's time and
+the roofline bound at the largest main-path block; and as the last line
 ``{"ok": true, "device": {...}}``.
 
 ``--cpu-rehearsal`` walks the same control flow on the CPU at a small scale
@@ -46,7 +58,8 @@ PEAK_F64_FLOPS = 34e12
 KERNEL_TOL = 1e-13  # f64, <= 24 addends per output; only association differs
 PACKED_TOL = 1e-12  # fused vs packed executor, relative to max|F|
 SPS_TOL = 1e-10  # index vs index-free oracle, relative to max|F|
-SPS_EDGES = 32  # query edges in the SPS sample (>= 64 lixels checked)
+SPS_EDGES = 32  # most query edges in the SPS sample
+SPS_LIXELS = 96  # the sample stops once it holds this many lixels (>= 64 checked)
 
 
 def require(cond, msg):
@@ -184,26 +197,109 @@ def phase_kernels(device):
     return worst_abs, worst_rel
 
 
+def leaf_case(nleaf, G, Q, W, ks, kt, device):
+    """Seeded random inputs for fused_leaf, as the reference's kernel sweep
+    builds them: per-edge prefix rows (cumsum over the row axis), leaf
+    ranges in [0, nleaf], sides, q_s and the two [W, k_t] temporal tables."""
+    rng = np.random.default_rng(nleaf * 100 + Q)
+    R = (nleaf + 1) * 2
+    tab = np.cumsum(rng.normal(size=(G, R, W * 2 * ks * kt)), axis=1)
+    lo = rng.integers(0, nleaf + 1, (G, Q))
+    hi = np.maximum(rng.integers(0, nleaf + 1, (G, Q)), lo)
+    side = rng.integers(0, 2, (G, Q))
+    qs = rng.normal(size=(G, Q, ks))
+    qtl, qtr = rng.normal(size=(W, kt)), rng.normal(size=(W, kt))
+    t = lambda x, dt: torch.as_tensor(x, device=device).to(dt).contiguous()  # noqa: E731
+    return (t(tab, torch.float64), t(lo, torch.int32), t(hi, torch.int32), t(side, torch.int32),
+            t(qs, torch.float64), t(qtl, torch.float64), t(qtr, torch.float64))
+
+
+def compare_fused_leaf(args):
+    """(max_abs_err, max_rel_err) of ops.fused_leaf against fused_leaf_ref,
+    relative to max|plain|; synchronises so a fault surfaces here."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_walk import fused_leaf_ref
+
+    got = ops.fused_leaf(*args)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    want = fused_leaf_ref(*args)
+    require(got.shape == want.shape and got.dtype == torch.float64, "fused_leaf output shape/dtype")
+    require(bool(torch.isfinite(got).all()), "fused_leaf produced non-finite values")
+    abs_err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if got.numel() else 1.0
+    return abs_err, abs_err / (scale or 1.0)
+
+
+def fused_leaf_bound(args):
+    """Least time the card could take for this call, from this input: the
+    larger of bytes/bandwidth (each distinct prefix row that a slot with a
+    non-empty leaf range needs — an empty range differences a row with
+    itself, exactly 0 — plus per-atom state, the two temporal tables and the
+    output, each once) and operations/peak f64 (per live slot, window and
+    value: the difference, the q_s·q_t product, the multiply and the add)."""
+    lcum, lo, hi, side, qs, qtl, qtr = args
+    G, R, WK = lcum.shape
+    Q, ks = qs.shape[1], qs.shape[2]
+    W, kt = qtl.shape
+    live = hi > lo
+    g = torch.arange(G, device=lcum.device)[:, None] * R
+    rows = torch.cat([(g + hi * 2 + side)[live], (g + lo * 2 + side)[live]])
+    distinct = int(torch.unique(rows).numel())
+    n_live = int(live.sum())
+    nbytes = distinct * WK * 8 + G * Q * (ks * 8 + 12) + 2 * W * kt * 8 + G * W * Q * 8
+    flops = n_live * WK * 4
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS
+    return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
+                bytes=nbytes, flops=flops, live_slots=n_live, rows_distinct=distinct)
+
+
+def phase_leaf_kernels(device):
+    """fused_leaf vs its plain version: the reference's sweep (nleaf 4/8/16,
+    (k_s, k_t) in {(2,2), (3,2), (2,3)}, Q 7/33/65), one case with the
+    gaussian kernels' k_s = k_t = 11 and W > 8 windows a block, and one at
+    the main path's shape (nleaf 256, ~4 000 edge groups, Q 512, W 5)."""
+    big_g = 4000 if device != "cpu" else 40  # the rehearsal keeps the CPU small
+    cases = [
+        (4, 3, 7, 1, 2, 2), (8, 3, 33, 2, 3, 2), (16, 3, 65, 2, 2, 3),
+        (32, 5, 130, 9, 11, 11),
+        (256, big_g, 512, 5, 2, 2),
+    ]
+    worst_abs = worst_rel = 0.0
+    for nleaf, G, Q, W, ks, kt in cases:
+        abs_err, rel = compare_fused_leaf(leaf_case(nleaf, G, Q, W, ks, kt, device))
+        say("kernels", kernel="fused_leaf", case=f"nleaf{nleaf}:G{G}:Q{Q}:W{W}:ks{ks}:kt{kt}",
+            max_abs_err=abs_err, max_rel_err=rel)
+        require(rel <= KERNEL_TOL, f"fused_leaf disagrees with its plain version: {rel}")
+        worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
+    return worst_abs, worst_rel
+
+
 # ---------------------------------------------------------------- main path
-def sps_sample(m, ts, n_edges, seed):
-    """The port's SPS oracle on a random sample of query edges:
-    (lixel ids, F_sps [W, n]) — the index-free evaluation of the same KDE."""
+def sps_sample(m, ts, n_edges, seed, ee=None):
+    """The port's SPS oracle on a random sample of query edges, taken until
+    it holds ``SPS_LIXELS`` lixels: (lixel ids, F_sps [W, n]) — the
+    index-free evaluation of the same KDE over ``ee`` (default: the model's
+    own event view)."""
     from repro_torch.core.plan import build_edge_geometry
     from repro_torch.core.shortest_path import bounded_dijkstra
     from repro_torch.core.sps import sps_eval_edge
 
     net, ctx = m.net, m.ctx
+    ee = m.ee if ee is None else ee
     rng = np.random.default_rng(seed)
     radius = ctx.b_s + float(net.edge_len.max()) + 1.0
     ids, vals = [], []
     for a in rng.permutation(net.n_edges)[:n_edges]:
         rows = bounded_dijkstra(net, [net.edge_src[a], net.edge_dst[a]], radius, adj=m._adj)
-        geom = build_edge_geometry(net, m.lix, m.ee, int(a), ctx.b_s, rows)
+        geom = build_edge_geometry(net, m.lix, ee, int(a), ctx.b_s, rows)
         n = geom.x.shape[0]
         if n == 0:
             continue
         ids.append(np.arange(geom.lix_base, geom.lix_base + n))
-        vals.append(np.stack([sps_eval_edge(geom, m.ee, ctx, t) for t in ts]))
+        vals.append(np.stack([sps_eval_edge(geom, ee, ctx, t) for t in ts]))
+        if sum(len(i) for i in ids) >= SPS_LIXELS:
+            break
     return np.concatenate(ids), np.concatenate(vals, axis=1)
 
 
@@ -303,12 +399,15 @@ def phase_main(args, device, card):
     require(err_packed <= PACKED_TOL, f"fused vs packed: {err_packed}")
 
     # ---- vs the SPS oracle on a sample of lixels
+    t1 = time.perf_counter()
     ids, F_sps = sps_sample(m, ts, SPS_EDGES, args.seed + 7)
+    sps_s = time.perf_counter() - t1
     require(len(ids) >= 64, f"SPS sample too small: {len(ids)} lixels")
     err_sps = float(np.abs(F[:, ids] - F_sps).max()) / fmax
     require(err_sps <= SPS_TOL, f"rfs vs sps: {err_sps}")
     say("main", card=card, fused_vs_packed=err_packed, rfs_vs_sps=err_sps, sps_lixels=len(ids),
-        packed_cold_s=round(packed_cold_s, 4), packed_warm_s=round(packed_warm_s, 4))
+        sps_s=round(sps_s, 3), packed_cold_s=round(packed_cold_s, 4),
+        packed_warm_s=round(packed_warm_s, 4))
     return m, ts, launches, dict(cold_s=cold_s, warm_s=warm_s)
 
 
@@ -358,12 +457,237 @@ def phase_main_shapes(m, ts, device, card):
     return worst_abs, worst_rel, shape, bound, timing
 
 
+# ------------------------------------------------------------- DRFS path
+DRFS_FRACS = (0.2, 0.5, 0.8, 0.95, 0.5)  # window centres (span fractions), one duplicated
+
+
+def phase_drfs(args, device, card):
+    """The streaming index at full width: build from the first 90 % of the
+    events (by time), then in order — both modes cold and warm, pin
+    ``snap0``, two inserts of 5 % each (both modes after each),
+    ``query(at=snap0)``, ``compact()`` (both modes). Every answer is held
+    against the plain-torch ``packed`` engine swapped in on the same model,
+    exact answers also against the SPS oracle over the current event set."""
+    from repro_torch.core import TNKDE
+    from repro_torch.core.events import Events, group_events_by_edge
+    from repro_torch.core.rfs import FlatDynamicEngine
+    from repro_torch.data.spatial import make_dataset
+    from repro_torch.kernels import ops
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    net, ev, _ = make_dataset("berkeley", scale=args.scale, seed=args.seed)
+    order = np.argsort(ev.time, kind="stable")
+
+    def part(lo, hi):
+        sel = order[lo:hi]
+        return Events(ev.edge_id[sel], ev.pos[sel], ev.time[sel])
+
+    n_base, n_batch = int(0.9 * ev.n), int(0.05 * ev.n)
+    t_min = float(ev.time.min())
+    span = float(ev.time.max()) - t_min
+    ts = [t_min + f * span for f in DRFS_FRACS]
+    m = TNKDE(net, part(0, n_base), g=50.0, b_s=800.0, b_t=0.2 * span, solution="drfs",
+              engine="torch", executor="fused", drfs_depth=8, auto_seal=False,
+              horizon_s=0.9 * span, device=device)
+    sync()
+    require(m.engine_desc == "torch/fused", m.engine_desc)
+    say("drfs", card=card, dataset="berkeley", scale=args.scale, edges=net.n_edges,
+        base_events=n_base, batch_events=n_batch, lixels=m.n_lixels, depth=m.index.depth,
+        index_bytes=m.index.index_bytes, build_s=round(time.perf_counter() - t0, 3))
+    packed = {}  # the plain-torch engine, built once, reused across epochs
+    secs = {}
+
+    def run(exact, step, *, at=None):
+        """One query in one mode; checks launches, shape, duplicates."""
+        m.drfs_exact_leaf = exact
+        kern, other = (ops.fused_walk, ops.fused_leaf) if exact else (ops.fused_leaf, ops.fused_walk)
+        t1 = time.perf_counter()
+        plan = m._host_plan(at if at is not None else m.snapshot())
+        plan_s = time.perf_counter() - t1
+        l0, o0, f0 = kern.launches, other.launches, m._fe.counters["fused_launches"]
+        c0 = dict(m.index.counters)
+        t1 = time.perf_counter()
+        F = m.query(ts, at=at)
+        sync()
+        q_s = time.perf_counter() - t1
+        nb = plan.n_blocks
+        if device != "cpu":
+            require(kern.launches - l0 == nb and other.launches == o0,
+                    f"{step}: launches {kern.launches - l0}/{other.launches - o0} for {nb} blocks")
+        require(m._fe.counters["fused_launches"] - f0 == nb, f"{step}: fused_launches != blocks")
+        require(F.shape == (len(ts), m.n_lixels) and F.dtype == np.float64, f"{step}: shape/dtype")
+        require(np.isfinite(F).all(), f"{step}: NaN/inf in the heatmap")
+        require(float(np.abs(F).max()) > 0.0, f"{step}: the heatmap is all zeros")
+        require(np.array_equal(F[1], F[4]), f"{step}: duplicate window centres differ")
+        secs[step] = q_s
+        say("drfs", step=step, mode="exact" if exact else "quantized", epoch=list(plan.key[0]),
+            atoms=plan.n_atoms, blocks=nb, launches=kern.launches - l0, plan_s=round(plan_s, 3),
+            flush_s=round(q_s, 4), pending=m.index.n_pending,
+            pending_pairs=m.index.counters["pending"] - c0["pending"],
+            partial_pairs=m.index.counters["partial"] - c0["partial"])
+        return F
+
+    def vs_packed(F, exact, step):
+        """The same query through FlatDynamicEngine(executor='packed')."""
+        if "fe" not in packed:
+            packed["fe"] = FlatDynamicEngine(m.index, executor="packed", device=device)
+        fused_fe, cursor = m._fe, dict(m._counter_cursor)
+        m._fe, m._counter_cursor = packed["fe"], {}
+        m.drfs_exact_leaf = exact
+        t1 = time.perf_counter()
+        F_p = m.query(ts)
+        sync()
+        m._fe, m._counter_cursor = fused_fe, cursor
+        err = float(np.abs(F - F_p).max()) / float(np.abs(F_p).max())
+        require(err <= PACKED_TOL, f"{step}: fused vs packed {err}")
+        say("drfs", step=step, mode="exact" if exact else "quantized", fused_vs_packed=err,
+            packed_s=round(time.perf_counter() - t1, 4))
+        return err
+
+    def vs_sps(F, step):
+        """Exact mode against the index-free oracle over the surviving events
+        (``m.ee`` holds only counts after an insert)."""
+        t1 = time.perf_counter()
+        e_, p_, t_ = m.index.snapshot().event_set()
+        ee = group_events_by_edge(net, Events(e_, p_, t_))
+        ids, F_sps = sps_sample(m, ts, SPS_EDGES, args.seed + 11, ee=ee)
+        require(len(ids) >= 64, f"SPS sample too small: {len(ids)} lixels")
+        err = float(np.abs(F[:, ids] - F_sps).max()) / float(np.abs(F).max())
+        require(err <= SPS_TOL, f"{step}: drfs exact vs sps {err}")
+        say("drfs", step=step, exact_vs_sps=err, sps_lixels=len(ids), events=len(t_),
+            sps_s=round(time.perf_counter() - t1, 3))
+        return err
+
+    errs = dict(packed=0.0, sps=0.0)
+
+    def check(Fq, Fx, step):
+        errs["packed"] = max(errs["packed"], vs_packed(Fq, False, step), vs_packed(Fx, True, step))
+        errs["sps"] = max(errs["sps"], vs_sps(Fx, step))
+
+    # ---- the main path: counts set to 0 here, read at the end of the phase
+    ops.fused_walk.launches = ops.fused_leaf.launches = 0
+    Fq = run(False, "quantized-cold")
+    require(np.array_equal(run(False, "quantized-warm"), Fq), "quantized: warm != cold")
+    Fx = run(True, "exact-cold")
+    require(np.array_equal(run(True, "exact-warm"), Fx), "exact: warm != cold")
+    check(Fq, Fx, "base")
+    snap0, F_snap0 = m.snapshot(), Fx
+    for b in range(2):
+        t1 = time.perf_counter()
+        m.insert(part(n_base + b * n_batch, n_base + (b + 1) * n_batch))
+        say("drfs", step=f"insert{b + 1}", events=n_batch, pending=m.index.n_pending,
+            epoch=list(m.epoch), insert_s=round(time.perf_counter() - t1, 3))
+        require(m.index.n_pending == (b + 1) * n_batch, "insert did not stay pending")
+        Fq, Fx = run(False, f"quantized-insert{b + 1}"), run(True, f"exact-insert{b + 1}")
+        check(Fq, Fx, f"insert{b + 1}")
+    F_at = run(True, "exact-at-snap0", at=snap0)
+    require(np.array_equal(F_at, F_snap0), "query(at=snap0) differs from the pre-insert answer")
+    t1 = time.perf_counter()
+    out = m.compact()
+    sync()
+    compact_s = time.perf_counter() - t1
+    require(out["evicted"] > 0 and out["sealed"] > 0, f"compact() did nothing: {out}")
+    say("drfs", step="compact", card=card, evicted=out["evicted"], sealed=out["sealed"],
+        epoch=list(m.epoch), device_bytes=m._fe.device_bytes, compact_s=round(compact_s, 3))
+    Fq, Fx = run(False, "quantized-compacted"), run(True, "exact-compacted")
+    check(Fq, Fx, "compacted")
+    launches = dict(fused_leaf=ops.fused_leaf.launches, fused_walk=ops.fused_walk.launches)
+    if device != "cpu":
+        require(min(launches.values()) > 0, f"the DRFS path never launched a kernel: {launches}")
+    say("drfs", card=card, launches=json.dumps(launches), fused_vs_packed=errs["packed"],
+        exact_vs_sps=errs["sps"], device_bytes=m._fe.device_bytes,
+        warm_quantized_s=round(secs["quantized-warm"], 4), warm_exact_s=round(secs["exact-warm"], 4))
+    if args.profile:
+        for exact, tag in ((False, "quantized"), (True, "exact")):
+            m.drfs_exact_leaf = exact
+            profile_warm(m, ts, f"{args.profile}.drfs-{tag}")
+    return m, ts, launches, secs
+
+
+def phase_drfs_shapes(m, ts, device, card):
+    """Both DRFS kernels at the shapes the main path gave them: every atom
+    block of the last epoch's plan, in both modes, against the plain
+    version; the largest block of each kernel is timed."""
+    from repro_torch.core.rfs import _dyn_group, dyn_kernel_call
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_walk import fused_leaf_ref, fused_walk_ref
+
+    fe = m._fe
+    snap = m.snapshot()
+    sealed, pend = fe._get_sealed(snap), fe._get_pending(snap)
+    forest = fe._forest(sealed, pend)
+    wb = fe.window_batch(m.ctx, ts)
+    hq = snap.depth
+    packs = fe._atom_packs(m._host_plan(snap))
+    flush = None
+    if device != "cpu":
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)  # 256 MB > L2
+    result = {}
+    for exact, name, ref in ((False, "fused_leaf", fused_leaf_ref), (True, "fused_walk", fused_walk_ref)):
+        tables = fe.window_tables(wb, tuple(ts), snap, sealed, hq, exact)
+        worst_abs = worst_rel = 0.0
+        biggest, big_n = None, -1
+        for entry in packs:
+            grouped = _dyn_group(tables, entry["edges"], hq=hq, exact=exact, E=m.net.n_edges)
+            _, kargs, kw = dyn_kernel_call(forest, grouped, entry, wb, hq=hq, exact=exact)
+            got = getattr(ops, name)(*kargs, **kw)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            want = ref(*kargs, **kw)
+            require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+            abs_err = float((got - want).abs().max())
+            rel = abs_err / (float(want.abs().max()) or 1.0)
+            require(rel <= KERNEL_TOL, f"{name} vs plain on a DRFS block: {rel}")
+            worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
+            if kargs[1].numel() > big_n:
+                biggest, big_n = (kargs, kw), kargs[1].numel()
+            del grouped, got, want
+        kargs, kw = biggest
+        G, Q = kargs[1].shape
+        shape = dict(G=G, R=kargs[0].shape[1], Q=Q, W=len(ts), k_s=kargs[4].shape[2],
+                     k_t=int(m.ctx.k_t), hq=hq)
+        bound = fused_walk_bound(kargs, kw["offs"]) if exact else fused_leaf_bound(kargs)
+        timing = dict(ms=None, plain_ms=None)
+        if device != "cpu":
+            fn = getattr(ops, name)
+            timing["ms"] = time_ms(lambda: fn(*kargs, **kw), flush=flush)
+            timing["plain_ms"] = time_ms(lambda: ref(*kargs, **kw), flush=flush)
+        say("drfs-shapes", card=card, kernel=name, mode="exact" if exact else "quantized",
+            blocks=len(packs), max_abs_err=worst_abs, max_rel_err=worst_rel,
+            timed_shape=json.dumps(shape), ms=timing["ms"], plain_ms=timing["plain_ms"],
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+            **{k: v for k, v in bound.items() if k not in ("bound_ms", "bound_by")})
+        result[name] = (worst_abs, worst_rel, shape, bound, timing)
+        del biggest, kargs, tables
+    return result
+
+
+def build_kernels():
+    """Compile every kernel source, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.fused_walk import fused_leaf_library, fused_walk_library
+
+    builders = dict(fused_walk=fused_walk_library, fused_leaf=fused_leaf_library)
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
+        futures = [pool.submit(b, verbose=True) for b in builders.values()]
+        for f in futures:
+            f.result()  # prints ptxas -v; a failed build raises here
+    say("build", kernels=",".join(builders), seconds=round(time.perf_counter() - t1, 2))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0, help="berkeley replica scale (Table 3 = 1.0)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="PATH", default=None,
-                    help="also write a torch.profiler table of one warm query to PATH")
+                    help="also write torch.profiler tables of warm queries: the RFS one to PATH, "
+                         "the DRFS ones to PATH.drfs-quantized / PATH.drfs-exact")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="walk the control flow on the CPU (no card, no result, exit code 3)")
     args = ap.parse_args()
@@ -385,32 +709,53 @@ def main():
         print(smi, flush=True)
         say("device", torch=torch.__version__, cuda=torch.version.cuda,
             kind=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
-        from repro_torch.kernels.fused_walk import fused_walk_library
+        build_kernels()
 
-        t1 = time.perf_counter()
-        fused_walk_library(verbose=True)  # compiles csrc/fused_walk.cu, prints ptxas -v
-        say("build", kernel="fused_walk", seconds=round(time.perf_counter() - t1, 2))
-
+    t1 = time.perf_counter()
     abs1, rel1 = phase_kernels(device)
+    labs, lrel = phase_leaf_kernels(device)
+    say("kernels", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
     m, ts, launches, secs = phase_main(args, device, card)
     abs2, rel2, shape, bound, timing = phase_main_shapes(m, ts, device, card)
+    del m
+    say("main", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
+    dm, dts, dlaunches, dsecs = phase_drfs(args, device, card)
+    say("drfs", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
+    dshapes = phase_drfs_shapes(dm, dts, device, card)
+    say("drfs-shapes", seconds=round(time.perf_counter() - t1, 1))
 
-    # `launches` was read right after the main path's queries: the launches
-    # made since, to compare the kernel with its plain version, do not count
+    # each path's launches were read right after that path's queries: the
+    # launches made since, to compare a kernel with its plain version, do
+    # not count
     if device != "cpu":
         require(launches > 0, "the main path never launched fused_walk")
-    kernels = [dict(
-        name="fused_walk", route="cuda",
-        source="src/repro_torch/kernels/csrc/fused_walk.cu",
-        replaces="src/repro/kernels/fused_walk.py:86",
-        launches=launches,
-        max_abs_err=max(abs1, abs2), max_rel_err=max(rel1, rel2),
-        ms=timing["ms"], kernel_ms=timing["ms"], plain_ms=timing["plain_ms"],
-        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-        library_ms=None,  # no single PyTorch call computes the climb + contraction
-        timed_shape=shape, card=card,
-        main_path=dict(scale=args.scale, cold_s=secs["cold_s"], warm_s=secs["warm_s"]),
-    )]
+
+    def entry(name, path, n, err_abs, err_rel, shp, bnd, tm, replaces, **extra):
+        return dict(
+            name=name, route="cuda", path=path,
+            source=f"src/repro_torch/kernels/csrc/{name}.cu", replaces=replaces,
+            launches=n, max_abs_err=err_abs, max_rel_err=err_rel,
+            ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
+            library_ms=None,  # no single PyTorch call computes either function
+            timed_shape=shp, card=card, **extra,
+        )
+
+    la, lr, lshape, lbound, ltiming = dshapes["fused_leaf"]
+    wa, wr, wshape, wbound, wtiming = dshapes["fused_walk"]
+    kernels = [
+        entry("fused_walk", "rfs", launches, max(abs1, abs2), max(rel1, rel2), shape, bound,
+              timing, "src/repro/kernels/fused_walk.py:86",
+              main_path=dict(scale=args.scale, cold_s=secs["cold_s"], warm_s=secs["warm_s"])),
+        entry("fused_walk", "drfs-exact", dlaunches["fused_walk"], max(abs1, wa), max(rel1, wr),
+              wshape, wbound, wtiming, "src/repro/kernels/fused_walk.py:86",
+              main_path=dict(scale=args.scale, warm_s=dsecs["exact-warm"])),
+        entry("fused_leaf", "drfs-quantized", dlaunches["fused_leaf"], max(labs, la), max(lrel, lr),
+              lshape, lbound, ltiming, "src/repro/kernels/fused_walk.py:177",
+              main_path=dict(scale=args.scale, warm_s=dsecs["quantized-warm"])),
+    ]
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.cpu_rehearsal:

@@ -34,9 +34,17 @@ tables per ts tuple, and two executors over the same position-major tables —
 the gather-lean ``packed`` walk in plain torch (default) and ``fused``, ONE
 hand-written CUDA ``fused_walk`` launch per flush
 (``repro_torch.kernels.fused_walk``).
+
+``FlatDynamicEngine`` does the same for the streaming DRFS index
+(``drfs.DynamicRangeForest``): device packs per snapshot epoch, window tables
+per (ts tuple, structure epoch, mode), and per atom block either the plain
+torch flush (``packed``) or ONE kernel launch for the tree phase (``fused``:
+``fused_leaf`` in quantized mode, ``fused_walk`` over the complete tree in
+exact mode) plus the masked boundary-leaf and pending scans in plain torch.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Tuple
 
 import numpy as np
@@ -58,7 +66,12 @@ from .plan import AtomSet
 from .query_plan import PlanCache, group_atoms_by_edge
 from .torch_engine import (
     FlatAtoms,
+    FlatDynamicForest,
     WindowBatch,
+    _dyn_leaf_range,
+    dyn_node_tables,
+    dyn_window_tables,
+    eval_atoms_dyn,
     eval_atoms_packed,
     packed_forest_from_numpy,
     packed_node_tables,
@@ -67,6 +80,7 @@ from .torch_engine import (
 
 __all__ = [
     "RangeForest",
+    "FlatDynamicEngine",
     "FlatForestEngine",
     "build_packed_host_tables",
     "make_window_batch",
@@ -448,14 +462,16 @@ def make_window_batch(ctx: MomentContext, ts) -> Tuple[np.ndarray, ...]:
 def _device_nbytes(obj) -> int:
     """Total bytes of every device tensor reachable from ``obj`` — the ONE
     accounting helper for engine tables, atom packs and packed plans
-    (accepts tensors, NamedTuples, dicts and lists/tuples; anything else
-    counts 0)."""
+    (accepts tensors, NamedTuples, dicts, lists/tuples and the DRFS packs,
+    which carry their own ``nbytes``; anything else counts 0)."""
     if hasattr(obj, "element_size"):
         return int(obj.numel()) * obj.element_size()
     if isinstance(obj, dict):
         return sum(_device_nbytes(v) for v in obj.values())
     if isinstance(obj, (list, tuple)):
         return sum(_device_nbytes(v) for v in obj)
+    if isinstance(obj, (_SealedPack, _PendPack)):
+        return obj.nbytes
     return 0
 
 
@@ -896,4 +912,397 @@ class FlatForestEngine(_DeviceEngine):
                 self.counters["fused_launches"] += 1
             self.counters["moment_gathers"] += 2 * c * m
             self.counters["bytes_moved"] += 2 * c * m * row_bytes
+        return heat
+
+
+# ===================================================================== DRFS
+def _dyn_plain_flush(forest, fa, wb, tables, heat, *, n_levels: int, hq: int,
+                     scan_steps: int, pend_steps: int, exact: bool, tree: bool = True):
+    """heat[L, W] += one atom block through :func:`eval_atoms_dyn` (all
+    three phases, or only the scans with ``tree=False``), in place."""
+    vals = eval_atoms_dyn(
+        forest, fa, wb, tables, n_levels=n_levels, hq=hq, scan_steps=scan_steps,
+        pend_steps=pend_steps, exact=exact, tree=tree,
+    )  # [Wh, M]
+    _scatter_add(heat, fa.lixel, (vals[0::2] + vals[1::2]).T)  # fold window halves
+
+
+def _dyn_group(tables, edges, *, hq: int, exact: bool, E: int):
+    """Per-edge grouped kernel tables from the flat window tables (plain
+    gathers, no kernel): exact mode [G, R2, W·2k_s] complete-tree node rows
+    stacked depth 0..hq (walk level ℓ reads depth hq − ℓ at node offset
+    2^(hq−ℓ) − 1), quantized mode [G, (nleaf+1)·2, W·2K] leaf-prefix rows.
+    Depends only on (window tables, plan edges) — both stable across warm
+    flushes — so the engine caches the result beside the window tables."""
+    (tab,) = tables
+    G = edges.shape[0]
+    if exact:
+        W, C = tab.shape[1], tab.shape[2]
+        parts = []
+        for d in range(hq + 1):
+            lo = E * ((1 << d) - 1) * 2
+            hi = E * ((1 << (d + 1)) - 1) * 2
+            parts.append(tab[lo:hi].reshape(E, (1 << d) * 2, W, C).index_select(0, edges))
+        nv = torch.cat(parts, dim=1)  # [G, R2, W, C]
+        return nv.reshape(G, nv.shape[1], W * C)
+    R = (1 << hq) * 2 + 2
+    return tab.reshape(E, R, -1).index_select(0, edges)
+
+
+def dyn_kernel_call(forest, grouped, entry, wb, *, hq: int, exact: bool):
+    """The one kernel launch of a fused DRFS flush: ``(name, args, kwargs)``
+    for ``ops.<name>`` — exact mode ``fused_walk`` over the complete tree
+    (offs = 2^(hq−ℓ) − 1), quantized mode ``fused_leaf`` over the leaf
+    prefixes. Leaf ranges are resolved from the grouped slots' position
+    bounds (padding slots come out empty)."""
+    G, Qp = entry["side"].shape
+    leaf_lo, leaf_hi = _dyn_leaf_range(forest, entry["gfa"], hq)
+    leaf_hi = torch.maximum(leaf_hi, leaf_lo)
+    leaf_lo = leaf_lo.to(torch.int32).reshape(G, Qp)
+    leaf_hi = leaf_hi.to(torch.int32).reshape(G, Qp)
+    if exact:
+        offs = tuple((1 << (hq - lev)) - 1 for lev in range(hq + 1))
+        return "fused_walk", (grouped, leaf_lo, leaf_hi, entry["side"], entry["qs"]), dict(offs=offs)
+    qtl = wb.qt[0::2].contiguous()
+    qtr = wb.qt[1::2].contiguous()
+    return "fused_leaf", (grouped, leaf_lo, leaf_hi, entry["side"], entry["qs"], qtl, qtr), {}
+
+
+def _dyn_flush(forest, grouped, entry, wb, heat, *, hq: int, exact: bool):
+    """ONE kernel launch for the block's tree phase, scattered onto heat
+    [L, W] in place — only the real atoms' slots (``entry["rows"]``)."""
+    name, args, kwargs = dyn_kernel_call(forest, grouped, entry, wb, hq=hq, exact=exact)
+    out = getattr(ops, name)(*args, **kwargs)  # [G, W, Qp]
+    flat = out.permute(0, 2, 1).reshape(-1, heat.shape[1])
+    _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
+
+
+class _SealedPack:
+    """Device tables for one sealed structure epoch (revision, depth)."""
+
+    __slots__ = ("tables", "n_levels", "max_occ", "nbytes")
+
+
+class _PendPack:
+    """Device tables for one pending-buffer epoch (pend_revision)."""
+
+    __slots__ = ("tables", "pend_steps", "nbytes")
+
+
+class FlatDynamicEngine(_DeviceEngine):
+    """Device-resident streaming query engine over a DynamicRangeForest.
+
+    Promotes DRFS (§5) to the GPU: the implicit position-bisection tree is
+    packed level-major into flat device tables (DESIGN.md §5) and every
+    flush answers all W windows, exactly like :class:`FlatForestEngine` for
+    the static forest. Streaming mutations stay on the host (drfs.py); this
+    adapter packs **per snapshot**, keyed on the ``(revision,
+    pend_revision)`` epochs (DESIGN.md §6):
+
+      * every flush targets an explicit :class:`drfs.DrfsSnapshot` (the live
+        head by default) — a query pinned to an old epoch keeps answering
+        from its own pack while inserts/seals move the live forest (MVCC);
+      * ``insert`` only bumps ``pend_revision`` — the next flush uploads the
+        (small) pending CSR of the snapshot it serves and queries see new
+        events through the device-side masked pending scan. No tree work;
+      * ``seal`` / ``extend`` / eviction bump ``revision`` — the next flush
+        on the new epoch uploads fresh level tables (event capacity padded
+        to an ⅛-octave size class, as in the reference).
+
+    Packs live in small LRU caches (``max_snapshots`` sealed epochs, a few
+    pending epochs); an evicted epoch re-packs on demand from the snapshot's
+    host arrays, so pinning older revisions trades device memory for upload
+    time, never correctness.
+
+    Executors: ``packed`` runs every phase in plain torch
+    (:func:`eval_atoms_dyn`); ``fused`` answers the tree phase of each atom
+    block with ONE kernel launch — ``fused_leaf`` in quantized mode,
+    ``fused_walk`` over the complete tree in exact mode — and runs only the
+    boundary-leaf and pending scans in plain torch. Both the quantized-H₀
+    mode (partial boundary leaves dropped, paper §5.2) and the exact-leaf
+    mode run on the device; scan work is accounted into the forest's
+    counters host-side (same units as the NumPy path).
+    """
+
+    def __init__(self, df, *, max_snapshots: int = 2, executor: str = "packed",
+                 device="cuda"):
+        self._init_device(device)
+        if executor in ("auto", None):
+            executor = "packed"
+        if executor not in ("packed", "fused"):
+            raise ValueError(f"unknown drfs executor {executor!r}")
+        self.df = df
+        self.executor = executor
+        self.max_snapshots = max(int(max_snapshots), 1)
+        self._sealed_packs = OrderedDict()  # (revision, depth) -> _SealedPack
+        self._pend_packs = OrderedDict()  # pend_revision -> _PendPack
+        # (ts_key, revision, depth, hq, exact) -> window tables
+        self._tab_cache = OrderedDict()
+        # plan.key -> device atom packs (epoch-independent: the atoms and the
+        # grouped kernel layout derive from the plan's host blocks only)
+        self._pack_cache = PlanCache(2)
+        # (table key, plan.key, block) -> per-edge grouped kernel tables
+        self._group_cache = PlanCache(8)
+        snap = df.snapshot()
+        self._get_sealed(snap)
+        self._get_pending(snap)
+
+    # ----------------------------------------------------------- packing
+    def _get_sealed(self, snap) -> _SealedPack:
+        """Sealed level tables for the snapshot's structure epoch (LRU)."""
+        key = (snap.revision, snap.depth)
+        pack = self._sealed_packs.get(key)
+        if pack is not None:
+            self._sealed_packs.move_to_end(key)
+            return pack
+        N = snap.n_sealed
+        Lv = snap.depth + 1
+        K = snap.ctx.K
+        Np = _size_class(max(N, 1))
+        time_lvl = np.full(Lv * Np, np.inf)
+        pos_lvl = np.full(Lv * Np, np.inf)
+        cum_lvl = np.zeros((Lv * Np, N_COMBOS, K))
+        ptr_parts = []
+        max_occ = np.zeros(Lv, np.int64)
+        for d, (nptr, tms, cum, eidx) in enumerate(snap.levels):
+            time_lvl[d * Np : d * Np + N] = tms
+            pos_lvl[d * Np : d * Np + N] = snap.pos[eidx]
+            cum_lvl[d * Np : d * Np + N] = cum
+            ptr_parts.append(nptr)
+            max_occ[d] = int(np.diff(nptr).max(initial=0))
+        pack = _SealedPack()
+        pack.tables = dict(
+            time_lvl=self._f64(time_lvl),
+            pos_lvl=self._f64(pos_lvl),
+            cum_lvl=self._f64(cum_lvl),
+            # int32 in the reference; torch gathers with int64 indices
+            node_ptr=self._as(np.concatenate(ptr_parts), torch.int64),
+            edge_len=self._f64(snap.lens),
+        )
+        pack.n_levels = Lv
+        pack.max_occ = max_occ
+        pack.nbytes = _device_nbytes(pack.tables)
+        self._sealed_packs[key] = pack
+        while len(self._sealed_packs) > self.max_snapshots:
+            old_key, _ = self._sealed_packs.popitem(last=False)
+            # drop window tables derived from the evicted structure epoch
+            for tk in [k for k in self._tab_cache if k[1:3] == old_key]:
+                del self._tab_cache[tk]
+        return pack
+
+    def release_stale(self, epoch) -> int:
+        """Drop device packs (and their derived window tables) for epochs
+        strictly older than ``epoch = (revision, pend_revision)``.
+
+        The compactor calls this right after a horizon eviction, so a
+        horizon-bounded stream's ``device_bytes`` plateaus instead of
+        sawtoothing at LRU capacity. Safe with MVCC: a still-pinned snapshot
+        that queries later re-packs from its own pinned arrays on the cache
+        miss. Returns the number of packs dropped.
+        """
+        revision, pend_revision = epoch
+        dropped = 0
+        for key in [k for k in self._sealed_packs if k[0] < revision]:
+            del self._sealed_packs[key]
+            dropped += 1
+            for tk in [k for k in self._tab_cache if k[1:3] == key]:
+                del self._tab_cache[tk]
+        for key in [k for k in self._pend_packs if k < pend_revision]:
+            del self._pend_packs[key]
+            dropped += 1
+        return dropped
+
+    @property
+    def device_bytes(self) -> int:
+        """Sealed + pending packs + cached window tables, atom packs and
+        grouped kernel tables — one accounting helper with the static engine."""
+        return _device_nbytes(
+            [
+                list(self._sealed_packs.values()),
+                list(self._pend_packs.values()),
+                list(self._tab_cache.values()),
+                list(self._pack_cache.values()),
+                list(self._group_cache.values()),
+            ]
+        )
+
+    @property
+    def bytes_per_shard(self) -> int:
+        """See :attr:`FlatForestEngine.bytes_per_shard` — one device, one shard."""
+        return self.device_bytes
+
+    def _get_pending(self, snap) -> _PendPack:
+        """Pending-CSR tables for the snapshot's pending epoch (LRU)."""
+        key = snap.pend_revision
+        pack = self._pend_packs.get(key)
+        if pack is not None:
+            self._pend_packs.move_to_end(key)
+            return pack
+        E = snap.net.n_edges
+        K = snap.ctx.K
+        csr = snap.pending_csr()
+        pack = _PendPack()
+        if csr is None:
+            pptr = np.zeros(E + 1, np.int64)
+            pp = np.zeros(1)
+            pt = np.full(1, np.inf)
+            pf = np.zeros((1, N_COMBOS, K))
+            pack.pend_steps = 0
+        else:
+            pptr, pp, pt, pf = csr
+            pad = _size_class(len(pp), floor=64) - len(pp)
+            if pad:
+                pp = np.concatenate([pp, np.zeros(pad)])
+                pt = np.concatenate([pt, np.full(pad, np.inf)])
+                pf = np.concatenate([pf, np.zeros((pad,) + pf.shape[1:])])
+            pack.pend_steps = next_pow2(int(np.diff(pptr).max(initial=1)))
+        pack.tables = dict(
+            pend_ptr=self._as(pptr, torch.int64),
+            pend_pos=self._f64(pp),
+            pend_time=self._f64(pt),
+            pend_phi=self._f64(pf),
+        )
+        pack.nbytes = _device_nbytes(pack.tables)
+        self._pend_packs[key] = pack
+        while len(self._pend_packs) > self.max_snapshots + 2:
+            self._pend_packs.popitem(last=False)
+        return pack
+
+    def _forest(self, sealed: _SealedPack, pend: _PendPack) -> FlatDynamicForest:
+        return FlatDynamicForest(**sealed.tables, **pend.tables)
+
+    # ------------------------------------------------------------ per query
+    def window_tables(self, wb, ts_key, snap, sealed: _SealedPack, hq: int, exact: bool):
+        """Window tables for (ts tuple, structure epoch, hq, mode), LRU-cached.
+
+        The engine's core hoist: all per-node time searches (and the q_t
+        contraction, in exact mode) are paid once per (window batch,
+        structure epoch) at node-count scale, so every atom flush — and
+        every WARM QUERY over the same centers — costs O(1) table gathers
+        per atom. Quantized mode: leaf prefix tables
+        (:func:`torch_engine.dyn_window_tables`); exact mode: node-value
+        tables (:func:`torch_engine.dyn_node_tables`). They depend only on
+        the sealed structure, never on the pending buffers.
+        """
+        key = (ts_key, snap.revision, snap.depth, int(hq), bool(exact))
+        hit = self._tab_cache.get(key)
+        if hit is not None:
+            self._tab_cache.move_to_end(key)
+            return hit
+
+        def steps(occ):
+            return max(int(np.ceil(np.log2(int(occ) + 1))) + 1, 1)
+
+        E = snap.net.n_edges
+        W = len(ts_key)
+        K = snap.ctx.K
+        forest = self._forest(sealed, self._get_pending(snap))
+        if exact:
+            spl = tuple(steps(o) for o in sealed.max_occ[: hq + 1])
+            tabs = (dyn_node_tables(forest, wb, n_levels=sealed.n_levels, hq=int(hq),
+                                    steps_per_level=spl),)
+            nn = E * ((1 << (hq + 1)) - 1)
+        else:
+            tabs = (dyn_window_tables(forest, wb, n_levels=sealed.n_levels, hq=int(hq),
+                                      search_steps=steps(sealed.max_occ[hq])),)
+            nn = E * (1 << hq)
+        self.counters["rank_searches"] += 3 * W * nn
+        self.counters["moment_gathers"] += 3 * W * nn
+        # table folds gather raw-Φ prefix rows from the f64 level tables
+        self.counters["bytes_moved"] += 3 * W * nn * N_COMBOS * K * 8
+        self._tab_cache[key] = tabs
+        while len(self._tab_cache) > 4 * self.max_snapshots:
+            self._tab_cache.popitem(last=False)
+        return tabs
+
+    def _atom_packs(self, plan):
+        """Device atom blocks for a HostPlan, LRU-cached per plan: the flat
+        block (scan phases and the packed executor) and, for ``fused``, the
+        per-edge grouped [G, Qp] layout the kernels read, already in their
+        types (masked ``qs``, int32 sides) with the real atoms' slots."""
+        hit = self._pack_cache.get(plan.key)
+        if hit is not None:
+            return hit
+        packs = []
+        for atoms in plan.blocks:
+            entry = dict(fa=self._device_atoms(atoms, np.arange(atoms.m)), atoms=atoms, m=atoms.m)
+            if self.executor == "fused":
+                _, cnt = np.unique(atoms.edge, return_counts=True)
+                qp = _size_class(int(cnt.max(initial=1)), floor=16)
+                edges, fields, _ = group_atoms_by_edge(atoms, q_pad=qp)
+                G = len(edges)
+                gfa = self._flat_atoms(
+                    fields, np.broadcast_to(edges[:, None], fields["lixel"].shape)
+                )
+                rows = torch.nonzero(gfa.valid).reshape(-1)
+                entry.update(
+                    edges=self._as(edges, torch.int64),
+                    gfa=gfa,
+                    # flat [G·Qp] slots of the real atoms, and their lixels
+                    rows=rows,
+                    lixel=gfa.lixel.index_select(0, rows),
+                    side=gfa.side_feat.reshape(G, qp),
+                    qs=(gfa.qs * gfa.valid[:, None]).reshape(G, qp, -1),
+                )
+            packs.append(entry)
+        self._pack_cache.put(plan.key, packs)
+        return packs
+
+    def flush_plan(self, heat, plan, wb, ts_key, *, h0=None, exact_leaf=False,
+                   snapshot=None, **_):
+        """heat[L, W] += every atom block of the plan, snapshot-consistent.
+
+        Packs (or re-uses) the device tables of the targeted snapshot's
+        epoch, then answers the fully-covered leaf ranges from the cached
+        window tables plus boundary/pending scans, per atom block.
+        ``snapshot=None`` pins the live head.
+        """
+        if plan.n_atoms == 0:
+            return heat
+        snap = snapshot if snapshot is not None else self.df.snapshot()
+        sealed = self._get_sealed(snap)
+        pend = self._get_pending(snap)
+        hq = snap.depth if h0 is None else min(int(h0), snap.depth)
+        exact = bool(exact_leaf)
+        scan_steps = 0
+        if exact:
+            # next multiple of 8 over the max leaf occupancy, as the
+            # reference (its recompile bound); the answer does not depend on it
+            occ = int(sealed.max_occ[hq])
+            scan_steps = -(-occ // 8) * 8 if occ else 0
+        W = heat.shape[1]
+        tables = self.window_tables(wb, ts_key, snap, sealed, hq, exact)
+        forest = self._forest(sealed, pend)
+        tab_key = (ts_key, snap.revision, snap.depth, int(hq), exact)
+        K = snap.ctx.K
+        k_s = snap.ctx.k_s
+        # exact mode walks node-value rows [W, 2k_s]; quantized mode
+        # differences two leaf-prefix rows [W, 2K] per atom
+        row_bytes = W * 2 * k_s * 8 if exact else W * 2 * K * 8
+        scan_kw = dict(n_levels=sealed.n_levels, hq=int(hq), scan_steps=int(scan_steps),
+                       pend_steps=int(pend.pend_steps), exact=exact)
+        for bi, entry in enumerate(self._atom_packs(plan)):
+            atoms = entry["atoms"]
+            # work accounting (same units as the NumPy scans: (atom, event)
+            # pairs examined, per half-window for partials / window pending)
+            snap.counters["pending"] += snap.pending_scan_pairs(atoms) * W
+            if exact:
+                snap.counters["partial"] += snap.partial_scan_pairs(atoms, hq) * 2 * W
+            gathers = 2 * (hq + 1) * entry["m"] if exact else 2 * entry["m"]
+            self.counters["moment_gathers"] += gathers
+            self.counters["bytes_moved"] += gathers * row_bytes
+            if self.executor == "packed":
+                _dyn_plain_flush(forest, entry["fa"], wb, tables, heat, **scan_kw)
+                continue
+            # tree phase: ONE kernel launch; scans stay in plain torch
+            gkey = (tab_key, plan.key, bi)
+            grouped = self._group_cache.get(gkey)
+            if grouped is None:
+                grouped = _dyn_group(tables, entry["edges"], hq=int(hq), exact=exact,
+                                     E=snap.net.n_edges)
+                self._group_cache.put(gkey, grouped)
+            _dyn_flush(forest, grouped, entry, wb, heat, hq=int(hq), exact=exact)
+            self.counters["fused_launches"] += 1
+            if scan_steps or pend.pend_steps:
+                _dyn_plain_flush(forest, entry["fa"], wb, (), heat, tree=False, **scan_kw)
         return heat

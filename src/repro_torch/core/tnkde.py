@@ -4,25 +4,33 @@ Ties the pieces together: lixelization, SPS shortest-path sharing, candidate
 pruning, Lixel Sharing classification, atom planning, and the solutions this
 package serves so far:
 
-  solution='sps'   index-free direct evaluation            (§3.2 baseline)
-  solution='rfs'   range forest (static, exact)            (§4)
+  solution='sps'   index-free direct evaluation              (§3.2 baseline)
+  solution='rfs'   range forest (static, exact)              (§4)
+  solution='drfs'  dynamic range forest (streaming, ~exact)  (§5)
 
 ``query(ts)`` answers a *batch* of online time windows (the paper's multiple
-temporal KDE scenario, §8.2): build once, query many.
+temporal KDE scenario, §8.2): build once, query many. The DRFS index also
+takes streaming inserts (``insert``), seals them into the tree (``seal``,
+``compact``), expires events past a sliding horizon (``horizon_s``), grows
+a level (``extend``) and answers against pinned snapshots
+(``query(ts, at=snapshot())``, MVCC).
 
-``engine`` selects the flush backend for the forest solution:
+``engine`` selects the flush backend for the forest solutions:
 
-  engine='torch'  window-batched device engine (rfs.FlatForestEngine): all W
-                  windows per flush, device-resident [L, W] float64 heatmap,
-                  one transfer per query. Runs on ``device`` (default
+  engine='torch'  window-batched device engine, all W windows per flush,
+                  device-resident [L, W] float64 heatmap, one transfer per
+                  query: rfs -> rfs.FlatForestEngine, drfs ->
+                  rfs.FlatDynamicEngine. Runs on ``device`` (default
                   ``'cuda'``; with no card the constructor raises — pass
                   ``device='cpu'`` for the plain-torch path on the host).
   engine='numpy'  the host reference path (one eval_atoms pass per window)
-  engine='auto'   'torch' for rfs, 'numpy' for sps
+  engine='auto'   'torch' for rfs/drfs, 'numpy' for sps. A device engine
+                  that cannot be built raises; there is no fallback.
 
 ``executor`` picks the device executor over the packed query plan:
-'packed' (gather-lean plain torch, what 'auto' resolves to) or 'fused' (ONE
-hand-written CUDA ``fused_walk`` launch per atom pack, DESIGN.md §12). Every
+'packed' (plain torch, what 'auto' resolves to) or 'fused' (ONE
+hand-written CUDA launch per atom block: ``fused_walk`` for rfs and DRFS
+exact mode, ``fused_leaf`` for DRFS quantized mode; DESIGN.md §12). Every
 query reuses the plan cached for its (epoch, LS) pair — warm queries skip
 planning entirely — and window-side tables cached by the ts tuple
 (DESIGN.md §7).
@@ -40,7 +48,14 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from .aggregation import build_event_moments
-from .events import Events, group_events_by_edge
+from .drfs import DynamicRangeForest
+from .events import (
+    EventCountsView,
+    Events,
+    group_events_by_edge,
+    ragged_arange,
+    validate_events,
+)
 from .kernels_math import get_kernel
 from .lixel_sharing import dominated_sweep
 from .network import RoadNetwork, build_lixels
@@ -54,17 +69,17 @@ __all__ = ["TNKDE", "PendingQuery", "QueryStats"]
 
 # arguments and methods of the reference that later slices of the port bring
 _LATER = {
-    "drfs": "solution='drfs' (streaming DRFS): ROADMAP.md Queue A4",
-    "ada": "solution='ada' (per-window linear index): ROADMAP.md Queue A3/A4",
-    "table_codec": "table_codec other than 'auto'/'f64' (TableCodec): ROADMAP.md Queue A3",
+    "ada": "solution='ada' (per-window linear index): ROADMAP.md Queue A3",
+    "table_codec": (
+        "table_codec other than 'auto'/'f64' (TableCodec, and for DRFS the "
+        "delta-encoded leaf prefix of dyn_window_tables of Queue A4): ROADMAP.md Queue A3"
+    ),
     "mesh": "mesh= (sharded forest): ROADMAP.md Queue A8",
     "pallas": "executor='pallas' (kernel-per-level tier): ROADMAP.md Queue A5",
     "search": "executor='search' (legacy executor): ROADMAP.md Queue A5",
     "cascade": "executor='cascade' (legacy executor): ROADMAP.md Queue A5",
-    "horizon_s": "horizon_s= (sliding time horizon): ROADMAP.md Queue A4",
 }
 _LATER_METHODS = {
-    "insert": "A4", "seal": "A4", "extend": "A4", "compact": "A4", "snapshot": "A4",
     "degrade": "A5", "attach_wal": "A6", "checkpoint": "A6", "restore": "A6",
 }
 
@@ -79,6 +94,11 @@ class QueryStats:
     n_pairs_out: int = 0
     n_pairs_normal: int = 0
     index_bytes: int = 0
+    # DRFS streaming work that the index answers *outside* the tree walk —
+    # (atom, event) pairs examined by the pending-buffer scans and by the
+    # exact-mode partial-leaf scans (the O(n) fallbacks the seal amortizes).
+    n_pending_scanned: int = 0
+    n_partial_scanned: int = 0
     # device-engine op accounting (the packed-plan hoist invariants,
     # DESIGN.md §7): time-boundary binary-search problems solved, and
     # prefix/node moment rows gathered. Searches scale with the NODE count
@@ -112,19 +132,25 @@ class TNKDE:
         mesh=None,
         lixel_sharing: bool = False,
         cascade: bool = True,
+        drfs_depth: int = 8,
+        drfs_h0: Optional[int] = None,
+        drfs_exact_leaf: bool = False,
+        auto_seal: bool = True,
         horizon_s: Optional[float] = None,
         edge_block: int = 128,
         atom_flush: int = 400_000,
         device="cuda",
     ):
-        if solution in ("drfs", "ada"):
+        if solution == "ada":
             raise NotImplementedError(_LATER[solution])
-        if solution not in ("sps", "rfs"):
+        if solution not in ("sps", "rfs", "drfs"):
             raise ValueError(f"unknown solution {solution!r}")
         if engine not in ("auto", "numpy", "torch"):
             raise ValueError(f"unknown engine {engine!r} (this package: 'auto', 'numpy', 'torch')")
-        if engine == "torch" and solution != "rfs":
-            raise ValueError("engine='torch' accelerates the forest flush (solution='rfs')")
+        if engine == "torch" and solution not in ("rfs", "drfs"):
+            raise ValueError("engine='torch' accelerates the forest flush (solution='rfs'/'drfs')")
+        if solution == "drfs" and executor in ("search", "cascade"):
+            raise ValueError("search/cascade executors are rfs-only")
         if executor in ("pallas", "search", "cascade"):
             raise NotImplementedError(_LATER[executor])
         if executor not in ("auto", "packed", "fused"):
@@ -135,16 +161,26 @@ class TNKDE:
             raise ValueError(f"unknown table_codec {table_codec!r}")
         if mesh is not None:
             raise NotImplementedError(_LATER["mesh"])
-        if horizon_s is not None:
-            raise NotImplementedError(_LATER["horizon_s"])
         if lixel_sharing and solution == "sps":
-            raise ValueError("lixel sharing needs an aggregation index (rfs)")
+            raise ValueError("lixel sharing needs an aggregation index (rfs/drfs)")
+        if horizon_s is not None:
+            if solution != "drfs":
+                raise ValueError("horizon_s= (sliding time horizon) requires solution='drfs'")
+            horizon_s = float(horizon_s)
+            if not horizon_s > 0.0:
+                raise ValueError(f"horizon_s must be positive, got {horizon_s!r}")
+        if not auto_seal and solution != "drfs":
+            raise ValueError("auto_seal=False requires solution='drfs'")
         t0 = _time.perf_counter()
         self.net = net
         self.g = g
         self.solution = solution
         self.ls = lixel_sharing
         self.cascade = cascade
+        self.drfs_h0 = drfs_h0
+        self.drfs_exact_leaf = drfs_exact_leaf
+        self.auto_seal = bool(auto_seal)
+        self.horizon_s = horizon_s
         self.edge_block = edge_block
         self.atom_flush = atom_flush
         self.device = device
@@ -156,10 +192,14 @@ class TNKDE:
         self.index = None
         if solution == "rfs":
             self.index = RangeForest(net, self.ee, self.ctx, phi, build_bridges=cascade)
+        elif solution == "drfs":
+            self.index = DynamicRangeForest(
+                net, self.ee, self.ctx, phi, depth=drfs_depth, auto_seal=auto_seal
+            )
         self._engine_req = engine
         self._executor_req = executor
         self._build_engine()
-        # cumulative consumption cursors over the engine work counters
+        # cumulative consumption cursors over the index/engine work counters
         # (see _consume_counters)
         self._counter_cursor: dict = {}
         self._adj = adjacency_csr(net)
@@ -182,12 +222,11 @@ class TNKDE:
         there is no fallback to the host path."""
         self.engine = "numpy"
         self._fe = None
-        if self.solution == "rfs" and self._engine_req != "numpy":
-            from .rfs import FlatForestEngine
+        if self.solution in ("rfs", "drfs") and self._engine_req != "numpy":
+            from .rfs import FlatDynamicEngine, FlatForestEngine
 
-            self._fe = FlatForestEngine(
-                self.index, executor=self._executor_req, device=self.device
-            )
+            cls = FlatForestEngine if self.solution == "rfs" else FlatDynamicEngine
+            self._fe = cls(self.index, executor=self._executor_req, device=self.device)
             self.engine = "torch"
         self._plan_cache = PlanCache(2)
 
@@ -206,8 +245,192 @@ class TNKDE:
 
     @property
     def epoch(self):
-        """(revision, pend_revision) of the index — (0, 0): static indexes."""
+        """(revision, pend_revision) of the index — (0, 0) for static ones."""
+        if self.solution == "drfs":
+            return self.index.epoch
         return (0, 0)
+
+    def snapshot(self):
+        """Pin the current index state as an immutable read handle (MVCC).
+
+        For the streaming DRFS index this returns a :class:`drfs.DrfsSnapshot`
+        that ``query(ts, at=snap)`` evaluates against, so inserts, seals and
+        evictions issued after the pin are invisible to the query. Static
+        indexes are immutable: the handle is ``None``.
+        """
+        if self.solution == "drfs":
+            return self.index.snapshot()
+        return None
+
+    # ------------------------------------------------- planner event view
+    @property
+    def ee(self):
+        """The planner's per-edge event view (candidate pruning, self-edge
+        flags). Construction binds the full payload view (:class:`EdgeEvents`);
+        streaming inserts/evictions only dirty the per-edge *counts*, and the
+        view is lazily refreshed in O(E) as an :class:`EventCountsView` —
+        never an O(N log N) re-merge per insert. Payloads live in the index;
+        LS extremes live in ``ev_min_pos``/``ev_max_pos``."""
+        if self._ee_dirty:
+            ptr = np.zeros(self.net.n_edges + 1, np.int64)
+            np.cumsum(self._ev_counts, out=ptr[1:])
+            self._ee = EventCountsView(ptr=ptr, t_min=self._ee_tmin, t_max=self._ee_tmax)
+            self._ee_dirty = False
+        return self._ee
+
+    @ee.setter
+    def ee(self, value) -> None:
+        self._ee = value
+        self._ev_counts = np.diff(value.ptr).astype(np.int64)
+        self._ee_tmin = float(value.t_min)
+        self._ee_tmax = float(value.t_max)
+        self._ee_dirty = False
+
+    @property
+    def stream_t_max(self) -> float:
+        """Largest event timestamp seen so far — the stream clock
+        ``compact()`` resolves the horizon cutoff against when the caller
+        does not supply one."""
+        return self._ee_tmax
+
+    def _require_drfs(self, name: str) -> None:
+        if self.solution != "drfs":
+            raise ValueError(f"{name}() requires solution='drfs'")
+
+    def insert(self, events: Events) -> None:
+        """Streaming insertion (DRFS only, §5), vectorized over the batch.
+
+        One O(batch) step: validation, one φ-moment pass, one DRFS pending
+        append, and incremental per-dirty-edge planner updates (count bumps
+        + extreme min/max). Invalid batches (bad edge id, out-of-range
+        position, non-finite time) raise :class:`EventValidationError`
+        before any mutation. (The reference also logs the batch to an
+        attached WAL first; the port has no WAL yet — ROADMAP.md Queue A6.)
+        """
+        self._require_drfs("insert")
+        validate_events(self.net, events)
+        ctx = self.ctx
+        pos = events.pos  # validated in [0, edge_len] — no silent clipping
+        lens = self.net.edge_len[events.edge_id]
+        u_c = pos / lens
+        sig = lens / ctx.b_s
+        psi_c = ctx.ks.e_vec(u_c, sig)
+        psi_d = ctx.ks.e_vec(1.0 - u_c, sig)
+        v_l = (ctx.t_max - events.time) / ctx.t_span
+        v_r = (events.time - ctx.t_min) / ctx.t_span
+        tau_l = ctx.kt.e_vec(v_l, ctx.sigma_t)
+        tau_r = ctx.kt.e_vec(v_r, ctx.sigma_t)
+        n = events.n
+
+        def outer(a, b):
+            return (a[:, :, None] * b[:, None, :]).reshape(n, -1)
+
+        phi = np.stack(
+            [outer(psi_c, tau_l), outer(psi_c, tau_r), outer(psi_d, tau_l), outer(psi_d, tau_r)],
+            axis=1,
+        )
+        self.index.insert(events.edge_id.astype(np.int64), pos, events.time, phi)
+        # incremental planner update: O(batch) count/extreme bumps on the
+        # dirty edges only — the counts view refreshes lazily in O(E)
+        if n:
+            np.add.at(self._ev_counts, events.edge_id, 1)
+            tmin = float(events.time.min())
+            tmax = float(events.time.max())
+            if int(self._ev_counts.sum()) == n:  # first events ever seen
+                self._ee_tmin, self._ee_tmax = tmin, tmax
+            else:
+                self._ee_tmin = min(self._ee_tmin, tmin)
+                self._ee_tmax = max(self._ee_tmax, tmax)
+            self._ee_dirty = True
+            np.minimum.at(self.ev_min_pos, events.edge_id, pos)
+            np.maximum.at(self.ev_max_pos, events.edge_id, pos)
+
+    # --------------------------------------------- background compaction
+    @property
+    def needs_compaction(self) -> bool:
+        """True when a ``compact()`` would do useful work: the geometric
+        pending/sealed ratio crossed the seal threshold, or (with a
+        horizon) events have expired."""
+        if self.solution != "drfs":
+            return False
+        if self.index.needs_seal:
+            return True
+        if self.horizon_s is not None and self.index.n_sealed + self.index.n_pending:
+            return self._ee_tmin < self._ee_tmax - self.horizon_s
+        return False
+
+    def compact(self, t_now: Optional[float] = None) -> dict:
+        """One background-compaction step: evict expired events (sliding
+        horizon), then seal the pending buffers into the tree.
+
+        Runs off the insert path (with ``auto_seal=False`` insert never
+        seals) and off the query path (MVCC: pinned snapshots keep answering
+        over the pre-compaction arrays). ``t_now`` resolves the horizon
+        cutoff ``t_now - horizon_s``; default is the stream clock
+        ``stream_t_max``. After an eviction the device packs of older epochs
+        are released at once. Returns ``{"evicted": n, "sealed": n}``.
+        """
+        self._require_drfs("compact")
+        out = {"evicted": 0, "sealed": 0}
+        if self.horizon_s is not None:
+            t_now = self._ee_tmax if t_now is None else float(t_now)
+            if self._ee_tmin < t_now - self.horizon_s and (
+                self.index.n_sealed + self.index.n_pending
+            ):
+                out["evicted"] = self._apply_evict(t_now)
+        if self.index.n_pending:
+            out["sealed"] = self.index.n_pending
+            self.seal()
+        if out["evicted"] and self._fe is not None:
+            # drop device packs for pre-eviction epochs promptly so a
+            # horizon-bounded run's device footprint plateaus
+            self._fe.release_stale(self.index.epoch)
+        return out
+
+    def _apply_evict(self, t_now: float) -> int:
+        """Apply the eviction for resolved stream time ``t_now``. Updates the
+        planner's counts and per-edge extremes exactly for the touched
+        edges, so post-eviction LS classification stays exact."""
+        cutoff = float(t_now) - self.horizon_s
+        idx = self.index
+        removed = idx.evict_before(cutoff)
+        if removed is None:
+            return 0
+        self._ev_counts -= removed
+        self._ee_dirty = True
+        # recompute extremes for touched edges from the surviving events
+        touched = np.nonzero(removed)[0]
+        self.ev_min_pos[touched] = np.inf
+        self.ev_max_pos[touched] = -np.inf
+        cnts = np.diff(idx.ptr)
+        sl = ragged_arange(idx.ptr[touched], cnts[touched])
+        eo = np.repeat(touched, cnts[touched])
+        np.minimum.at(self.ev_min_pos, eo, idx.pos[sl])
+        np.maximum.at(self.ev_max_pos, eo, idx.pos[sl])
+        t_lo = float(idx.time.min()) if idx.n_sealed else np.inf
+        pcsr = idx.pending_csr()
+        if pcsr is not None:
+            pptr, pp, pt, _ = pcsr
+            pe = np.repeat(np.arange(self.net.n_edges, dtype=np.int64), np.diff(pptr))
+            m = removed[pe] > 0
+            np.minimum.at(self.ev_min_pos, pe[m], pp[m])
+            np.maximum.at(self.ev_max_pos, pe[m], pp[m])
+            t_lo = min(t_lo, float(pt.min()))
+        # advance the exact lower stream bound so needs_compaction / the
+        # next compact() gate correctly (never stale-high)
+        self._ee_tmin = t_lo if np.isfinite(t_lo) else self._ee_tmax
+        return int(removed.sum())
+
+    def seal(self) -> None:
+        """Merge the pending buffers into the sealed tree (incremental:
+        only dirty edges are re-aggregated)."""
+        self._require_drfs("seal")
+        self.index.seal()
+
+    def extend(self) -> None:
+        """Add one index depth level (Algorithm 4)."""
+        self._require_drfs("extend")
+        self.index.extend()
 
     def edge_geometries(self):
         """Yield the window-independent EdgeGeometry of every query edge with
@@ -234,14 +457,18 @@ class TNKDE:
                 if geom.x.shape[0]:
                     yield geom
 
-    def _host_plan(self):
-        """The window-independent packed query plan for the current epoch.
+    def _host_plan(self, snap=None):
+        """The window-independent packed query plan for the pinned epoch.
 
         One planning walk (Dijkstra + geometry + atoms + LS classification)
         per (epoch, LS-mode), LRU-cached — a warm query skips planning
-        entirely (DESIGN.md §7).
+        entirely (DESIGN.md §7). ``snap`` (a DRFS snapshot) keys the plan on
+        its epoch; the walk itself reads the live event view, a superset of
+        the snapshot's events, which is conservative: extra candidate atoms
+        evaluate to zero against the pinned index.
         """
-        key = (self.epoch, self.ls)
+        epoch = snap.epoch if snap is not None else self.epoch
+        key = (epoch, self.ls)
         plan = self._plan_cache.get(key)
         if plan is None:
             cap = (
@@ -255,16 +482,20 @@ class TNKDE:
             self._plan_cache.put(key, plan)
         return plan
 
-    def dispatch(self, ts: Sequence[float]) -> "PendingQuery":
+    def dispatch(self, ts: Sequence[float], *, at=None) -> "PendingQuery":
         """Begin a query asynchronously; returns a :class:`PendingQuery`.
 
         The host-side work — planning, window tables, atom packs — runs now,
         and the device flush is *enqueued* (CUDA launches are asynchronous),
         but the device→host transfer and the Lixel-Sharing dominated sweep
-        are deferred to :meth:`PendingQuery.result`. Host-only paths
-        (numpy/sps) evaluate eagerly here; ``result()`` then returns the
-        stored array.
+        are deferred to :meth:`PendingQuery.result`. ``at`` pins a
+        :meth:`snapshot` as in :meth:`query`; the pinned epoch is captured
+        before this call returns, so overlapping mutations stay invisible
+        (MVCC). Host-only paths (numpy/sps) evaluate eagerly here;
+        ``result()`` then returns the stored array.
         """
+        if at is not None and self.solution != "drfs":
+            raise ValueError("query(at=snapshot) requires solution='drfs'")
         ts = list(map(float, ts))
         t0 = _time.perf_counter()
         W = len(ts)
@@ -272,6 +503,10 @@ class TNKDE:
         F = np.zeros((W, L))
         if W == 0:
             return PendingQuery(self, ts, F)
+        snap = at
+        if snap is None and self.solution == "drfs":
+            snap = self.index.snapshot()
+        idx = snap if snap is not None else self.index
         ee, ctx = self.ee, self.ctx
         if self.solution == "sps":
             for geom in self.edge_geometries():
@@ -281,7 +516,7 @@ class TNKDE:
             self.stats.query_seconds += _time.perf_counter() - t0
             return PendingQuery(self, ts, F)
         # ---- packed plan: atoms + dominated work, cached per epoch ---------
-        plan = self._host_plan()
+        plan = self._host_plan(snap)
         self.stats.n_atoms += plan.n_atoms
         self.stats.n_pairs_dominated += plan.pairs[0]
         self.stats.n_pairs_out += plan.pairs[1]
@@ -292,36 +527,56 @@ class TNKDE:
             # device-resident (and the flush merely *enqueued*) until result()
             wb = self._fe.window_batch(ctx, ts)
             heat = self._fe.new_heatmap(L, W)
-            heat = self._fe.flush_plan(heat, plan, wb, tuple(ts))
+            heat = self._fe.flush_plan(
+                heat, plan, wb, tuple(ts),
+                h0=self.drfs_h0, exact_leaf=self.drfs_exact_leaf, snapshot=snap,
+            )
         else:
             for atoms in plan.blocks:
                 for w, t in enumerate(ts):
-                    vals = self.index.eval_atoms(atoms, t, cascade=self.cascade)
+                    if self.solution == "drfs":
+                        vals = idx.eval_atoms(atoms, t, h0=self.drfs_h0,
+                                              exact_leaf_scan=self.drfs_exact_leaf)
+                    else:
+                        vals = idx.eval_atoms(atoms, t, cascade=self.cascade)
                     np.add.at(F[w], atoms.lixel, vals)
         self.stats.query_seconds += _time.perf_counter() - t0
-        return PendingQuery(self, ts, F, heat=heat, plan=plan)
+        return PendingQuery(self, ts, F, heat=heat, idx=idx, plan=plan)
 
     def _consume_counters(self) -> None:
-        """Fold the engine work counters into ``stats`` via cumulative
+        """Fold the index/engine work counters into ``stats`` via cumulative
         cursors. Cursor-based (not bracketing snapshots) so overlapping
         in-flight dispatches never double-count — each unit of work is
-        consumed by exactly one ``result()``."""
-        if self._fe is None:
-            return
-        eng = self._fe.counters
-        for name, stat in (("rank_searches", "n_rank_searches"),
-                           ("moment_gathers", "n_moment_gathers"),
-                           ("bytes_moved", "bytes_moved")):
-            cur = int(eng[name])
-            prev = self._counter_cursor.get(name, 0)
-            setattr(self.stats, stat, getattr(self.stats, stat) + cur - prev)
-            self._counter_cursor[name] = cur
-        self.stats.bytes_per_shard = self._fe.bytes_per_shard
+        consumed by exactly one ``result()``; a counter that *shrank* means
+        its owner was replaced (an engine swapped in) and the cursor resets
+        with it."""
 
-    def query(self, ts: Sequence[float]) -> np.ndarray:
+        def fold(counters, pairs):
+            for name, stat in pairs:
+                cur = int(counters[name])
+                prev = self._counter_cursor.get(name, 0)
+                if cur < prev:
+                    prev = 0
+                setattr(self.stats, stat, getattr(self.stats, stat) + cur - prev)
+                self._counter_cursor[name] = cur
+
+        if self.solution == "drfs":
+            fold(self.index.counters, (("pending", "n_pending_scanned"),
+                                       ("partial", "n_partial_scanned")))
+        if self._fe is not None:
+            fold(self._fe.counters, (("rank_searches", "n_rank_searches"),
+                                     ("moment_gathers", "n_moment_gathers"),
+                                     ("bytes_moved", "bytes_moved")))
+            self.stats.bytes_per_shard = self._fe.bytes_per_shard
+
+    def query(self, ts: Sequence[float], *, at=None) -> np.ndarray:
         """KDE values for every lixel, for each window center in ts: [W, L]
-        float64. Equivalent to ``dispatch(ts).result()``."""
-        return self.dispatch(ts).result()
+        float64. ``at`` pins the query to a :meth:`snapshot` handle (DRFS
+        only): the result reflects exactly the event set visible when the
+        snapshot was taken. ``at=None`` reads the latest revision (one
+        snapshot is pinned per query internally, so a query never straddles
+        a mutation). Equivalent to ``dispatch(ts, at=at).result()``."""
+        return self.dispatch(ts, at=at).result()
 
 
 def _later_method(name, item):
@@ -345,18 +600,20 @@ class PendingQuery:
     Holds the device-resident [L, W] heatmap whose flush is enqueued but not
     necessarily finished; :meth:`result` blocks on the device (the one
     device→host transfer), applies the host-side Lixel-Sharing dominated
-    sweep, folds the work counters into ``TNKDE.stats`` and returns the
-    [W, L] array. Idempotent — repeated calls return the same materialized
-    array. Host-path dispatches arrive here already evaluated.
+    sweep against the pinned index view, folds the work counters into
+    ``TNKDE.stats`` and returns the [W, L] array. Idempotent — repeated
+    calls return the same materialized array. Host-path dispatches arrive
+    here already evaluated.
     """
 
-    __slots__ = ("_model", "_ts", "_F", "_heat", "_plan", "_done")
+    __slots__ = ("_model", "_ts", "_F", "_heat", "_idx", "_plan", "_done")
 
-    def __init__(self, model, ts, F, *, heat=None, plan=None):
+    def __init__(self, model, ts, F, *, heat=None, idx=None, plan=None):
         self._model = model
         self._ts = ts
         self._F = F
         self._heat = heat
+        self._idx = idx
         self._plan = plan
         self._done = plan is None  # W==0 / sps dispatches need no finalize
 
@@ -380,10 +637,11 @@ class PendingQuery:
             self._heat = None
         # ---- Lixel Sharing: dominated edges, batched across the network ----
         if self._plan.dominated:
-            dominated_sweep(self._F, model.index, model.ctx, self._plan.dominated,
+            dominated_sweep(self._F, self._idx, model.ctx, self._plan.dominated,
                             self._ts)
         model._consume_counters()
         model.stats.query_seconds += _time.perf_counter() - t0
+        model.stats.index_bytes = model.index.index_bytes
         self._done = True
-        self._plan = None  # drop the plan pin
+        self._idx = self._plan = None  # drop the snapshot/plan pins
         return self._F

@@ -20,6 +20,13 @@ gather per level with window-independent [M] state. The ``fused`` executor
 replaces that walk with one CUDA launch (``repro_torch.kernels.fused_walk``)
 over the same tables.
 
+The **DRFS** half (:class:`FlatDynamicForest`, :func:`dyn_window_tables`,
+:func:`dyn_node_tables`, :func:`eval_atoms_dyn`) serves the streaming index
+of ``drfs.DynamicRangeForest``: leaf-prefix tables (quantized mode) or
+complete-tree node values (exact mode) per (structure epoch, window batch),
+plus masked scans of the partially covered boundary leaves and of the
+pending buffers.
+
 Differences from the reference that matter to a reader:
 
 * out-of-range gathers raise in torch where jnp clamps, so every
@@ -41,8 +48,13 @@ import torch
 
 __all__ = [
     "FlatAtoms",
+    "FlatDynamicForest",
     "PackedForest",
     "WindowBatch",
+    "dyn_node_base",
+    "dyn_node_tables",
+    "dyn_window_tables",
+    "eval_atoms_dyn",
     "eval_atoms_packed",
     "packed_forest_from_numpy",
     "packed_node_tables",
@@ -68,6 +80,35 @@ class FlatAtoms(NamedTuple):
     lo1_right: torch.Tensor  # [M] bool
     pos_lo2: torch.Tensor  # [M]
     valid: torch.Tensor  # [M] bool (padding mask)
+
+
+class FlatDynamicForest(NamedTuple):
+    """Flat position-bisection tree tables for DRFS (see drfs.DynamicRangeForest).
+
+    Level-major packing: level d of the depth-(Lv-1) tree owns the slice
+    [d·Np, d·Np + N) of every per-event table (Np = padded event capacity).
+    ``node_ptr`` concatenates the per-level node CSRs (level d contributes
+    E·2^d + 1 entries starting at offset E·(2^d − 1) + d; values are
+    level-local in [0, N]). Events inside a node are time-sorted and carry
+    inclusive prefix sums of Φ, so a query needs no position searches at
+    all — the bisection structure resolves position, and only the *time*
+    boundaries are binary-searched, once per (window, node) in
+    :func:`dyn_window_tables` / :func:`dyn_node_tables`.
+
+    The pending (unsealed) buffers ride along as a per-edge CSR sorted by
+    (edge, time); queries scan them with a masked fixed-trip loop so
+    ``insert -> query`` never waits for a rebuild.
+    """
+
+    time_lvl: torch.Tensor  # [Lv*Np] per-node time-sorted event times (+inf pad)
+    pos_lvl: torch.Tensor  # [Lv*Np] event positions, same order
+    cum_lvl: torch.Tensor  # [Lv*Np, 4, K] per-node inclusive prefix moments
+    node_ptr: torch.Tensor  # [sum_d E*2^d + Lv] i64 concatenated per-level node CSRs
+    edge_len: torch.Tensor  # [E]
+    pend_ptr: torch.Tensor  # [E+1] i64 pending CSR by edge
+    pend_pos: torch.Tensor  # [Pp]
+    pend_time: torch.Tensor  # [Pp]
+    pend_phi: torch.Tensor  # [Pp, 4, K]
 
 
 class PackedForest(NamedTuple):
@@ -331,4 +372,273 @@ def eval_atoms_packed(
         val_l = val_l + acc[..., s] * atoms.qs[:, None, s]
         val_r = val_r + acc[..., k_s + s] * atoms.qs[:, None, s]
     out = torch.stack([val_l.T, val_r.T], dim=1).reshape(-1, M)
+    return torch.where(atoms.valid[None, :], out, 0.0)
+
+
+# ===================================================================== DRFS
+def _dyn_leaf_range(forest: FlatDynamicForest, atoms: FlatAtoms, hq: int):
+    """Fully-covered leaf range [leaf_lo, leaf_hi) at depth hq: [M] i64 each.
+
+    Mirrors drfs.DynamicRangeForest.leaf_range, with min/max/clip done in the
+    float domain *before* the int cast so the ±inf pads of invalid atoms
+    collapse to empty ranges instead of tripping undefined float->int casts.
+    """
+    lens = forest.edge_len[atoms.edge]
+    nleaf = 1 << hq
+    w_leaf = lens / nleaf
+    hi_ok = torch.floor(atoms.pos_hi / w_leaf).clamp_max(float(nleaf))
+    hi_ok = torch.where(atoms.pos_hi >= lens, float(nleaf), hi_ok.clamp_min(0.0))
+    lo1, lo2 = atoms.pos_lo1, atoms.pos_lo2
+    lo1_leaf = torch.where(
+        torch.isfinite(lo1),
+        torch.where(
+            atoms.lo1_right,
+            torch.floor(lo1 / w_leaf) + 1.0,  # need leaf start strictly > lo1
+            torch.ceil(lo1 / w_leaf),
+        ),
+        0.0,
+    )
+    lo2_leaf = torch.where(torch.isfinite(lo2), torch.ceil(lo2 / w_leaf), 0.0)
+    leaf_lo = torch.maximum(lo1_leaf, lo2_leaf).clamp(0.0, float(nleaf))
+    leaf_hi = hi_ok.clamp(0.0, float(nleaf))
+    return leaf_lo.to(torch.int64), leaf_hi.to(torch.int64)
+
+
+def _dyn_pos_mask(atoms: FlatAtoms, p):
+    """Event-position acceptance against the atom's three bounds: [M] bool."""
+    lo1_ok = torch.where(atoms.lo1_right, p > atoms.pos_lo1, p >= atoms.pos_lo1)
+    return (p <= atoms.pos_hi) & lo1_ok & (p >= atoms.pos_lo2)
+
+
+def _dyn_level_runs(forest: FlatDynamicForest, d: int, Np: int):
+    """(s_lo, s_hi) [E·2^d] i64: every depth-d node's run in the level tables."""
+    E = forest.pend_ptr.shape[0] - 1
+    NL = E << d
+    pb = E * ((1 << d) - 1) + d  # node_ptr offset of level d's CSR block
+    return (d * Np + forest.node_ptr[pb : pb + NL],
+            d * Np + forest.node_ptr[pb + 1 : pb + NL + 1])
+
+
+def dyn_window_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: int,
+                      hq: int, search_steps: int):
+    """Per-(window, leaf-node) aggregates, prefix-summed along each edge.
+
+    The key hoist of the dynamic engine (DESIGN.md §5): the time boundaries
+    depend only on the *window*, and the bisection tree's leaves at depth hq
+    partition every edge, so the window-restricted moment of each leaf is
+    resolved ONCE per query — per (boundary, window, leaf) binary search +
+    prefix gather over the leaf's time-sorted run — and prefix-summed along
+    the leaf axis of each edge. An atom's fully-covered range then costs two
+    O(1) gathers (``Lcum[leaf_hi] − Lcum[leaf_lo]``).
+
+    Returns lcum [E·(nleaf+1)·2, W, 2K]: per (leaf-prefix, side) row the raw
+    paired moment vector [K left-half | K right-half] for every window (W
+    rides INSIDE the row). Raw Φ space: q_t is applied only after the caller
+    differences two prefixes, the association of the NumPy path. Leaves are
+    resolved ``FOLD_CHUNK`` at a time (same values, bounded transient
+    memory).
+    """
+    W = wb.t_lo.shape[0] // 2
+    K = forest.cum_lvl.shape[-1]
+    Np = forest.time_lvl.shape[0] // n_levels
+    E = forest.pend_ptr.shape[0] - 1
+    nleaf = 1 << hq
+    s_lo_all, s_hi_all = _dyn_level_runs(forest, hq, Np)
+    t_b, right_b = _dyn_boundaries(wb)
+    parts = []
+    for c0 in range(0, E * nleaf, FOLD_CHUNK):
+        s_lo = s_lo_all[c0 : c0 + FOLD_CHUNK]
+        i_b = _seg_search(
+            forest.time_lvl, s_lo[None, None], s_hi_all[c0 : c0 + FOLD_CHUNK][None, None],
+            t_b[..., None], right_b[..., None], search_steps,
+        )  # [3, W, n]
+        v = forest.cum_lvl[(i_b - 1).clamp_min(0)]  # [3, W, n, 4, K]
+        p = torch.where((i_b > s_lo[None, None])[..., None, None], v, 0.0)
+        # per-leaf window moments, paired per side: [.., side] = [K left | K right]
+        left = (p[1] - p[0])[..., 0::2, :]  # [W, n, 2, K] combos (ψ·left)
+        right = (p[2] - p[1])[..., 1::2, :]  # combos (ψ·right)
+        parts.append(torch.cat([left, right], dim=-1))  # [W, n, 2, 2K]
+    # per-edge inclusive leaf prefix with a leading zero row, laid out
+    # row-major [E·(nleaf+1)·2, W, 2K] for one-stacked-gather addressing
+    cum = torch.cat(parts, dim=1).reshape(W, E, nleaf, 2, 2 * K).cumsum(dim=2)
+    cum = torch.cat([torch.zeros_like(cum[:, :, :1]), cum], dim=2)
+    return cum.permute(1, 2, 3, 0, 4).reshape(E * (nleaf + 1) * 2, W, 2 * K)
+
+
+def dyn_node_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: int,
+                    hq: int, steps_per_level: tuple):
+    """q_t-contracted window moments of EVERY tree node up to depth hq.
+
+    The exact-mode companion of :func:`dyn_window_tables`: each node's time
+    window is resolved in its own run (per-level trip counts) and q_t is
+    folded immediately (:func:`_fold_node_level`), so the per-atom canonical
+    walk gathers node-local values — the rounding locality of the NumPy
+    node decomposition.
+
+    Returns the packed node-value layout :func:`packed_walk` and the fused
+    kernel consume: nodeval [TN·2, W, 2k_s] with TN = E·(2^{hq+1}−1); node
+    (d, e, i) lives at flat row (E·(2^d−1) + e·2^d + i)·2 + side.
+    """
+    Np = forest.time_lvl.shape[0] // n_levels
+    k_t = wb.qt.shape[1]
+    t_b, right_b = _dyn_boundaries(wb)
+    qtl, qtr = wb.qt[0::2], wb.qt[1::2]
+    parts = []
+    for d in range(hq + 1):
+        s_lo, s_hi = _dyn_level_runs(forest, d, Np)
+        for c0 in range(0, s_lo.shape[0], FOLD_CHUNK):
+            parts.append(
+                _fold_node_level(
+                    forest.time_lvl, forest.cum_lvl, s_lo[c0 : c0 + FOLD_CHUNK],
+                    s_hi[c0 : c0 + FOLD_CHUNK], t_b, right_b, qtl, qtr,
+                    int(steps_per_level[d]), k_t,
+                )
+            )
+    return torch.cat(parts, dim=0)
+
+
+def dyn_node_base(E: int, hq: int, device=None):
+    """[hq+1, E] i64 complete-tree node bases for :func:`packed_walk`: walk
+    level ``lev`` reads depth d = hq − lev, whose edge-e block starts at
+    E·(2^d − 1) + e·2^d in the :func:`dyn_node_tables` layout."""
+    e = torch.arange(E, dtype=torch.int64, device=device)
+    return torch.stack([E * ((1 << (hq - lev)) - 1) + e * (1 << (hq - lev))
+                        for lev in range(hq + 1)])
+
+
+def eval_atoms_dyn(forest: FlatDynamicForest, atoms: FlatAtoms, wb: WindowBatch, tables,
+                   *, n_levels: int, hq: int, scan_steps: int, pend_steps: int,
+                   exact: bool, tree: bool = True):
+    """DRFS per-atom aggregate for every half-window: [Wh, M].
+
+    Row order is (w0 left, w0 right, w1 left, ...); callers fold halves and
+    scatter onto lixels. Three phases, all window-batched:
+
+      1. the fully-covered leaf range [leaf_lo, leaf_hi) at depth ``hq``.
+         Quantized mode: two gathers into the per-edge leaf prefix tables
+         (``tables`` = (:func:`dyn_window_tables`,)). Exact mode: the
+         canonical ≤2-nodes-per-level walk over :func:`dyn_node_tables`
+         (``tables`` = (nodeval,)). ``tree=False`` skips this phase (the
+         fused executor answers it with one kernel launch);
+      2. ``exact`` mode: the ≤2 partially covered boundary leaves, scanned
+         ``scan_steps`` masked trips (≥ max leaf occupancy);
+      3. pending (unsealed) events: a masked per-edge CSR scan of
+         ``pend_steps`` trips (≥ max per-edge pending count), so streaming
+         inserts are visible without any rebuild.
+
+    The fixed-trip ``fori_loop`` of the reference is a Python loop of
+    masked trips here. The final contraction with q_s ⊗ q_t is unrolled
+    multiply-adds in a fixed (s, t) order — no ``einsum`` (see the module
+    note on duplicate window centers).
+    """
+    Wh = wb.t_lo.shape[0]
+    W = Wh // 2
+    M = atoms.edge.shape[0]
+    K = forest.cum_lvl.shape[-1]
+    Np = forest.time_lvl.shape[0] // n_levels
+    E = forest.pend_ptr.shape[0] - 1
+    dev, dt = forest.cum_lvl.device, forest.cum_lvl.dtype
+    eid = atoms.edge
+    side = atoms.side_feat.to(torch.int64)
+    nleaf = 1 << hq
+    t_b, _ = _dyn_boundaries(wb)
+    k_s = atoms.qs.shape[1]
+    k_t = wb.qt.shape[1]
+
+    # ---- phase 1: fully-covered leaf range [leaf_lo, leaf_hi) -------------
+    leaf_lo, leaf_hi = _dyn_leaf_range(forest, atoms, hq)
+    leaf_hi = torch.maximum(leaf_hi, leaf_lo)
+    # scan phases accumulate raw Φ moments (q_t applied at the end)
+    mom_l = torch.zeros((W, M, K), dtype=dt, device=dev)
+    mom_r = torch.zeros((W, M, K), dtype=dt, device=dev)
+    acc = None
+    if exact and tree:
+        (nodeval,) = tables
+        acc = packed_walk(nodeval, dyn_node_base(E, hq, dev), eid, side, leaf_lo, leaf_hi,
+                          max_levels=hq + 1)  # [M, W, 2k_s]
+    elif tree:
+        (lcum,) = tables
+        base = eid * ((nleaf + 1) * 2) + side
+        rows = lcum[base[None] + torch.stack([leaf_hi, leaf_lo]) * 2]  # [2, M, W, 2K]
+        tv = (rows[0] - rows[1]).permute(1, 0, 2)  # [W, M, 2K]
+        mom_l = mom_l + tv[..., :K]  # paired halves
+        mom_r = mom_r + tv[..., K:]
+
+    def masked_event_scan(mom_l, mom_r, s_lo, s_hi, on, times, poss, steps, prefix):
+        """Fixed-trip scan of the per-atom runs [s_lo, s_hi), masked by on.
+        ``prefix``: Φ rows differenced from the inclusive per-node prefix
+        table (sealed levels), else gathered raw (pending buffer)."""
+        table = (forest.cum_lvl if prefix else forest.pend_phi).reshape(-1, 2, 2 * K)
+        for j in range(steps):
+            i = s_lo + j
+            valid = on & (i < s_hi)
+            idx = torch.where(valid, i, 0)
+            te = times[idx]
+            p = poss[idx]
+            row = table[idx, side]  # [M, 2K]
+            if prefix and j > 0:
+                row = row - table[(idx - 1).clamp_min(0), side]
+            keep = valid & _dyn_pos_mask(atoms, p)
+            m_l = (te[None] >= t_b[0][:, None]) & (te[None] <= t_b[1][:, None])  # [W, M]
+            m_r = (te[None] > t_b[1][:, None]) & (te[None] <= t_b[2][:, None])
+            mom_l = mom_l + torch.where((m_l & keep[None])[..., None], row[None, :, :K], 0.0)
+            mom_r = mom_r + torch.where((m_r & keep[None])[..., None], row[None, :, K:], 0.0)
+        return mom_l, mom_r
+
+    # ---- phase 2 (exact mode): partially covered boundary leaves ----------
+    if exact and scan_steps > 0:
+        lens = forest.edge_len[eid]
+        w_leaf = lens / nleaf
+        pb = E * (nleaf - 1) + hq
+        inf = float("inf")
+        lo_eff = torch.maximum(
+            torch.where(torch.isfinite(atoms.pos_lo1), atoms.pos_lo1, -inf),
+            torch.where(torch.isfinite(atoms.pos_lo2), atoms.pos_lo2, -inf),
+        )
+        cl = torch.where(
+            torch.isfinite(lo_eff),
+            torch.floor(lo_eff / w_leaf).clamp(0.0, nleaf - 1.0),
+            -1.0,
+        ).to(torch.int64)
+        cu_f = torch.floor(atoms.pos_hi.clamp_min(0.0) / w_leaf).clamp(-1.0, nleaf - 1.0)
+        cu = torch.where((atoms.pos_hi >= lens) | (atoms.pos_hi < 0), -1.0, cu_f).to(torch.int64)
+        ok_cl = (cl >= 0) & (cl < leaf_lo)
+        ok_cu = (cu >= 0) & ((cu < leaf_lo) | (cu >= leaf_hi)) & ~(ok_cl & (cu == cl))
+        for leaf, ok in ((cl, ok_cl), (cu, ok_cu)):
+            pidx = pb + eid * nleaf + leaf.clamp(0, nleaf - 1)
+            mom_l, mom_r = masked_event_scan(
+                mom_l, mom_r, hq * Np + forest.node_ptr[pidx],
+                hq * Np + forest.node_ptr[pidx + 1], ok,
+                forest.time_lvl, forest.pos_lvl, scan_steps, True,
+            )
+
+    # ---- phase 3: pending (unsealed) events -------------------------------
+    if pend_steps > 0:
+        mom_l, mom_r = masked_event_scan(
+            mom_l, mom_r, forest.pend_ptr[eid], forest.pend_ptr[eid + 1],
+            torch.ones(M, dtype=torch.bool, device=dev),
+            forest.pend_time, forest.pend_pos, pend_steps, False,
+        )
+
+    # ---- contraction with the factored query: Σ_(s,t) (q_s·q_t)·mom, s-major
+    qtl, qtr = wb.qt[0::2], wb.qt[1::2]  # [W, k_t]
+    ml = mom_l.reshape(W, M, k_s, k_t)
+    mr = mom_r.reshape(W, M, k_s, k_t)
+    val_l = val_r = None
+    for s in range(k_s):
+        q_s = atoms.qs[None, :, s]  # [1, M]
+        for t in range(k_t):
+            tl = (q_s * qtl[:, None, t]) * ml[..., s, t]
+            tr = (q_s * qtr[:, None, t]) * mr[..., s, t]
+            val_l = tl if val_l is None else val_l + tl
+            val_r = tr if val_r is None else val_r + tr
+    if acc is not None:
+        wl = acc[..., 0] * atoms.qs[:, None, 0]  # [M, W]
+        wr = acc[..., k_s] * atoms.qs[:, None, 0]
+        for s in range(1, k_s):
+            wl = wl + acc[..., s] * atoms.qs[:, None, s]
+            wr = wr + acc[..., k_s + s] * atoms.qs[:, None, s]
+        val_l = val_l + wl.T
+        val_r = val_r + wr.T
+    out = torch.stack([val_l, val_r], dim=1).reshape(Wh, M)
     return torch.where(atoms.valid[None, :], out, 0.0)

@@ -1,4 +1,5 @@
-"""Fused packed-plan walk — ONE CUDA launch per flush (DESIGN.md §12).
+"""Fused packed-plan walk and fused leaf-prefix gather — ONE CUDA launch per
+flush (DESIGN.md §12).
 
 The ``executor='fused'`` kernel of the port. Where the plain-torch ``packed``
 executor runs the canonical climb as a Python loop of paired gathers (a few
@@ -14,10 +15,18 @@ It replaces the TPU kernel ``repro.kernels.fused_walk.fused_walk_pallas``
 and keeps its contract (shapes in, ``[G, W, Q]`` out, left emit before right
 emit, levels ascending), so both are held against the same oracle.
 
-This module holds the plain PyTorch version, :func:`fused_walk_ref` — what a
-CPU tensor gets and what the kernel is compared with on the card — and the
-``ctypes`` binding of the compiled kernel. The launching wrapper, with its
-checks and its launch count, is :func:`repro_torch.kernels.ops.fused_walk`.
+The second kernel, ``csrc/fused_leaf.cu``, is the DRFS quantized tree phase:
+per atom the difference of two per-edge leaf-prefix rows
+``lcum[hi·2+side] − lcum[lo·2+side]``, contracted per window with
+``q_s ⊗ q_t`` built in-kernel (s-major, left half + right half). It
+replaces ``repro.kernels.fused_walk.fused_leaf_pallas`` with the same
+contract.
+
+This module holds the plain PyTorch versions, :func:`fused_walk_ref` and
+:func:`fused_leaf_ref` — what a CPU tensor gets and what the kernels are
+compared with on the card — and the ``ctypes`` bindings of the compiled
+kernels. The launching wrappers, with their checks and launch counts, are
+:func:`repro_torch.kernels.ops.fused_walk` and ``ops.fused_leaf``.
 """
 from __future__ import annotations
 
@@ -25,7 +34,13 @@ import ctypes
 
 import torch
 
-__all__ = ["fused_walk_ref", "fused_walk_library", "MAX_LEVELS"]
+__all__ = [
+    "fused_leaf_library",
+    "fused_leaf_ref",
+    "fused_walk_library",
+    "fused_walk_ref",
+    "MAX_LEVELS",
+]
 
 MAX_LEVELS = 32  # the kernel's LevelOffsets capacity (csrc/fused_walk.cu)
 
@@ -79,5 +94,57 @@ def fused_walk_library(*, verbose: bool = False) -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.POINTER(i), i, i, p]
+        fn.restype = i
+    return lib
+
+
+def fused_leaf_ref(
+    lcum: torch.Tensor,  # [G, R, W·2K] per-edge leaf-prefix rows, R = (nleaf+1)·2
+    leaf_lo: torch.Tensor,  # [G, Q] fully-covered leaf range lo
+    leaf_hi: torch.Tensor,  # [G, Q]
+    side: torch.Tensor,  # [G, Q] event-feature side in {0, 1}
+    qs: torch.Tensor,  # [G, Q, k_s] spatial coefficient vectors
+    qtl: torch.Tensor,  # [W, k_t] left-half temporal vectors
+    qtr: torch.Tensor,  # [W, k_t] right-half temporal vectors
+) -> torch.Tensor:
+    """Quantized DRFS tree phase with the q_s ⊗ q_t contraction fused in:
+    [G, W, Q], halves folded. Plain PyTorch; the torch transcription of
+    ``repro.kernels.ref.fused_leaf``, in the kernel's association: for
+    k = s·k_t + t in order, ``(q_s[s]·q_t[w, t])·(hi[k] − lo[k])`` summed per
+    half, then left + right."""
+    G, R, _ = lcum.shape
+    Q, ks = qs.shape[1], qs.shape[2]
+    W, kt = qtl.shape
+    K = ks * kt
+    gi = torch.arange(G, device=lcum.device)[:, None]
+    side = side.to(torch.int64)
+
+    def rows(leaf):
+        idx = (leaf.to(torch.int64) * 2 + side).clamp(0, R - 1)
+        return lcum[gi, idx].reshape(G, Q, W, 2, K)
+
+    diff = rows(leaf_hi) - rows(leaf_lo)
+    vl = vr = None
+    for s in range(ks):
+        q_s = qs[:, :, None, s]  # [G, Q, 1]
+        for t in range(kt):
+            k = s * kt + t
+            tl = (q_s * qtl[None, None, :, t]) * diff[..., 0, k]
+            tr = (q_s * qtr[None, None, :, t]) * diff[..., 1, k]
+            vl = tl if vl is None else vl + tl
+            vr = tr if vr is None else vr + tr
+    return (vl + vr).permute(0, 2, 1).contiguous()  # [G, W, Q]
+
+
+def fused_leaf_library(*, verbose: bool = False) -> ctypes.CDLL:
+    """The compiled ``csrc/fused_leaf.cu``, built at first use, with the
+    argument types of ``fused_leaf_f64`` set."""
+    from ._build import load_library
+
+    lib = load_library("fused_leaf", verbose=verbose)
+    fn = lib.fused_leaf_f64
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = i
     return lib

@@ -10,7 +10,10 @@ The same seeded world goes through ``repro`` and ``repro_torch``:
   ≤ 1e-13 relative (float64 both sides; only the association of the small
   feature contractions differs);
 * ``FlatForestEngine.from_host_tables`` fed the REFERENCE's packed tables
-  answers like the port's own build.
+  answers like the port's own build;
+* the DRFS device functions (leaf ranges, leaf-prefix and node-value window
+  tables, all three phases of ``eval_atoms_dyn``) are held against
+  ``jax_engine`` on the same forest: ≤ 1e-12 relative.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +30,7 @@ import repro_torch.data.spatial as port_spatial
 from repro.core import TNKDE as RefTNKDE
 from repro.core.query_plan import build_host_plan as ref_build_host_plan
 from repro_torch.core import TNKDE
+from repro_torch.core.events import Events
 from repro_torch.core.query_plan import build_host_plan
 
 KW = dict(g=35.0, b_s=700.0, b_t=2.5 * 86400.0)
@@ -236,3 +240,118 @@ def test_packed_forest_from_numpy_types(hosts):
     assert meta["node_base_lvl"].shape == pf.node_base.T.shape
     assert meta["n_nodes"] == hosts[1]["n_nodes"]
     assert sum(int(s.shape[0]) for s in meta["node_starts"]) >= meta["n_nodes"]
+
+
+# ------------------------------------------------ DRFS device functions
+@pytest.fixture(scope="module")
+def dyn_sides():
+    """A port DRFS engine (CPU) with pending events, and the same forest,
+    window batch and atoms as jnp arrays for ``repro.core.jax_engine``."""
+    net, ev = _world(port_spatial)
+    o = np.argsort(ev.time, kind="stable")
+    sub = lambda lo, hi: Events(ev.edge_id[o][lo:hi], ev.pos[o][lo:hi], ev.time[o][lo:hi])  # noqa: E731
+    m = TNKDE(net, sub(0, 700), solution="drfs", engine="torch", executor="packed",
+              device="cpu", drfs_depth=4, **KW)
+    m.insert(sub(700, 800))
+    fe, snap = m._fe, m.snapshot()
+    sealed, pend = fe._get_sealed(snap), fe._get_pending(snap)
+    forest = fe._forest(sealed, pend)
+    ts = [2 * 86400.0, 11 * 86400.0, 2 * 86400.0]  # 11 days covers the pending events
+    wb = fe.window_batch(m.ctx, ts)
+    atoms = m._host_plan(snap).blocks[0]
+    fa = fe._device_atoms(atoms, np.arange(atoms.m))
+    hq = snap.depth
+
+    def steps(occ):
+        return max(int(np.ceil(np.log2(int(occ) + 1))) + 1, 1)
+
+    kw = dict(
+        n_levels=sealed.n_levels, hq=hq,
+        search_steps=steps(sealed.max_occ[hq]),
+        steps_per_level=tuple(steps(x) for x in sealed.max_occ[: hq + 1]),
+        scan_steps=-(-int(sealed.max_occ[hq]) // 8) * 8,
+        pend_steps=int(pend.pend_steps),
+    )
+    assert kw["pend_steps"] > 0 and kw["scan_steps"] > 0
+    with jax.enable_x64(True):
+        jf = je.FlatDynamicForest(**{k: jnp.asarray(v.numpy()) for k, v in forest._asdict().items()})
+        jwb = je.WindowBatch(*(jnp.asarray(x.numpy()) for x in wb))
+        jfa = je.FlatAtoms(*(jnp.asarray(x.numpy()) for x in fa))
+        lcum = je.dyn_window_tables(jf, jwb, n_levels=kw["n_levels"], hq=hq,
+                                    search_steps=kw["search_steps"])
+        nodeval = je.dyn_node_tables(jf, jwb, n_levels=kw["n_levels"], hq=hq,
+                                     steps_per_level=kw["steps_per_level"])
+        scan = dict(n_levels=kw["n_levels"], hq=hq, scan_steps=kw["scan_steps"],
+                    pend_steps=kw["pend_steps"])
+        leaf = je._dyn_leaf_range(jf, jfa, hq)
+        jx = dict(
+            lcum=np.asarray(lcum), nodeval=np.asarray(nodeval),
+            leaf_lo=np.asarray(leaf[0]), leaf_hi=np.asarray(leaf[1]),
+            quantized=np.asarray(je.eval_atoms_dyn(jf, jfa, jwb, (lcum,), exact=False, **scan)),
+            exact=np.asarray(je.eval_atoms_dyn(jf, jfa, jwb, (nodeval,), exact=True, **scan)),
+            scans=np.asarray(je.eval_atoms_dyn(jf, jfa, jwb, (), exact=True, tree=False, **scan)),
+        )
+    return forest, wb, fa, kw, jx
+
+
+def _close(got, want, tol=1e-12):
+    assert tuple(got.shape) == want.shape and got.dtype == torch.float64
+    scale = np.abs(want).max()
+    assert scale > 0 and np.abs(got.numpy() - want).max() <= tol * scale
+
+
+def test_dyn_leaf_range_exact(dyn_sides):
+    forest, _, fa, kw, jx = dyn_sides
+    lo, hi = te._dyn_leaf_range(forest, fa, kw["hq"])
+    assert np.array_equal(lo.numpy(), jx["leaf_lo"]) and np.array_equal(hi.numpy(), jx["leaf_hi"])
+    # padding atoms (pos_hi = -inf, pos_lo* = +inf) collapse to empty ranges
+    n = 4
+    pad = fa._replace(
+        lixel=fa.lixel[:n], edge=fa.edge[:n], side_feat=fa.side_feat[:n], qs=fa.qs[:n],
+        pos_hi=torch.full((n,), -np.inf, dtype=torch.float64),
+        pos_lo1=torch.full((n,), np.inf, dtype=torch.float64), lo1_right=fa.lo1_right[:n],
+        pos_lo2=torch.full((n,), np.inf, dtype=torch.float64), valid=torch.zeros(n, dtype=torch.bool),
+    )
+    lo, hi = te._dyn_leaf_range(forest, pad, kw["hq"])
+    assert bool((hi <= lo).all())
+
+
+def test_dyn_window_tables_match(dyn_sides, monkeypatch):
+    forest, wb, _, kw, jx = dyn_sides
+    args = dict(n_levels=kw["n_levels"], hq=kw["hq"], search_steps=kw["search_steps"])
+    lcum = te.dyn_window_tables(forest, wb, **args)
+    _close(lcum, jx["lcum"])
+    monkeypatch.setattr(te, "FOLD_CHUNK", 37)  # resolving leaves in chunks changes nothing
+    assert torch.equal(te.dyn_window_tables(forest, wb, **args), lcum)
+
+
+def test_dyn_node_tables_match(dyn_sides, monkeypatch):
+    forest, wb, _, kw, jx = dyn_sides
+    args = dict(n_levels=kw["n_levels"], hq=kw["hq"], steps_per_level=kw["steps_per_level"])
+    nodeval = te.dyn_node_tables(forest, wb, **args)
+    _close(nodeval, jx["nodeval"])
+    monkeypatch.setattr(te, "FOLD_CHUNK", 37)
+    assert torch.equal(te.dyn_node_tables(forest, wb, **args), nodeval)
+
+
+@pytest.mark.parametrize("phases", ["quantized", "exact", "scans"])
+def test_eval_atoms_dyn_matches(dyn_sides, phases):
+    """All three phases: the tree phase of either mode, the exact-mode
+    boundary-leaf scan and the pending scan (``scans`` = both scans alone,
+    ``tree=False``, as the fused executor runs them)."""
+    forest, wb, fa, kw, jx = dyn_sides
+    scan = dict(n_levels=kw["n_levels"], hq=kw["hq"], scan_steps=kw["scan_steps"],
+                pend_steps=kw["pend_steps"])
+    if phases == "quantized":
+        tabs = (te.dyn_window_tables(forest, wb, n_levels=kw["n_levels"], hq=kw["hq"],
+                                     search_steps=kw["search_steps"]),)
+        got = te.eval_atoms_dyn(forest, fa, wb, tabs, exact=False, **scan)
+    elif phases == "exact":
+        tabs = (te.dyn_node_tables(forest, wb, n_levels=kw["n_levels"], hq=kw["hq"],
+                                   steps_per_level=kw["steps_per_level"]),)
+        got = te.eval_atoms_dyn(forest, fa, wb, tabs, exact=True, **scan)
+    else:
+        got = te.eval_atoms_dyn(forest, fa, wb, (), exact=True, tree=False, **scan)
+    _close(got, jx[phases])
+    # window rows 0 and 2 are the same centre: bitwise equal (no einsum)
+    assert torch.equal(got[0:2], got[4:6])

@@ -17,6 +17,7 @@ import repro.data.spatial as ref_spatial
 import repro_torch.data.spatial as port_spatial
 from repro.core import TNKDE as RefTNKDE
 from repro_torch.core import TNKDE
+from repro_torch.core.events import Events
 
 KW = dict(g=35.0, b_s=700.0, b_t=2.5 * 86400.0)
 TS5 = [2 * 86400.0, 4 * 86400.0, 5.5 * 86400.0, 7 * 86400.0, 9 * 86400.0]
@@ -178,7 +179,9 @@ def test_x64_shim_does_not_leak():
 
 # ------------------------------------------------------ what is not served
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(solution="drfs"), "A4"),
+    # DRFS and its horizon are served; its table codec (A3's TableCodec and
+    # the delta-encoded leaf prefix of A4) is not
+    (dict(solution="drfs", table_codec="f32"), "A4"),
     (dict(solution="ada"), "A3"),
     (dict(table_codec="f32"), "A3"),
     (dict(table_codec="bf16"), "A3"),
@@ -186,7 +189,7 @@ def test_x64_shim_does_not_leak():
     (dict(executor="pallas"), "A5"),
     (dict(executor="search"), "A5"),
     (dict(executor="cascade"), "A5"),
-    (dict(horizon_s=3600.0), "A4"),
+    (dict(solution="drfs", horizon_s=3600.0, table_codec="bf16"), "A4"),
 ])
 def test_unsupported_arguments_raise_not_implemented(world, kwargs, match):
     net, ev = world
@@ -194,13 +197,30 @@ def test_unsupported_arguments_raise_not_implemented(world, kwargs, match):
         TNKDE(net, ev, device="cpu", **{**KW, **kwargs})
 
 
-@pytest.mark.parametrize("method", ["insert", "seal", "extend", "compact", "snapshot",
+STREAMING_METHODS = ("insert", "seal", "extend", "compact", "snapshot")  # served (Queue A4)
+
+
+@pytest.mark.parametrize("method", [*STREAMING_METHODS,
                                     "degrade", "attach_wal", "checkpoint", "restore"])
 def test_unsupported_methods_raise_not_implemented(world, method):
+    """Methods of later queue items raise NotImplementedError naming the
+    item; the streaming methods are served for solution='drfs' and, as in
+    the reference, refused by a static index (``snapshot`` pins nothing)."""
     net, ev = world
     m = TNKDE(net, ev, solution="rfs", engine="numpy", **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        getattr(m, method)()
+    if method not in STREAMING_METHODS:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
+            getattr(m, method)()
+        return
+    if method == "snapshot":
+        assert m.snapshot() is None
+        return
+    args = (Events(ev.edge_id[:3], ev.pos[:3], ev.time[:3]),) if method == "insert" else ()
+    with pytest.raises(ValueError, match=f"{method}\\(\\) requires solution='drfs'"):
+        getattr(m, method)(*args)
+    d = TNKDE(net, ev, solution="drfs", engine="numpy", drfs_depth=3, auto_seal=False, **KW)
+    getattr(d, method)(*args)  # served: no NotImplementedError
+    assert d.epoch[0] >= 3
 
 
 def test_bad_arguments_raise_value_error(world):
