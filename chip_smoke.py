@@ -5,7 +5,7 @@
 
 Builds the hand-written kernels from the sources in this checkout (one
 ``nvcc`` per source, all started together), holds each against its plain
-PyTorch version on the card, then drives the port's two paths at full width
+PyTorch version on the card, then drives the port's paths at full width
 over the Table-3 berkeley replica:
 
 * ``[main]`` a static RFS query, ``TNKDE(solution='rfs', engine='torch',
@@ -17,7 +17,17 @@ over the Table-3 berkeley replica:
   (quantized: ``fused_leaf``; exact: ``fused_walk`` on the complete tree),
   a pinned snapshot, two inserts of 5 % each, ``query(at=snapshot)`` and
   ``compact()``, each answer checked against the ``packed`` executor and,
-  in exact mode, the SPS oracle over the surviving events.
+  in exact mode, the SPS oracle over the surviving events;
+* ``[kernel]`` the per-bucket-search tier, ``executor='kernel'``: static RFS
+  through ``tree_query`` (after ``[main]``'s model is freed; held against
+  ``[main]``'s answer), then the streaming index (first 90 %, one insert of
+  5 %) in both modes through ``dyn_leaf_query`` (quantized) and
+  ``dyn_node_walk`` (exact), each answer held against the ``fused``
+  executor at the same snapshot and, in exact mode, the SPS oracle.
+
+Each path's launch counts are set to 0 just before it runs and read just
+after; ``[*-shapes]`` then holds every block the path gave a kernel against
+its plain version and times the largest.
 
 Any failed check raises (non-zero exit). Without a CUDA device it exits
 non-zero and prints no result.
@@ -26,7 +36,7 @@ Output, in order: the card's name and power limit as ``nvidia-smi`` gives
 them; one line per phase and step (with its time); one JSON line
 ``{"kernels": [...]}`` with one entry per (kernel, path): launches on that
 path, error against the plain version, time, the plain version's time and
-the roofline bound at the largest main-path block; and as the last line
+the roofline bound at the largest block of that path; and as the last line
 ``{"ok": true, "device": {...}}``.
 
 ``--cpu-rehearsal`` walks the same control flow on the CPU at a small scale
@@ -55,7 +65,8 @@ import repro_torch  # noqa: E402,F401 — fail before any output if the package 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_FLOPS = 34e12
 
-KERNEL_TOL = 1e-13  # f64, <= 24 addends per output; only association differs
+KERNEL_TOL = 1e-13  # f64, kernel vs its plain version; only association and FMA differ
+KERNELS = ("fused_walk", "fused_leaf", "tree_query", "dyn_leaf_query", "dyn_node_walk")
 PACKED_TOL = 1e-12  # fused vs packed executor, relative to max|F|
 SPS_TOL = 1e-10  # index vs index-free oracle, relative to max|F|
 SPS_EDGES = 32  # most query edges in the SPS sample
@@ -89,7 +100,9 @@ def layout_case(layout, G, Q, W, ks, device):
         offs, R = rfs_offs(n)
         rank_hi = n
     else:  # complete tree of height hq=n
-        offs = tuple((1 << (n - lev)) - 1 for lev in range(n + 1))
+        from repro_torch.kernels.dyn_query import tree_offs
+
+        offs = tree_offs(n)
         R = (1 << (n + 1)) - 1
         rank_hi = 1 << n
     rng = np.random.default_rng(R * 100 + Q)
@@ -103,21 +116,43 @@ def layout_case(layout, G, Q, W, ks, device):
             t(side, torch.int32), t(qs, torch.float64)), offs
 
 
-def compare_fused_walk(args, offs):
-    """(max_abs_err, max_rel_err) of ops.fused_walk against fused_walk_ref,
+def plain_version(name):
+    """The plain PyTorch version of ``ops.<name>``."""
+    from repro_torch.kernels import dyn_query, fused_walk, tree_query
+
+    return dict(fused_walk=fused_walk.fused_walk_ref, fused_leaf=fused_walk.fused_leaf_ref,
+                tree_query=tree_query.tree_query_ref,
+                dyn_leaf_query=dyn_query.dyn_leaf_query_ref,
+                dyn_node_walk=dyn_query.dyn_node_walk_ref)[name]
+
+
+def compare(name, args, **kw):
+    """(max_abs_err, max_rel_err) of ops.<name> against its plain version,
     relative to max|plain|; synchronises so a fault surfaces here."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_walk import fused_walk_ref
 
-    got = ops.fused_walk(*args, offs=offs)
+    got = getattr(ops, name)(*args, **kw)
     if got.is_cuda:
         torch.cuda.synchronize()
-    want = fused_walk_ref(*args, offs=offs)
-    require(got.shape == want.shape and got.dtype == torch.float64, "fused_walk output shape/dtype")
-    require(bool(torch.isfinite(got).all()), "fused_walk produced non-finite values")
+    want = plain_version(name)(*args, **kw)
+    require(got.shape == want.shape and got.dtype == torch.float64, f"{name} output shape/dtype")
+    require(bool(torch.isfinite(got).all()), f"{name} produced non-finite values")
     abs_err = float((got - want).abs().max()) if got.numel() else 0.0
     scale = float(want.abs().max()) if got.numel() else 1.0
     return abs_err, abs_err / (scale or 1.0)
+
+
+def reset_launches():
+    from repro_torch.kernels import ops
+
+    for name in KERNELS:
+        getattr(ops, name).launches = 0
+
+
+def read_launches():
+    from repro_torch.kernels import ops
+
+    return {name: getattr(ops, name).launches for name in KERNELS}
 
 
 def time_ms(fn, *, reps=10, flush=None):
@@ -190,7 +225,7 @@ def phase_kernels(device):
     worst_abs = worst_rel = 0.0
     for layout, G, Q, W, ks in cases:
         args, offs = layout_case(layout, G, Q, W, ks, device)
-        abs_err, rel = compare_fused_walk(args, offs)
+        abs_err, rel = compare("fused_walk", args, offs=offs)
         say("kernels", case=f"{layout}:G{G}:Q{Q}:W{W}:ks{ks}", max_abs_err=abs_err, max_rel_err=rel)
         require(rel <= KERNEL_TOL, f"fused_walk disagrees with its plain version: {rel}")
         worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
@@ -212,23 +247,6 @@ def leaf_case(nleaf, G, Q, W, ks, kt, device):
     t = lambda x, dt: torch.as_tensor(x, device=device).to(dt).contiguous()  # noqa: E731
     return (t(tab, torch.float64), t(lo, torch.int32), t(hi, torch.int32), t(side, torch.int32),
             t(qs, torch.float64), t(qtl, torch.float64), t(qtr, torch.float64))
-
-
-def compare_fused_leaf(args):
-    """(max_abs_err, max_rel_err) of ops.fused_leaf against fused_leaf_ref,
-    relative to max|plain|; synchronises so a fault surfaces here."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_walk import fused_leaf_ref
-
-    got = ops.fused_leaf(*args)
-    if got.is_cuda:
-        torch.cuda.synchronize()
-    want = fused_leaf_ref(*args)
-    require(got.shape == want.shape and got.dtype == torch.float64, "fused_leaf output shape/dtype")
-    require(bool(torch.isfinite(got).all()), "fused_leaf produced non-finite values")
-    abs_err = float((got - want).abs().max()) if got.numel() else 0.0
-    scale = float(want.abs().max()) if got.numel() else 1.0
-    return abs_err, abs_err / (scale or 1.0)
 
 
 def fused_leaf_bound(args):
@@ -267,12 +285,144 @@ def phase_leaf_kernels(device):
     ]
     worst_abs = worst_rel = 0.0
     for nleaf, G, Q, W, ks, kt in cases:
-        abs_err, rel = compare_fused_leaf(leaf_case(nleaf, G, Q, W, ks, kt, device))
+        abs_err, rel = compare("fused_leaf", leaf_case(nleaf, G, Q, W, ks, kt, device))
         say("kernels", kernel="fused_leaf", case=f"nleaf{nleaf}:G{G}:Q{Q}:W{W}:ks{ks}:kt{kt}",
             max_abs_err=abs_err, max_rel_err=rel)
         require(rel <= KERNEL_TOL, f"fused_leaf disagrees with its plain version: {rel}")
         worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
     return worst_abs, worst_rel
+
+
+def tree_case(n_events, G, Q, Wh, K4, device, empty_group=None):
+    """Seeded random inputs for tree_query, built as the reference's kernel
+    tests build them: per group a time-major merge tree over ``n_events``
+    events (level ℓ buckets 2^ℓ consecutive time ranks, position-sorted
+    inside with +inf padding at the end, inclusive prefix moments), rank
+    intervals, position bounds (every fifth slot a padding slot that selects
+    nothing) and query vectors. ``empty_group`` holds no events."""
+    from repro_torch.core.aggregation import next_pow2, segmented_cumsum
+
+    rng = np.random.default_rng(n_events * 31 + Q)
+    npad = next_pow2(n_events)
+    lvl = npad.bit_length()
+    pos = np.full((G, lvl, npad), np.inf)
+    cum = np.zeros((G, lvl, npad, K4))
+    ranks = np.arange(npad)
+    for g in range(G):
+        n = 0 if g == empty_group else n_events
+        pp = np.full(npad, np.inf)
+        pp[:n] = rng.uniform(0, 100, n)
+        ff = np.zeros((npad, K4))
+        ff[:n] = rng.normal(size=(n, K4))
+        for lev in range(lvl):
+            order = np.lexsort((pp, ranks >> lev))
+            pos[g, lev] = pp[order]
+            cum[g, lev] = segmented_cumsum(ff[order], np.arange(0, npad + 1, 1 << lev))
+    r_lo = rng.integers(0, n_events, (G, Wh, Q))
+    r_hi = np.maximum(rng.integers(0, n_events + 1, (G, Wh, Q)), r_lo)
+    ph, pl1, pl2 = rng.uniform(0, 110, (G, Q)), rng.uniform(-10, 100, (G, Q)), rng.uniform(-10, 60, (G, Q))
+    ph[:, ::5], pl1[:, ::5], pl2[:, ::5] = -np.inf, np.inf, np.inf
+    l1r = rng.random((G, Q)) < 0.5
+    qv = rng.normal(size=(G, Wh, Q, K4))
+    t = lambda x, dt: torch.as_tensor(x, device=device).to(dt).contiguous()  # noqa: E731
+    f, i = torch.float64, torch.int32
+    return (t(pos, f), t(cum, f), t(r_lo, i), t(r_hi, i), t(ph, f), t(pl1, f), t(l1r, i), t(pl2, f),
+            t(qv, f))
+
+
+def tree_query_bound(args):
+    """Least time the card could take for this call, from this input: the
+    larger of bytes/bandwidth and operations/peak f64. Bytes: each distinct
+    prefix row a non-empty bucket interval needs, the query row of every
+    (slot, half-window) with such a bucket, rank intervals, position bounds
+    and the output, each once (the position entries the searches probe are
+    left out: a lower bound). Operations: per non-empty bucket, the
+    difference, product and sum of every prefix value (3·K4)."""
+    from repro_torch.kernels.tree_query import tree_buckets
+
+    pos, cum, r_lo, r_hi, ph, pl1, l1r, pl2, qv = args
+    G, LVL, NPAD = pos.shape
+    K4 = cum.shape[-1]
+    live = torch.zeros(r_lo.numel(), dtype=torch.bool, device=pos.device)
+    rows, emitted, busy = [], 0, 0
+    for lev, lane, g, seg_lo, i_lo, i_hi in tree_buckets(pos, r_lo, r_hi, ph, pl1, l1r, pl2):
+        emitted += int(lane.numel())
+        on = i_hi > i_lo
+        busy += int(on.sum())
+        live[lane[on]] = True
+        base = (g * LVL + lev) * NPAD - 1
+        rows += [(base + i_hi)[on], (base + i_lo)[on & (i_lo > seg_lo)]]
+    distinct = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+    n_live = int(live.sum())
+    nbytes = ((distinct + n_live) * K4 * 8 + r_lo.numel() * (4 + 4 + 8)
+              + G * r_lo.shape[2] * (3 * 8 + 4))
+    flops = busy * 3 * K4
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS
+    return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
+                bytes=nbytes, flops=flops, buckets_emitted=emitted, buckets_nonempty=busy,
+                rows_distinct=distinct, live_lanes=n_live)
+
+
+def dyn_leaf_query_bound(args):
+    """Least time the card could take for this call, from this input: the
+    larger of bytes/bandwidth (each distinct prefix row a slot with a
+    non-empty leaf range needs, the two query rows of every such (slot,
+    window), per-slot state and the output, each once) and operations/peak
+    f64 (per live slot, window and prefix value: difference, product, sum)."""
+    tab, lo, hi, side, qv_l, qv_r = args
+    G, R, WK = tab.shape
+    W, Q, K = qv_l.shape[1], qv_l.shape[2], qv_l.shape[3]
+    live = hi > lo
+    g = torch.arange(G, device=tab.device)[:, None] * R
+    rows = torch.cat([(g + hi * 2 + side)[live], (g + lo * 2 + side)[live]])
+    distinct = int(torch.unique(rows).numel())
+    n_live = int(live.sum())
+    nbytes = distinct * WK * 8 + n_live * W * 2 * K * 8 + G * Q * 12 + G * W * Q * 8
+    flops = n_live * WK * 3
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS
+    return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
+                bytes=nbytes, flops=flops, live_slots=n_live, rows_distinct=distinct)
+
+
+def phase_kernel_kernels(device):
+    """The three kernels of executor='kernel' against their plain versions
+    on seeded sweeps: tree_query at npad 8/32/512 with ragged Q, W in {1, 5}
+    (2 or 10 half-windows), one group of all-+inf padding and the 4·k_s·k_t
+    = 484 query width of the gaussian kernels; dyn_leaf_query over the
+    reference's sweep, K = 121 (gaussian) and the main path's shape;
+    dyn_node_walk at hq 2/3/4 and 8. Returns the worst (abs, rel) error per
+    kernel."""
+    small = device == "cpu"  # the rehearsal keeps the CPU small
+    worst = {}
+
+    def check(name, case, args, **kw):
+        abs_err, rel = compare(name, args, **kw)
+        say("kernel-kernels", kernel=name, case=case, max_abs_err=abs_err, max_rel_err=rel)
+        require(rel <= KERNEL_TOL, f"{name} disagrees with its plain version: {rel}")
+        a, r = worst.get(name, (0.0, 0.0))
+        worst[name] = (max(a, abs_err), max(r, rel))
+
+    for n_events, G, Q, Wh, K4, empty in [
+        (7, 3, 33, 2, 16, None), (30, 5, 130, 10, 16, 2), (21, 3, 65, 10, 484, None),
+        (500, 4 if small else 64, 200 if small else 1000, 10, 16, None),
+    ]:
+        check("tree_query", f"npad{1 << (n_events - 1).bit_length()}:G{G}:Q{Q}:Wh{Wh}:K4{K4}",
+              tree_case(n_events, G, Q, Wh, K4, device, empty))
+    big_g = 40 if small else 4000
+    for nleaf, G, Q, W, ks, kt in [
+        (4, 3, 7, 1, 2, 1), (8, 3, 33, 3, 2, 2), (16, 3, 65, 2, 3, 1),
+        (32, 5, 130, 9, 11, 11), (256, big_g, 512, 5, 2, 2),
+    ]:
+        tab, lo, hi, side, qs, qtl, qtr = leaf_case(nleaf, G, Q, W, ks, kt, device)
+        rng = np.random.default_rng(nleaf + Q)
+        qv = [torch.as_tensor(rng.normal(size=(G, W, Q, ks * kt)), device=device) for _ in range(2)]
+        check("dyn_leaf_query", f"nleaf{nleaf}:G{G}:Q{Q}:W{W}:K{ks * kt}",
+              (tab, lo, hi, side, *qv))
+    for hq, G, Q, W, ks in [(2, 3, 7, 1, 2), (3, 3, 33, 2, 3), (4, 3, 65, 2, 2),
+                            (8, 40 if small else 2000, 512, 5, 2)]:
+        args, _ = layout_case(f"tree{hq}", G, Q, W, ks, device)
+        check("dyn_node_walk", f"tree{hq}:G{G}:Q{Q}:W{W}:ks{ks}", args, hq=hq)
+    return worst
 
 
 # ---------------------------------------------------------------- main path
@@ -310,7 +460,8 @@ def profile_warm(m, ts, path):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
         m.query(ts)
-        torch.cuda.synchronize()
+        if m._fe.device.type == "cuda":
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t1
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -342,7 +493,7 @@ def phase_main(args, device, card):
             torch.cuda.synchronize()
 
     # ---- the main path: cold then warm query, launch counts read around it
-    ops.fused_walk.launches = 0
+    reset_launches()
     c0 = dict(m._fe.counters)
     t1 = time.perf_counter()
     F_cold = m.query(ts)
@@ -354,8 +505,10 @@ def phase_main(args, device, card):
     F = m.query(ts)
     sync()
     warm_s = time.perf_counter() - t1
-    launches = ops.fused_walk.launches
+    counts = read_launches()
+    launches = counts.pop("fused_walk")
     warm_searches = m.stats.n_rank_searches - s0
+    require(not any(counts.values()), f"[main] launched another kernel: {counts}")
 
     packs = m._fe._pack_cache.get(((m.epoch, m.ls), "fused"))
     n_packs = len(packs)
@@ -408,7 +561,7 @@ def phase_main(args, device, card):
     say("main", card=card, fused_vs_packed=err_packed, rfs_vs_sps=err_sps, sps_lixels=len(ids),
         sps_s=round(sps_s, 3), packed_cold_s=round(packed_cold_s, 4),
         packed_warm_s=round(packed_warm_s, 4))
-    return m, ts, launches, dict(cold_s=cold_s, warm_s=warm_s)
+    return m, ts, F, launches, dict(cold_s=cold_s, warm_s=warm_s)
 
 
 def phase_main_shapes(m, ts, device, card):
@@ -435,7 +588,7 @@ def phase_main_shapes(m, ts, device, card):
         t_group += time.perf_counter() - t1
         kargs = (nv, entry["r_lo"], entry["r_hi"], entry["side"], entry["qs"])
         t1 = time.perf_counter()
-        abs_err, rel = compare_fused_walk(kargs, entry["offs"])  # syncs after the kernel
+        abs_err, rel = compare("fused_walk", kargs, offs=entry["offs"])  # syncs after the kernel
         t_kernel += time.perf_counter() - t1
         require(rel <= KERNEL_TOL, f"fused_walk vs plain at npad={entry['npad']}: {rel}")
         worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
@@ -457,22 +610,137 @@ def phase_main_shapes(m, ts, device, card):
     return worst_abs, worst_rel, shape, bound, timing
 
 
+# ------------------------------------------------ kernel tier, static RFS
+def phase_rfs_kernel(args, device, card, ts, F_main):
+    """``TNKDE(solution='rfs', executor='kernel')`` at full width, cold then
+    warm, once ``[main]``'s model is freed: one ``tree_query`` launch per
+    kernel entry per query and nothing else launched, warm == cold and
+    duplicate centres bitwise, the answer within PACKED_TOL of ``[main]``'s
+    (the fused executor, itself held against packed and SPS)."""
+    from repro_torch.core import TNKDE
+    from repro_torch.data.spatial import make_dataset
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    net, ev, _ = make_dataset("berkeley", scale=args.scale, seed=args.seed)
+    span = float(ev.time.max() - ev.time.min())
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    m = TNKDE(net, ev, g=50.0, b_s=800.0, b_t=0.2 * span, solution="rfs",
+              engine="torch", executor="kernel", device=device)
+    require(m.engine_desc == "torch/kernel", m.engine_desc)
+    say("kernel", path="rfs", edges=net.n_edges, events=ev.n, lixels=m.n_lixels,
+        build_s=round(time.perf_counter() - t0, 3))
+
+    # ---- the path: counts set to 0 here, read right after the warm query
+    reset_launches()
+    t1 = time.perf_counter()
+    F_cold = m.query(ts)
+    sync()
+    cold_s = time.perf_counter() - t1
+    cold_counts = read_launches()
+    s0 = m.stats.n_rank_searches
+    t1 = time.perf_counter()
+    F = m.query(ts)
+    sync()
+    warm_s = time.perf_counter() - t1
+    counts = read_launches()
+    launches = counts.pop("tree_query")
+    require(not any(counts.values()), f"[kernel] rfs launched another kernel: {counts}")
+
+    entries = m._fe._pack_cache.get(((m.epoch, m.ls), "kernel"))
+    n = len(entries)
+    require(n > 0, "the plan has no kernel entries")
+    if device != "cpu":
+        require(cold_counts["tree_query"] == n and launches == 2 * n,
+                f"tree_query launches {cold_counts['tree_query']}/{launches} for {n} entries")
+    require(m._fe.counters["fused_launches"] == 0, "the kernel executor counted fused launches")
+    require(m.stats.n_rank_searches == s0, "warm query searched again")
+    require(F.shape == F_main.shape and F.dtype == np.float64, "heatmap shape/dtype")
+    require(np.isfinite(F).all(), "NaN/inf in the heatmap")
+    require(np.array_equal(F, F_cold), "kernel: warm query differs from the cold one")
+    require(np.array_equal(F[1], F[4]), "kernel: duplicate window centres are not bitwise identical")
+    fmax = float(np.abs(F_main).max())
+    err = float(np.abs(F - F_main).max()) / fmax
+    require(err <= PACKED_TOL, f"kernel vs fused: {err}")
+    peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
+    if args.profile:
+        profile_warm(m, ts, f"{args.profile}.kernel-rfs")
+    table_bytes = sum(e["pos"].numel() * 8 + e["cum"].numel() * 8 for e in entries)
+    say("kernel", path="rfs", card=card, engine=m.engine_desc, atoms=m._host_plan().n_atoms,
+        entries=n, padded_slots=sum(e["side"].numel() for e in entries), launches=launches,
+        kernel_vs_fused=err, device_bytes=m._fe.device_bytes, entry_table_bytes=table_bytes,
+        max_memory_allocated=peak, cold_s=round(cold_s, 4), warm_s=round(warm_s, 4))
+    return m, launches, dict(cold_s=cold_s, warm_s=warm_s, err=err)
+
+
+def phase_rfs_kernel_shapes(m, ts, device, card):
+    """tree_query at the shapes the path gave it: every kernel entry is held
+    against the plain version; the largest (by slots × half-windows) is
+    timed, with its bound."""
+    from repro_torch.core.rfs import tree_query_args
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tree_query import tree_query_ref
+
+    fe = m._fe
+    entries = fe._pack_cache.get(((m.epoch, m.ls), "kernel"))
+    wb = fe.window_batch(m.ctx, ts)
+    ranks = fe.window_tables(wb, tuple(ts))
+    worst_abs = worst_rel = 0.0
+    big, big_n = None, -1
+    t1 = time.perf_counter()
+    for i, entry in enumerate(entries):
+        kargs = tree_query_args(ranks, entry, wb)
+        abs_err, rel = compare("tree_query", kargs)
+        require(rel <= KERNEL_TOL, f"tree_query vs plain at entry {i}: {rel}")
+        worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
+        if kargs[2].numel() > big_n:
+            big, big_n = i, kargs[2].numel()
+        del kargs
+    compare_s = time.perf_counter() - t1
+    kargs = tree_query_args(ranks, entries[big], wb)
+    G, LVL, NPAD = kargs[0].shape
+    shape = dict(G=G, LVL=LVL, NPAD=NPAD, Wh=kargs[2].shape[1], Q=kargs[2].shape[2],
+                 K4=kargs[1].shape[-1])
+    bound = tree_query_bound(kargs)
+    timing = dict(ms=None, plain_ms=None)
+    if device != "cpu":
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)  # 256 MB > L2
+        timing["ms"] = time_ms(lambda: ops.tree_query(*kargs), flush=flush)
+        timing["plain_ms"] = time_ms(lambda: tree_query_ref(*kargs), flush=flush)
+    say("kernel-shapes", path="rfs", card=card, kernel="tree_query", entries=len(entries),
+        max_abs_err=worst_abs, max_rel_err=worst_rel, compare_all_entries_s=round(compare_s, 3),
+        timed_shape=json.dumps(shape), ms=timing["ms"], plain_ms=timing["plain_ms"],
+        **bound)
+    return worst_abs, worst_rel, shape, bound, timing
+
+
 # ------------------------------------------------------------- DRFS path
 DRFS_FRACS = (0.2, 0.5, 0.8, 0.95, 0.5)  # window centres (span fractions), one duplicated
 
 
-def phase_drfs(args, device, card):
+# the kernel each DRFS executor launches per block: (quantized, exact)
+DRFS_KERNELS = dict(fused=("fused_leaf", "fused_walk"), kernel=("dyn_leaf_query", "dyn_node_walk"))
+
+
+def phase_drfs(args, device, card, *, executor="fused", versus="packed", inserts=2,
+               compact=True, tag="drfs"):
     """The streaming index at full width: build from the first 90 % of the
     events (by time), then in order — both modes cold and warm, pin
-    ``snap0``, two inserts of 5 % each (both modes after each),
-    ``query(at=snap0)``, ``compact()`` (both modes). Every answer is held
-    against the plain-torch ``packed`` engine swapped in on the same model,
-    exact answers also against the SPS oracle over the current event set."""
+    ``snap0``, ``inserts`` inserts of 5 % each (both modes after each) and,
+    with ``compact``, ``query(at=snap0)`` and ``compact()`` (both modes).
+    Every answer is held against the ``versus`` engine swapped in on the
+    same model at the same snapshot, exact answers also against the SPS
+    oracle over the current event set. The launch counts are set to 0 before
+    the first query and each query's own launches are summed: the
+    comparisons in between launch other kernels, which are not counted."""
     from repro_torch.core import TNKDE
     from repro_torch.core.events import Events, group_events_by_edge
     from repro_torch.core.rfs import FlatDynamicEngine
     from repro_torch.data.spatial import make_dataset
-    from repro_torch.kernels import ops
 
     def sync():
         if device != "cpu":
@@ -490,62 +758,69 @@ def phase_drfs(args, device, card):
     t_min = float(ev.time.min())
     span = float(ev.time.max()) - t_min
     ts = [t_min + f * span for f in DRFS_FRACS]
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
     m = TNKDE(net, part(0, n_base), g=50.0, b_s=800.0, b_t=0.2 * span, solution="drfs",
-              engine="torch", executor="fused", drfs_depth=8, auto_seal=False,
+              engine="torch", executor=executor, drfs_depth=8, auto_seal=False,
               horizon_s=0.9 * span, device=device)
     sync()
-    require(m.engine_desc == "torch/fused", m.engine_desc)
-    say("drfs", card=card, dataset="berkeley", scale=args.scale, edges=net.n_edges,
+    require(m.engine_desc == f"torch/{executor}", m.engine_desc)
+    say(tag, card=card, dataset="berkeley", scale=args.scale, edges=net.n_edges,
         base_events=n_base, batch_events=n_batch, lixels=m.n_lixels, depth=m.index.depth,
         index_bytes=m.index.index_bytes, build_s=round(time.perf_counter() - t0, 3))
-    packed = {}  # the plain-torch engine, built once, reused across epochs
+    other_fe = {}  # the comparison engine, built once, reused across epochs
     secs = {}
+    launches = dict.fromkeys(KERNELS, 0)
 
     def run(exact, step, *, at=None):
         """One query in one mode; checks launches, shape, duplicates."""
         m.drfs_exact_leaf = exact
-        kern, other = (ops.fused_walk, ops.fused_leaf) if exact else (ops.fused_leaf, ops.fused_walk)
+        kern = DRFS_KERNELS[executor][int(exact)]
         t1 = time.perf_counter()
         plan = m._host_plan(at if at is not None else m.snapshot())
         plan_s = time.perf_counter() - t1
-        l0, o0, f0 = kern.launches, other.launches, m._fe.counters["fused_launches"]
+        l0, f0 = read_launches(), m._fe.counters["fused_launches"]
         c0 = dict(m.index.counters)
         t1 = time.perf_counter()
         F = m.query(ts, at=at)
         sync()
         q_s = time.perf_counter() - t1
+        grew = {k: v - l0[k] for k, v in read_launches().items()}
+        for k, v in grew.items():
+            launches[k] += v
         nb = plan.n_blocks
         if device != "cpu":
-            require(kern.launches - l0 == nb and other.launches == o0,
-                    f"{step}: launches {kern.launches - l0}/{other.launches - o0} for {nb} blocks")
-        require(m._fe.counters["fused_launches"] - f0 == nb, f"{step}: fused_launches != blocks")
+            require(grew[kern] == nb and sum(grew.values()) == nb,
+                    f"{step}: launches {grew} for {nb} blocks of {kern}")
+        require(m._fe.counters["fused_launches"] - f0 == (nb if executor == "fused" else 0),
+                f"{step}: fused_launches")
         require(F.shape == (len(ts), m.n_lixels) and F.dtype == np.float64, f"{step}: shape/dtype")
         require(np.isfinite(F).all(), f"{step}: NaN/inf in the heatmap")
         require(float(np.abs(F).max()) > 0.0, f"{step}: the heatmap is all zeros")
         require(np.array_equal(F[1], F[4]), f"{step}: duplicate window centres differ")
         secs[step] = q_s
-        say("drfs", step=step, mode="exact" if exact else "quantized", epoch=list(plan.key[0]),
-            atoms=plan.n_atoms, blocks=nb, launches=kern.launches - l0, plan_s=round(plan_s, 3),
+        say(tag, step=step, mode="exact" if exact else "quantized", epoch=list(plan.key[0]),
+            atoms=plan.n_atoms, blocks=nb, launches=grew[kern], plan_s=round(plan_s, 3),
             flush_s=round(q_s, 4), pending=m.index.n_pending,
             pending_pairs=m.index.counters["pending"] - c0["pending"],
             partial_pairs=m.index.counters["partial"] - c0["partial"])
         return F
 
-    def vs_packed(F, exact, step):
-        """The same query through FlatDynamicEngine(executor='packed')."""
-        if "fe" not in packed:
-            packed["fe"] = FlatDynamicEngine(m.index, executor="packed", device=device)
-        fused_fe, cursor = m._fe, dict(m._counter_cursor)
-        m._fe, m._counter_cursor = packed["fe"], {}
+    def vs_other(F, exact, step):
+        """The same query through FlatDynamicEngine(executor=versus)."""
+        if "fe" not in other_fe:
+            other_fe["fe"] = FlatDynamicEngine(m.index, executor=versus, device=device)
+        own_fe, cursor = m._fe, dict(m._counter_cursor)
+        m._fe, m._counter_cursor = other_fe["fe"], {}
         m.drfs_exact_leaf = exact
         t1 = time.perf_counter()
-        F_p = m.query(ts)
+        F_o = m.query(ts)
         sync()
-        m._fe, m._counter_cursor = fused_fe, cursor
-        err = float(np.abs(F - F_p).max()) / float(np.abs(F_p).max())
-        require(err <= PACKED_TOL, f"{step}: fused vs packed {err}")
-        say("drfs", step=step, mode="exact" if exact else "quantized", fused_vs_packed=err,
-            packed_s=round(time.perf_counter() - t1, 4))
+        m._fe, m._counter_cursor = own_fe, cursor
+        err = float(np.abs(F - F_o).max()) / float(np.abs(F_o).max())
+        require(err <= PACKED_TOL, f"{step}: {executor} vs {versus} {err}")
+        say(tag, step=step, mode="exact" if exact else "quantized",
+            **{f"{executor}_vs_{versus}": err, f"{versus}_s": round(time.perf_counter() - t1, 4)})
         return err
 
     def vs_sps(F, step):
@@ -558,63 +833,66 @@ def phase_drfs(args, device, card):
         require(len(ids) >= 64, f"SPS sample too small: {len(ids)} lixels")
         err = float(np.abs(F[:, ids] - F_sps).max()) / float(np.abs(F).max())
         require(err <= SPS_TOL, f"{step}: drfs exact vs sps {err}")
-        say("drfs", step=step, exact_vs_sps=err, sps_lixels=len(ids), events=len(t_),
+        say(tag, step=step, exact_vs_sps=err, sps_lixels=len(ids), events=len(t_),
             sps_s=round(time.perf_counter() - t1, 3))
         return err
 
-    errs = dict(packed=0.0, sps=0.0)
+    errs = dict(versus=0.0, sps=0.0)
 
     def check(Fq, Fx, step):
-        errs["packed"] = max(errs["packed"], vs_packed(Fq, False, step), vs_packed(Fx, True, step))
+        errs["versus"] = max(errs["versus"], vs_other(Fq, False, step), vs_other(Fx, True, step))
         errs["sps"] = max(errs["sps"], vs_sps(Fx, step))
 
-    # ---- the main path: counts set to 0 here, read at the end of the phase
-    ops.fused_walk.launches = ops.fused_leaf.launches = 0
+    # ---- the path: counts set to 0 here; each query's own launches summed
+    reset_launches()
     Fq = run(False, "quantized-cold")
     require(np.array_equal(run(False, "quantized-warm"), Fq), "quantized: warm != cold")
     Fx = run(True, "exact-cold")
     require(np.array_equal(run(True, "exact-warm"), Fx), "exact: warm != cold")
     check(Fq, Fx, "base")
+    if args.profile:  # warm queries of the base epoch, no pending events
+        for exact, mode in ((False, "quantized"), (True, "exact")):
+            m.drfs_exact_leaf = exact
+            profile_warm(m, ts, f"{args.profile}.{tag}-{mode}")
     snap0, F_snap0 = m.snapshot(), Fx
-    for b in range(2):
+    for b in range(inserts):
         t1 = time.perf_counter()
         m.insert(part(n_base + b * n_batch, n_base + (b + 1) * n_batch))
-        say("drfs", step=f"insert{b + 1}", events=n_batch, pending=m.index.n_pending,
+        say(tag, step=f"insert{b + 1}", events=n_batch, pending=m.index.n_pending,
             epoch=list(m.epoch), insert_s=round(time.perf_counter() - t1, 3))
         require(m.index.n_pending == (b + 1) * n_batch, "insert did not stay pending")
         Fq, Fx = run(False, f"quantized-insert{b + 1}"), run(True, f"exact-insert{b + 1}")
         check(Fq, Fx, f"insert{b + 1}")
-    F_at = run(True, "exact-at-snap0", at=snap0)
-    require(np.array_equal(F_at, F_snap0), "query(at=snap0) differs from the pre-insert answer")
-    t1 = time.perf_counter()
-    out = m.compact()
-    sync()
-    compact_s = time.perf_counter() - t1
-    require(out["evicted"] > 0 and out["sealed"] > 0, f"compact() did nothing: {out}")
-    say("drfs", step="compact", card=card, evicted=out["evicted"], sealed=out["sealed"],
-        epoch=list(m.epoch), device_bytes=m._fe.device_bytes, compact_s=round(compact_s, 3))
-    Fq, Fx = run(False, "quantized-compacted"), run(True, "exact-compacted")
-    check(Fq, Fx, "compacted")
-    launches = dict(fused_leaf=ops.fused_leaf.launches, fused_walk=ops.fused_walk.launches)
+    if compact:
+        F_at = run(True, "exact-at-snap0", at=snap0)
+        require(np.array_equal(F_at, F_snap0), "query(at=snap0) differs from the pre-insert answer")
+        t1 = time.perf_counter()
+        out = m.compact()
+        sync()
+        compact_s = time.perf_counter() - t1
+        require(out["evicted"] > 0 and out["sealed"] > 0, f"compact() did nothing: {out}")
+        say(tag, step="compact", card=card, evicted=out["evicted"], sealed=out["sealed"],
+            epoch=list(m.epoch), device_bytes=m._fe.device_bytes, compact_s=round(compact_s, 3))
+        Fq, Fx = run(False, "quantized-compacted"), run(True, "exact-compacted")
+        check(Fq, Fx, "compacted")
+    mine = {k: launches[k] for k in DRFS_KERNELS[executor]}
+    require(sum(launches.values()) == sum(mine.values()), f"{tag}: other kernels launched: {launches}")
     if device != "cpu":
-        require(min(launches.values()) > 0, f"the DRFS path never launched a kernel: {launches}")
-    say("drfs", card=card, launches=json.dumps(launches), fused_vs_packed=errs["packed"],
-        exact_vs_sps=errs["sps"], device_bytes=m._fe.device_bytes,
+        require(min(mine.values()) > 0, f"the {tag} path never launched a kernel: {mine}")
+    peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
+    say(tag, card=card, launches=json.dumps(mine), **{f"{executor}_vs_{versus}": errs["versus"]},
+        exact_vs_sps=errs["sps"], device_bytes=m._fe.device_bytes, max_memory_allocated=peak,
         warm_quantized_s=round(secs["quantized-warm"], 4), warm_exact_s=round(secs["exact-warm"], 4))
-    if args.profile:
-        for exact, tag in ((False, "quantized"), (True, "exact")):
-            m.drfs_exact_leaf = exact
-            profile_warm(m, ts, f"{args.profile}.drfs-{tag}")
-    return m, ts, launches, secs
+    return m, ts, mine, secs
 
 
-def phase_drfs_shapes(m, ts, device, card):
-    """Both DRFS kernels at the shapes the main path gave them: every atom
-    block of the last epoch's plan, in both modes, against the plain
-    version; the largest block of each kernel is timed."""
+def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes"):
+    """Both DRFS kernels of the executor at the shapes the path gave them:
+    every atom block of the last epoch's plan, in both modes, against the
+    plain version; the largest block of each kernel is timed."""
     from repro_torch.core.rfs import _dyn_group, dyn_kernel_call
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_walk import fused_leaf_ref, fused_walk_ref
+    from repro_torch.kernels.dyn_query import tree_offs
 
     fe = m._fe
     snap = m.snapshot()
@@ -627,40 +905,38 @@ def phase_drfs_shapes(m, ts, device, card):
     if device != "cpu":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)  # 256 MB > L2
     result = {}
-    for exact, name, ref in ((False, "fused_leaf", fused_leaf_ref), (True, "fused_walk", fused_walk_ref)):
-        tables = fe.window_tables(wb, tuple(ts), snap, sealed, hq, exact)
+    for exact, name in enumerate(DRFS_KERNELS[executor]):
+        tables = fe.window_tables(wb, tuple(ts), snap, sealed, hq, bool(exact))
         worst_abs = worst_rel = 0.0
         biggest, big_n = None, -1
         for entry in packs:
-            grouped = _dyn_group(tables, entry["edges"], hq=hq, exact=exact, E=m.net.n_edges)
-            _, kargs, kw = dyn_kernel_call(forest, grouped, entry, wb, hq=hq, exact=exact)
-            got = getattr(ops, name)(*kargs, **kw)
-            if device != "cpu":
-                torch.cuda.synchronize()
-            want = ref(*kargs, **kw)
-            require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
-            abs_err = float((got - want).abs().max())
-            rel = abs_err / (float(want.abs().max()) or 1.0)
+            grouped = _dyn_group(tables, entry["edges"], hq=hq, exact=bool(exact), E=m.net.n_edges)
+            got_name, kargs, kw = dyn_kernel_call(forest, grouped, entry, wb, hq=hq,
+                                                  exact=bool(exact), executor=executor)
+            require(got_name == name, f"{executor} block called {got_name}, not {name}")
+            abs_err, rel = compare(name, kargs, **kw)
             require(rel <= KERNEL_TOL, f"{name} vs plain on a DRFS block: {rel}")
             worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
             if kargs[1].numel() > big_n:
                 biggest, big_n = (kargs, kw), kargs[1].numel()
-            del grouped, got, want
+            del grouped, kargs
         kargs, kw = biggest
         G, Q = kargs[1].shape
-        shape = dict(G=G, R=kargs[0].shape[1], Q=Q, W=len(ts), k_s=kargs[4].shape[2],
+        shape = dict(G=G, R=kargs[0].shape[1], Q=Q, W=len(ts), k_s=int(m.ctx.k_s),
                      k_t=int(m.ctx.k_t), hq=hq)
-        bound = fused_walk_bound(kargs, kw["offs"]) if exact else fused_leaf_bound(kargs)
+        if not exact:
+            bound = fused_leaf_bound(kargs) if name == "fused_leaf" else dyn_leaf_query_bound(kargs)
+        else:
+            bound = fused_walk_bound(kargs, kw.get("offs", tree_offs(hq)))
         timing = dict(ms=None, plain_ms=None)
         if device != "cpu":
-            fn = getattr(ops, name)
+            fn, ref = getattr(ops, name), plain_version(name)
             timing["ms"] = time_ms(lambda: fn(*kargs, **kw), flush=flush)
             timing["plain_ms"] = time_ms(lambda: ref(*kargs, **kw), flush=flush)
-        say("drfs-shapes", card=card, kernel=name, mode="exact" if exact else "quantized",
+        say(tag, card=card, kernel=name, mode="exact" if exact else "quantized",
             blocks=len(packs), max_abs_err=worst_abs, max_rel_err=worst_rel,
             timed_shape=json.dumps(shape), ms=timing["ms"], plain_ms=timing["plain_ms"],
-            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-            **{k: v for k, v in bound.items() if k not in ("bound_ms", "bound_by")})
+            **bound)
         result[name] = (worst_abs, worst_rel, shape, bound, timing)
         del biggest, kargs, tables
     return result
@@ -670,9 +946,12 @@ def build_kernels():
     """Compile every kernel source, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.dyn_query import dyn_leaf_query_library
     from repro_torch.kernels.fused_walk import fused_leaf_library, fused_walk_library
+    from repro_torch.kernels.tree_query import tree_query_library
 
-    builders = dict(fused_walk=fused_walk_library, fused_leaf=fused_leaf_library)
+    builders = dict(fused_walk=fused_walk_library, fused_leaf=fused_leaf_library,
+                    tree_query=tree_query_library, dyn_leaf_query=dyn_leaf_query_library)
     t1 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
         futures = [pool.submit(b, verbose=True) for b in builders.values()]
@@ -681,13 +960,24 @@ def build_kernels():
     say("build", kernels=",".join(builders), seconds=round(time.perf_counter() - t1, 2))
 
 
+def free(device):
+    """Return the cached blocks of freed models to the card."""
+    import gc
+
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=float, default=1.0, help="berkeley replica scale (Table 3 = 1.0)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="PATH", default=None,
-                    help="also write torch.profiler tables of warm queries: the RFS one to PATH, "
-                         "the DRFS ones to PATH.drfs-quantized / PATH.drfs-exact")
+                    help="also write torch.profiler tables of warm queries: the RFS ones to PATH "
+                         "and PATH.kernel-rfs, the DRFS ones (base epoch) to "
+                         "PATH.drfs-quantized / PATH.drfs-exact and "
+                         "PATH.kernel-drfs-quantized / PATH.kernel-drfs-exact")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="walk the control flow on the CPU (no card, no result, exit code 3)")
     args = ap.parse_args()
@@ -714,37 +1004,61 @@ def main():
     t1 = time.perf_counter()
     abs1, rel1 = phase_kernels(device)
     labs, lrel = phase_leaf_kernels(device)
+    kworst = phase_kernel_kernels(device)
     say("kernels", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
-    m, ts, launches, secs = phase_main(args, device, card)
+    m, ts, F_main, launches, secs = phase_main(args, device, card)
     abs2, rel2, shape, bound, timing = phase_main_shapes(m, ts, device, card)
     del m
+    free(device)
     say("main", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
+    km, tq_launches, tq_secs = phase_rfs_kernel(args, device, card, ts, F_main)
+    tq_shapes = phase_rfs_kernel_shapes(km, ts, device, card)
+    del km
+    free(device)
+    say("kernel", path="rfs", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
     dm, dts, dlaunches, dsecs = phase_drfs(args, device, card)
     say("drfs", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
     dshapes = phase_drfs_shapes(dm, dts, device, card)
+    del dm
+    free(device)
     say("drfs-shapes", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
+    kdm, kdts, kdlaunches, kdsecs = phase_drfs(args, device, card, executor="kernel",
+                                               versus="fused", inserts=1, compact=False,
+                                               tag="kernel-drfs")
+    kdshapes = phase_drfs_shapes(kdm, kdts, device, card, executor="kernel",
+                                 tag="kernel-drfs-shapes")
+    del kdm
+    free(device)
+    say("kernel", path="drfs", seconds=round(time.perf_counter() - t1, 1))
 
     # each path's launches were read right after that path's queries: the
     # launches made since, to compare a kernel with its plain version, do
     # not count
     if device != "cpu":
         require(launches > 0, "the main path never launched fused_walk")
+        require(tq_launches > 0, "the rfs kernel path never launched tree_query")
 
-    def entry(name, path, n, err_abs, err_rel, shp, bnd, tm, replaces, **extra):
+    def entry(name, path, n, err_abs, err_rel, shp, bnd, tm, replaces, source=None, **extra):
         return dict(
             name=name, route="cuda", path=path,
-            source=f"src/repro_torch/kernels/csrc/{name}.cu", replaces=replaces,
+            source=f"src/repro_torch/kernels/csrc/{source or name}.cu", replaces=replaces,
             launches=n, max_abs_err=err_abs, max_rel_err=err_rel,
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
-            library_ms=None,  # no single PyTorch call computes either function
+            library_ms=None,  # no single PyTorch call computes any of these functions
             timed_shape=shp, card=card, **extra,
         )
 
     la, lr, lshape, lbound, ltiming = dshapes["fused_leaf"]
     wa, wr, wshape, wbound, wtiming = dshapes["fused_walk"]
+    ta, tr, tshape, tbound, ttiming = tq_shapes
+    qa, qr, qshape, qbound, qtiming = kdshapes["dyn_leaf_query"]
+    na, nr, nshape, nbound, ntiming = kdshapes["dyn_node_walk"]
+    kw_ = {k: kworst[k] for k in ("tree_query", "dyn_leaf_query", "dyn_node_walk")}
     kernels = [
         entry("fused_walk", "rfs", launches, max(abs1, abs2), max(rel1, rel2), shape, bound,
               timing, "src/repro/kernels/fused_walk.py:86",
@@ -755,6 +1069,18 @@ def main():
         entry("fused_leaf", "drfs-quantized", dlaunches["fused_leaf"], max(labs, la), max(lrel, lr),
               lshape, lbound, ltiming, "src/repro/kernels/fused_walk.py:177",
               main_path=dict(scale=args.scale, warm_s=dsecs["quantized-warm"])),
+        entry("tree_query", "rfs-kernel", tq_launches, max(kw_["tree_query"][0], ta),
+              max(kw_["tree_query"][1], tr), tshape, tbound, ttiming,
+              "src/repro/kernels/tree_query.py:104",
+              main_path=dict(scale=args.scale, cold_s=tq_secs["cold_s"], warm_s=tq_secs["warm_s"])),
+        entry("dyn_leaf_query", "drfs-kernel-quantized", kdlaunches["dyn_leaf_query"],
+              max(kw_["dyn_leaf_query"][0], qa), max(kw_["dyn_leaf_query"][1], qr), qshape,
+              qbound, qtiming, "src/repro/kernels/dyn_query.py:59",
+              main_path=dict(scale=args.scale, warm_s=kdsecs["quantized-warm"])),
+        entry("dyn_node_walk", "drfs-kernel-exact", kdlaunches["dyn_node_walk"],
+              max(kw_["dyn_node_walk"][0], na), max(kw_["dyn_node_walk"][1], nr), nshape,
+              nbound, ntiming, "src/repro/kernels/dyn_query.py:148", source="fused_walk",
+              main_path=dict(scale=args.scale, warm_s=kdsecs["exact-warm"])),
     ]
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -30,17 +30,21 @@ NumPy query engines, selectable with ``cascade``:
 
 The device engine (``FlatForestEngine``) runs the packed query plan
 (DESIGN.md §7) in PyTorch: host plans cached per snapshot epoch, window
-tables per ts tuple, and two executors over the same position-major tables —
-the gather-lean ``packed`` walk in plain torch (default) and ``fused``, ONE
-hand-written CUDA ``fused_walk`` launch per flush
-(``repro_torch.kernels.fused_walk``).
+tables per ts tuple, and three executors — the gather-lean ``packed`` walk
+in plain torch (default) and ``fused``, ONE hand-written CUDA ``fused_walk``
+launch per flush (``repro_torch.kernels.fused_walk``), both over the
+position-major tables, and ``kernel``, the per-bucket-search tier: ONE
+``tree_query`` launch per flush over per-edge grouped time-major tables
+(``repro_torch.kernels.tree_query``).
 
 ``FlatDynamicEngine`` does the same for the streaming DRFS index
 (``drfs.DynamicRangeForest``): device packs per snapshot epoch, window tables
 per (ts tuple, structure epoch, mode), and per atom block either the plain
 torch flush (``packed``) or ONE kernel launch for the tree phase (``fused``:
 ``fused_leaf`` in quantized mode, ``fused_walk`` over the complete tree in
-exact mode) plus the masked boundary-leaf and pending scans in plain torch.
+exact mode; ``kernel``: ``dyn_leaf_query`` over materialised query vectors,
+``dyn_node_walk``) plus the masked boundary-leaf and pending scans in plain
+torch.
 """
 from __future__ import annotations
 
@@ -62,11 +66,13 @@ from .aggregation import (
 from .events import EdgeEvents
 from .network import RoadNetwork
 from ..kernels import ops
+from ..kernels.dyn_query import tree_offs
 from .plan import AtomSet
 from .query_plan import PlanCache, group_atoms_by_edge
 from .torch_engine import (
     FlatAtoms,
     FlatDynamicForest,
+    FlatForest,
     WindowBatch,
     _dyn_leaf_range,
     dyn_node_tables,
@@ -76,6 +82,7 @@ from .torch_engine import (
     packed_forest_from_numpy,
     packed_node_tables,
     packed_root_ranks,
+    rank_boundaries,
 )
 
 __all__ = [
@@ -571,8 +578,10 @@ class _DeviceEngine:
         # bytes_moved): time-boundary search problems solved, prefix/node
         # moment rows gathered, and the bytes those gathers move (gather
         # count × gathered-row bytes) — host-side formulas matching what the
-        # executors dispatch. fused_launches counts fused_walk kernel
-        # launches (the fused executor pays exactly ONE per atom pack).
+        # executors dispatch. fused_launches counts the fused executor's
+        # launches (exactly ONE per atom pack); as in the reference, the
+        # kernel executor's launches are not counted there (the wrappers'
+        # own ``launches`` counts are).
         self.counters = {
             "rank_searches": 0,
             "moment_gathers": 0,
@@ -683,6 +692,45 @@ def _rfs_flush(nv_g, entry, heat):
     _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
 
 
+def _combo_query_vectors(qs, qt, side, half):
+    """q_vec [G, Wh, Qp, 4K] of the kernel executor: the slot's (side, half)
+    combo holds q_s ⊗ q_t (s-major), the other three combos zeros — the
+    kernel stays combo-agnostic. ``qs`` is masked (padding slots zero)."""
+    G, Qp, ks = qs.shape
+    Wh, kt = qt.shape
+    qfull = (qs[:, None, :, :, None] * qt[None, :, None, None, :]).reshape(G, Wh, Qp, 1, ks * kt)
+    combo = side.to(torch.int64)[:, None, :] * 2 + half.to(torch.int64)[None, :, None]
+    oh = torch.arange(N_COMBOS, device=qs.device) == combo[..., None]  # [G, Wh, Qp, 4]
+    return torch.where(oh[..., None], qfull, 0.0).reshape(G, Wh, Qp, N_COMBOS * ks * kt)
+
+
+def tree_query_args(ranks, entry, wb):
+    """The inputs of the ONE ``tree_query`` launch of a kernel-executor flush:
+    the per-edge (lo, mid, hi) time ranks broadcast to [G, Wh, Qp] (row
+    order w0 left, w0 right, w1 left, ...), the grouped tables and position
+    bounds of the entry, and the 4-combo query vectors."""
+    G, Qp = entry["side"].shape
+    Wh = wb.t_lo.shape[0]
+    k = ranks[:, :, entry["edges"]]  # [3, W, G]
+    r_lo = torch.stack([k[0], k[1]], dim=1).reshape(Wh, G).T
+    r_hi = torch.stack([k[1], k[2]], dim=1).reshape(Wh, G).T
+    r_lo = r_lo[:, :, None].expand(G, Wh, Qp).contiguous()
+    r_hi = r_hi[:, :, None].expand(G, Wh, Qp).contiguous()
+    q_vec = _combo_query_vectors(entry["qs"], wb.qt, entry["side"], wb.half)
+    return (entry["pos"], entry["cum"], r_lo, r_hi, entry["pos_hi"], entry["pos_lo1"],
+            entry["lo1_right"], entry["pos_lo2"], q_vec)
+
+
+def _rfs_kernel_flush(ranks, entry, wb, heat):
+    """ONE ``tree_query`` launch for the entry: [G, Wh, Qp], window halves
+    folded, then only the real atoms' rows scattered onto heat [L, W]."""
+    W = heat.shape[1]
+    out = ops.tree_query(*tree_query_args(ranks, entry, wb))  # [G, Wh, Qp]
+    per_win = out[:, 0::2] + out[:, 1::2]  # [G, W, Qp]
+    flat = per_win.permute(0, 2, 1).reshape(-1, W)
+    _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
+
+
 def _scatter_add(heat, lixel, rows):
     """heat[lixel[m], :] += rows[m, :] in place. ``index_put_`` with
     ``accumulate=True`` rather than ``index_add_``: on CUDA it sorts the
@@ -696,7 +744,7 @@ def _scatter_add(heat, lixel, rows):
 class FlatForestEngine(_DeviceEngine):
     """Device-resident window-batched query engine over a built RangeForest.
 
-    Solves the multiple-temporal-KDE hot loop (§8.2) on the GPU with two
+    Solves the multiple-temporal-KDE hot loop (§8.2) on the GPU with three
     interchangeable executors over the packed query plan (DESIGN.md §7):
 
       executor='packed'   (default) gather-lean plain-torch executor:
@@ -709,8 +757,15 @@ class FlatForestEngine(_DeviceEngine):
                           whole canonical walk + window contraction runs
                           in-kernel over per-edge grouped node values
                           (kernels/fused_walk.py).
+      executor='kernel'   ONE hand-written CUDA ``tree_query`` launch per
+                          atom pack over per-edge grouped slices of the
+                          time-major RangeForest tables: per (atom,
+                          half-window) the canonical time-rank decomposition
+                          with three position searches per bucket
+                          (kernels/tree_query.py). Window-side state is the
+                          [3, W, E] time-rank table (:func:`rank_boundaries`).
 
-    Both answer all W windows per flush into a device-resident [L, W]
+    All answer all W windows per flush into a device-resident [L, W]
     heatmap (float64 — exactness is part of the paper's claim), transferred
     once per query. ``device`` defaults to ``'cuda'``; with no card the
     constructor raises (pass ``device='cpu'`` for the plain-torch path).
@@ -721,7 +776,7 @@ class FlatForestEngine(_DeviceEngine):
         self._init_device(device)
         if executor in ("auto", None):
             executor = "packed"
-        if executor not in ("packed", "fused"):
+        if executor not in ("packed", "fused", "kernel"):
             raise ValueError(f"unknown rfs executor {executor!r}")
         self.rf = rf
         self.executor = executor
@@ -733,17 +788,43 @@ class FlatForestEngine(_DeviceEngine):
         self._pack_cache = PlanCache(2)  # plan.key -> device atom packs
         # (ts_key, plan.key, block) -> per-edge grouped node values (fused)
         self._group_cache = PlanCache(8)
-        host = build_packed_host_tables(rf) if host_tables is None else host_tables
-        pf, meta = packed_forest_from_numpy(host, self.device)
-        self._packed = dict(pf=pf, **meta)
+        self._packed = self._flat = None
+        if executor == "kernel":
+            self._flat = self._flat_forest()
+        else:
+            host = build_packed_host_tables(rf) if host_tables is None else host_tables
+            pf, meta = packed_forest_from_numpy(host, self.device)
+            self._packed = dict(pf=pf, **meta)
 
     @classmethod
     def from_host_tables(cls, rf: RangeForest, host: dict, *,
                          executor: str = "packed", device="cuda"):
         """Engine over index state built elsewhere: ``host`` is the dict
         ``build_packed_host_tables`` returns (this package's or the
-        reference's); ``rf`` supplies the block sizes and the context."""
+        reference's); ``rf`` supplies the block sizes and the context. The
+        ``kernel`` executor reads ``rf``'s time-major tables instead."""
         return cls(rf, executor=executor, device=device, host_tables=host)
+
+    def _flat_forest(self) -> FlatForest:
+        """The RangeForest's time-major tables on the device (the ``kernel``
+        executor). Empty tables get one padding row: gathers never see an
+        empty source."""
+        rf = self.rf
+
+        def pad1(x, fill):
+            return x if x.shape[0] else np.full((1,) + x.shape[1:], fill, x.dtype)
+
+        bridge = rf.bridge if rf.bridge is not None else np.zeros(1, np.int32)
+        return FlatForest(
+            pos_flat=self._f64(pad1(rf.pos_flat, np.inf)),
+            cum_flat=self._f64(pad1(rf.cum_flat, 0.0)),
+            edge_base=self._as(rf.edge_base[:-1], torch.int64),
+            n_pad=self._as(rf.n_pad, torch.int64),
+            n_lev=self._as(rf.n_levels, torch.int64),
+            time_flat=self._f64(pad1(rf.ee.time, np.inf)),
+            time_ptr=self._as(rf.ee.ptr, torch.int64),
+            bridge=self._as(pad1(bridge, 0), torch.int32),
+        )
 
     @property
     def device_bytes(self) -> int:
@@ -751,6 +832,7 @@ class FlatForestEngine(_DeviceEngine):
         grouped node values)."""
         return _device_nbytes(
             [
+                self._flat,
                 self._packed,
                 list(self._tab_cache.values()),
                 list(self._pack_cache.values()),
@@ -771,7 +853,8 @@ class FlatForestEngine(_DeviceEngine):
 
         packed: per block, per LEVEL class (edge tree depth rounded up to
         multiples of 3, so shallow-edge atoms never walk the deepest edge's
-        level count). fused: per block, per NPAD class (:meth:`_fused_pack`).
+        level count). fused / kernel: per block, per NPAD class
+        (:meth:`_fused_pack`, :meth:`_kernel_pack`).
         """
         key = (plan.key, self.executor)
         hit = self._pack_cache.get(key)
@@ -781,6 +864,9 @@ class FlatForestEngine(_DeviceEngine):
         for atoms in plan.blocks:
             if self.executor == "fused":
                 packs.extend(self._fused_pack(atoms))
+                continue
+            if self.executor == "kernel":
+                packs.extend(self._kernel_pack(atoms))
                 continue
             nl = self.rf.n_levels[atoms.edge]
             cls = np.minimum(-(-nl // 3) * 3, self.max_levels).astype(np.int64)
@@ -796,67 +882,99 @@ class FlatForestEngine(_DeviceEngine):
         self._pack_cache.put(key, packs)
         return packs
 
-    def _fused_pack(self, atoms):
-        """Per-edge grouped packed-plan layout for the fused executor: one
-        entry per NPAD size class (so every group in a launch shares its
-        node-row count), with the window-independent root rank intervals
-        searched once per plan and cached on the entry — the fused kernel's
-        only remaining inputs are the ts-keyed grouped node values. The
-        entry keeps just what a flush reads, already in the kernel's types:
-        masked ``qs`` (padding rows zeroed), int32 ranks and sides."""
-        rf = self.rf
-        entries = []
-        npad_of = rf.n_pad[atoms.edge]
+    def _grouped(self, atoms):
+        """The per-edge grouped [G, Qp] layout of one atom block, one entry
+        per NPAD size class (every group in a launch shares its table shape):
+        yields ``(npad, fa, entry)`` with the grouped atoms as device
+        FlatAtoms and the entry fields every kernel flush reads, already in
+        the kernels' types — masked ``qs`` (padding rows zeroed), int32
+        sides, the flat [G·Qp] slots of the real atoms and their lixels."""
+        npad_of = self.rf.n_pad[atoms.edge]
         for p in np.unique(npad_of):
-            sel = np.nonzero(npad_of == p)[0]
-            sub = atoms.take(sel)
+            sub = atoms.take(np.nonzero(npad_of == p)[0])
             _, cnt = np.unique(sub.edge, return_counts=True)
             qp = _size_class(int(cnt.max(initial=1)), floor=16)
             edges, fields, _ = group_atoms_by_edge(sub, q_pad=qp)
-            p_i, nlev = int(p), int(p).bit_length()
+            G = len(edges)
+            fa = self._flat_atoms(
+                fields, np.broadcast_to(edges[:, None], fields["lixel"].shape)
+            )
+            rows = torch.nonzero(fa.valid).reshape(-1)
+            yield int(p), fa, dict(
+                edges=self._as(edges, torch.int64),
+                rows=rows,
+                lixel=fa.lixel.index_select(0, rows),
+                side=fa.side_feat.reshape(G, qp),
+                qs=(fa.qs * fa.valid[:, None]).reshape(G, qp, -1),
+                m=sub.m,
+            )
+
+    def _fused_pack(self, atoms):
+        """Grouped packed-plan layout for the fused executor, with the
+        window-independent root rank intervals searched once per plan and
+        cached on the entry — the fused kernel's only remaining inputs are
+        the ts-keyed grouped node values."""
+        entries = []
+        for p, fa, entry in self._grouped(atoms):
+            G, qp = entry["side"].shape
+            nlev = p.bit_length()
             # walk level ℓ of an edge block holds npad >> ℓ node rows; the
             # kernel's static offs are their cumulative starts (node units)
             offs, o = [], 0
             for lev in range(nlev):
                 offs.append(o)
-                o += p_i >> lev
-            G = len(edges)
-            fa = self._flat_atoms(
-                fields, np.broadcast_to(edges[:, None], fields["lixel"].shape)
-            )
+                o += p >> lev
             r_lo, r_hi = packed_root_ranks(
                 self._packed["pf"], fa, search_steps=self.search_steps
             )
-            rows = torch.nonzero(fa.valid).reshape(-1)
-            entries.append(
-                dict(
-                    edges=self._as(edges, torch.int64),
-                    # flat [G·Qp] slots of the real atoms, and their lixels
-                    rows=rows,
-                    lixel=fa.lixel.index_select(0, rows),
-                    side=fa.side_feat.reshape(G, qp),
-                    qs=(fa.qs * fa.valid[:, None]).reshape(G, qp, -1),
-                    r_lo=r_lo.reshape(G, qp),
-                    r_hi=r_hi.reshape(G, qp),
-                    offs=tuple(offs),
-                    npad=p_i,
-                    m=sub.m,
-                    max_levels=nlev,
-                )
+            entry.update(r_lo=r_lo.reshape(G, qp), r_hi=r_hi.reshape(G, qp),
+                         offs=tuple(offs), npad=p, max_levels=nlev)
+            entries.append(entry)
+        return entries
+
+    def _kernel_pack(self, atoms):
+        """Grouped layout for the kernel executor: per entry the edges'
+        time-major tables ``pos [G, lvl, npad]`` / ``cum [G, lvl, npad, 4K]``
+        (slices of the flat forest, gathered on the device) and the atoms'
+        three position bounds, so a flush only adds the ts-keyed ranks and
+        the query vectors."""
+        ff = self._flat
+        entries = []
+        for p, fa, entry in self._grouped(atoms):
+            G, qp = entry["side"].shape
+            lvl = p.bit_length()
+            idx = ff.edge_base[entry["edges"]][:, None] + torch.arange(lvl * p, device=self.device)
+            entry.update(
+                pos=ff.pos_flat[idx].reshape(G, lvl, p),
+                cum=ff.cum_flat[idx].reshape(G, lvl, p, -1),
+                pos_hi=fa.pos_hi.reshape(G, qp),
+                pos_lo1=fa.pos_lo1.reshape(G, qp),
+                lo1_right=fa.lo1_right.reshape(G, qp).to(torch.int32),
+                pos_lo2=fa.pos_lo2.reshape(G, qp),
+                max_levels=lvl,
             )
+            entries.append(entry)
         return entries
 
     def window_tables(self, wb, ts_key):
-        """Per-(window batch) derived tables, LRU-cached by the ts tuple:
-        q_t-folded paired node values (the plan's core hoist — every time
-        search and every per-node prefix gather happens HERE, at node count
-        scale, never per atom)."""
+        """Per-(window batch) derived tables, LRU-cached by the ts tuple.
+
+        packed / fused: q_t-folded paired node values (the plan's core hoist
+        — every time search and every per-node prefix gather happens HERE,
+        at node count scale, never per atom). kernel: the [3, W, E]
+        time-rank boundary table shared by every flush of the query.
+        """
         key = (ts_key, self.executor)
         hit = self._tab_cache.get(key)
         if hit is not None:
             return hit
         W = len(ts_key)
         K = self.rf.ctx.K
+        if self.executor == "kernel":
+            tabs = rank_boundaries(self._flat, wb, search_steps=self.search_steps)
+            self.counters["rank_searches"] += 3 * W * self.rf.net.n_edges
+            self._tab_cache.put(key, tabs)
+            return tabs
         pk = self._packed
         tabs = packed_node_tables(
             pk["pf"], wb, pk["node_starts"],
@@ -876,7 +994,8 @@ class FlatForestEngine(_DeviceEngine):
 
         All window-dependent tables come from the ts-keyed cache, all
         atom-side state from the plan's pack cache — in steady state the
-        only work left is the walks (packed) or one launch per pack (fused).
+        only work left is the walks (packed) or one launch per pack (fused,
+        kernel).
         """
         if plan.n_atoms == 0:
             return heat
@@ -889,6 +1008,14 @@ class FlatForestEngine(_DeviceEngine):
         pk = self._packed
         for bi, entry in enumerate(packs):
             c, m = entry["max_levels"], entry["m"]
+            if self.executor == "kernel":
+                _rfs_kernel_flush(tabs, entry, wb, heat)
+                # two buckets of two [4, K] prefix rows per (half-window,
+                # level) of every atom: the reference's count for this tier
+                gathers = 4 * 2 * W * m * c
+                self.counters["moment_gathers"] += gathers
+                self.counters["bytes_moved"] += gathers * N_COMBOS * self.rf.ctx.K * 8
+                continue
             if self.executor == "packed":
                 fa = entry["fa"]
                 vals = eval_atoms_packed(
@@ -949,29 +1076,45 @@ def _dyn_group(tables, edges, *, hq: int, exact: bool, E: int):
     return tab.reshape(E, R, -1).index_select(0, edges)
 
 
-def dyn_kernel_call(forest, grouped, entry, wb, *, hq: int, exact: bool):
-    """The one kernel launch of a fused DRFS flush: ``(name, args, kwargs)``
-    for ``ops.<name>`` — exact mode ``fused_walk`` over the complete tree
-    (offs = 2^(hq−ℓ) − 1), quantized mode ``fused_leaf`` over the leaf
-    prefixes. Leaf ranges are resolved from the grouped slots' position
-    bounds (padding slots come out empty)."""
+def dyn_kernel_call(forest, grouped, entry, wb, *, hq: int, exact: bool, executor: str):
+    """The one kernel launch of a DRFS flush's tree phase: ``(name, args,
+    kwargs)`` for ``ops.<name>``. ``fused``: exact mode ``fused_walk`` over
+    the complete tree (offs = 2^(hq−ℓ) − 1), quantized mode ``fused_leaf``
+    with q_s ⊗ q_t built in-kernel. ``kernel``: exact mode ``dyn_node_walk``
+    on the same tree, quantized mode ``dyn_leaf_query`` over the
+    materialised per-half query vectors ``qv_l/qv_r [G, W, Qp, k_s·k_t]``
+    (masked q_s ⊗ q_t of the left / right temporal vectors, s-major). Leaf
+    ranges are resolved from the grouped slots' position bounds (padding
+    slots come out empty)."""
     G, Qp = entry["side"].shape
     leaf_lo, leaf_hi = _dyn_leaf_range(forest, entry["gfa"], hq)
     leaf_hi = torch.maximum(leaf_hi, leaf_lo)
     leaf_lo = leaf_lo.to(torch.int32).reshape(G, Qp)
     leaf_hi = leaf_hi.to(torch.int32).reshape(G, Qp)
+    base = (grouped, leaf_lo, leaf_hi, entry["side"])
+    qs = entry["qs"]
     if exact:
-        offs = tuple((1 << (hq - lev)) - 1 for lev in range(hq + 1))
-        return "fused_walk", (grouped, leaf_lo, leaf_hi, entry["side"], entry["qs"]), dict(offs=offs)
+        if executor == "kernel":
+            return "dyn_node_walk", (*base, qs), dict(hq=hq)
+        return "fused_walk", (*base, qs), dict(offs=tree_offs(hq))
     qtl = wb.qt[0::2].contiguous()
     qtr = wb.qt[1::2].contiguous()
-    return "fused_leaf", (grouped, leaf_lo, leaf_hi, entry["side"], entry["qs"], qtl, qtr), {}
+    if executor == "fused":
+        return "fused_leaf", (*base, qs, qtl, qtr), {}
+    W, k_t = qtl.shape
+    k_s = qs.shape[-1]
+
+    def qv(qt):
+        return (qs[:, None, :, :, None] * qt[None, :, None, None, :]).reshape(G, W, Qp, k_s * k_t)
+
+    return "dyn_leaf_query", (*base, qv(qtl), qv(qtr)), {}
 
 
-def _dyn_flush(forest, grouped, entry, wb, heat, *, hq: int, exact: bool):
+def _dyn_flush(forest, grouped, entry, wb, heat, *, hq: int, exact: bool, executor: str):
     """ONE kernel launch for the block's tree phase, scattered onto heat
     [L, W] in place — only the real atoms' slots (``entry["rows"]``)."""
-    name, args, kwargs = dyn_kernel_call(forest, grouped, entry, wb, hq=hq, exact=exact)
+    name, args, kwargs = dyn_kernel_call(forest, grouped, entry, wb, hq=hq, exact=exact,
+                                         executor=executor)
     out = getattr(ops, name)(*args, **kwargs)  # [G, W, Qp]
     flat = out.permute(0, 2, 1).reshape(-1, heat.shape[1])
     _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
@@ -1018,7 +1161,9 @@ class FlatDynamicEngine(_DeviceEngine):
     (:func:`eval_atoms_dyn`); ``fused`` answers the tree phase of each atom
     block with ONE kernel launch — ``fused_leaf`` in quantized mode,
     ``fused_walk`` over the complete tree in exact mode — and runs only the
-    boundary-leaf and pending scans in plain torch. Both the quantized-H₀
+    boundary-leaf and pending scans in plain torch; ``kernel`` does the same
+    with ``dyn_leaf_query`` (materialised query vectors) and
+    ``dyn_node_walk``. Both the quantized-H₀
     mode (partial boundary leaves dropped, paper §5.2) and the exact-leaf
     mode run on the device; scan work is accounted into the forest's
     counters host-side (same units as the NumPy path).
@@ -1029,7 +1174,7 @@ class FlatDynamicEngine(_DeviceEngine):
         self._init_device(device)
         if executor in ("auto", None):
             executor = "packed"
-        if executor not in ("packed", "fused"):
+        if executor not in ("packed", "fused", "kernel"):
             raise ValueError(f"unknown drfs executor {executor!r}")
         self.df = df
         self.executor = executor
@@ -1217,16 +1362,17 @@ class FlatDynamicEngine(_DeviceEngine):
 
     def _atom_packs(self, plan):
         """Device atom blocks for a HostPlan, LRU-cached per plan: the flat
-        block (scan phases and the packed executor) and, for ``fused``, the
-        per-edge grouped [G, Qp] layout the kernels read, already in their
-        types (masked ``qs``, int32 sides) with the real atoms' slots."""
+        block (scan phases and the packed executor) and, for ``fused`` and
+        ``kernel``, the per-edge grouped [G, Qp] layout the kernels read,
+        already in their types (masked ``qs``, int32 sides) with the real
+        atoms' slots."""
         hit = self._pack_cache.get(plan.key)
         if hit is not None:
             return hit
         packs = []
         for atoms in plan.blocks:
             entry = dict(fa=self._device_atoms(atoms, np.arange(atoms.m)), atoms=atoms, m=atoms.m)
-            if self.executor == "fused":
+            if self.executor != "packed":
                 _, cnt = np.unique(atoms.edge, return_counts=True)
                 qp = _size_class(int(cnt.max(initial=1)), floor=16)
                 edges, fields, _ = group_atoms_by_edge(atoms, q_pad=qp)
@@ -1301,8 +1447,10 @@ class FlatDynamicEngine(_DeviceEngine):
                 grouped = _dyn_group(tables, entry["edges"], hq=int(hq), exact=exact,
                                      E=snap.net.n_edges)
                 self._group_cache.put(gkey, grouped)
-            _dyn_flush(forest, grouped, entry, wb, heat, hq=int(hq), exact=exact)
-            self.counters["fused_launches"] += 1
+            _dyn_flush(forest, grouped, entry, wb, heat, hq=int(hq), exact=exact,
+                       executor=self.executor)
+            if self.executor == "fused":
+                self.counters["fused_launches"] += 1
             if scan_steps or pend.pend_steps:
                 _dyn_plain_flush(forest, entry["fa"], wb, (), heat, tree=False, **scan_kw)
         return heat

@@ -28,11 +28,16 @@ a level (``extend``) and answers against pinned snapshots
                   that cannot be built raises; there is no fallback.
 
 ``executor`` picks the device executor over the packed query plan:
-'packed' (plain torch, what 'auto' resolves to) or 'fused' (ONE
+'packed' (plain torch, what 'auto' resolves to), 'fused' (ONE
 hand-written CUDA launch per atom block: ``fused_walk`` for rfs and DRFS
-exact mode, ``fused_leaf`` for DRFS quantized mode; DESIGN.md §12). Every
-query reuses the plan cached for its (epoch, LS) pair — warm queries skip
-planning entirely — and window-side tables cached by the ts tuple
+exact mode, ``fused_leaf`` for DRFS quantized mode; DESIGN.md §12) or
+'kernel' (the per-bucket-search tier, ONE hand-written CUDA launch per atom
+block: ``tree_query`` over time-major grouped tables for rfs,
+``dyn_leaf_query`` over materialised query vectors for DRFS quantized mode,
+``dyn_node_walk`` for DRFS exact mode). 'kernel' is this package's name for
+the reference's ``executor='pallas'``, which raises ``ValueError`` here.
+Every query reuses the plan cached for its (epoch, LS) pair — warm queries
+skip planning entirely — and window-side tables cached by the ts tuple
 (DESIGN.md §7).
 
 What the reference package (``repro.core.tnkde``) serves and this one does
@@ -75,12 +80,11 @@ _LATER = {
         "delta-encoded leaf prefix of dyn_window_tables of Queue A4): ROADMAP.md Queue A3"
     ),
     "mesh": "mesh= (sharded forest): ROADMAP.md Queue A8",
-    "pallas": "executor='pallas' (kernel-per-level tier): ROADMAP.md Queue A5",
     "search": "executor='search' (legacy executor): ROADMAP.md Queue A5",
     "cascade": "executor='cascade' (legacy executor): ROADMAP.md Queue A5",
 }
 _LATER_METHODS = {
-    "degrade": "A5", "attach_wal": "A6", "checkpoint": "A6", "restore": "A6",
+    "degrade": "A7", "attach_wal": "A6", "checkpoint": "A6", "restore": "A6",
 }
 
 
@@ -151,9 +155,12 @@ class TNKDE:
             raise ValueError("engine='torch' accelerates the forest flush (solution='rfs'/'drfs')")
         if solution == "drfs" and executor in ("search", "cascade"):
             raise ValueError("search/cascade executors are rfs-only")
-        if executor in ("pallas", "search", "cascade"):
+        if executor == "pallas":
+            raise ValueError("executor='pallas' is the reference package's name: this "
+                             "package serves that tier as executor='kernel'")
+        if executor in ("search", "cascade"):
             raise NotImplementedError(_LATER[executor])
-        if executor not in ("auto", "packed", "fused"):
+        if executor not in ("auto", "packed", "fused", "kernel"):
             raise ValueError(f"unknown executor {executor!r}")
         if table_codec in ("f32", "bf16"):
             raise NotImplementedError(_LATER["table_codec"])
@@ -238,7 +245,8 @@ class TNKDE:
     @property
     def engine_desc(self) -> str:
         """Human-readable backend/executor that actually answers queries,
-        e.g. ``'torch/fused'``, ``'torch/packed'`` or ``'numpy'``."""
+        e.g. ``'torch/fused'``, ``'torch/kernel'``, ``'torch/packed'`` or
+        ``'numpy'``."""
         if self._fe is None:
             return "numpy"
         return f"{self.engine}/{self._fe.executor}"

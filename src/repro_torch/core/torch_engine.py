@@ -18,7 +18,10 @@ window values are q_t-folded once per (snapshot, window batch) at node-count
 scale (:func:`packed_node_tables`), leaving the per-atom walk one paired
 gather per level with window-independent [M] state. The ``fused`` executor
 replaces that walk with one CUDA launch (``repro_torch.kernels.fused_walk``)
-over the same tables.
+over the same tables. The ``kernel`` executor reads the time-major
+RangeForest tables instead (:class:`FlatForest`): its window-side state is
+the [3, W, E] time-rank table of :func:`rank_boundaries`, and its flush is
+one ``tree_query`` launch (``repro_torch.kernels.tree_query``).
 
 The **DRFS** half (:class:`FlatDynamicForest`, :func:`dyn_window_tables`,
 :func:`dyn_node_tables`, :func:`eval_atoms_dyn`) serves the streaming index
@@ -49,6 +52,7 @@ import torch
 __all__ = [
     "FlatAtoms",
     "FlatDynamicForest",
+    "FlatForest",
     "PackedForest",
     "WindowBatch",
     "dyn_node_base",
@@ -60,12 +64,29 @@ __all__ = [
     "packed_node_tables",
     "packed_root_ranks",
     "packed_walk",
+    "rank_boundaries",
 ]
 
 # node rows folded per step of packed_node_tables: bounds the transient
 # [3, W, chunk, 4, K] prefix gather (the level-0 fold of a full-size forest
 # would otherwise materialise several GB at once)
 FOLD_CHUNK = 1 << 18
+
+
+class FlatForest(NamedTuple):
+    """Time-major flat merge-tree tables for a set of edges (see
+    rfs.RangeForest): the layout of the ``kernel`` executor, whose per-edge
+    grouped ``tree_query`` tables are slices of ``pos_flat``/``cum_flat``,
+    and whose per-window time ranks come from :func:`rank_boundaries`."""
+
+    pos_flat: torch.Tensor  # [T] position-sorted bucket tables (+inf pad)
+    cum_flat: torch.Tensor  # [T, 4, K] inclusive per-bucket prefix moments
+    edge_base: torch.Tensor  # [E] i64 flat offset of each edge's block
+    n_pad: torch.Tensor  # [E] i64 padded event count (power of two; 0 = no events)
+    n_lev: torch.Tensor  # [E] i64 level count (log2(n_pad) + 1; 0 = no events)
+    time_flat: torch.Tensor  # [N] per-edge time-sorted event times
+    time_ptr: torch.Tensor  # [E+1] i64 event offsets
+    bridge: torch.Tensor  # [T] i32 left-child counts (zeros if not built)
 
 
 class FlatAtoms(NamedTuple):
@@ -215,6 +236,21 @@ def _dyn_boundaries(wb: WindowBatch):
     right_b = torch.zeros((3, W), dtype=torch.bool, device=t_b.device)
     right_b[1:] = True
     return t_b, right_b
+
+
+def rank_boundaries(forest: FlatForest, wb: WindowBatch, *, search_steps: int):
+    """Per-(boundary, window, edge) time-rank boundaries: [3, W, E] i32.
+
+    The (lo, mid, hi) ranks of every window center against every edge's
+    time-sorted events — independent of atoms, so the plan computes them
+    once per (snapshot, window batch) and every flush re-uses them.
+    """
+    tp = forest.time_ptr
+    s_lo = tp[:-1][None, None, :]
+    t_b, right_b = _dyn_boundaries(wb)
+    r_b = _seg_search(forest.time_flat, s_lo, tp[1:][None, None, :],
+                      t_b[..., None], right_b[..., None], search_steps) - s_lo
+    return r_b.to(torch.int32)
 
 
 def packed_root_ranks(pf: PackedForest, atoms: FlatAtoms, *, search_steps: int):

@@ -4,8 +4,10 @@ A wrapper takes its kernel's plain PyTorch version only for tensors that lie
 on the CPU. For a CUDA tensor it launches the compiled kernel or raises:
 there is no fallback and no switch that swaps the plain version in on the
 card. Each wrapper counts its launches in a plain integer attribute
-(``fused_walk.launches``, ``fused_leaf.launches``), incremented where the
-kernel is launched and nowhere else.
+(``fused_walk.launches``, ``fused_leaf.launches``, ``tree_query.launches``,
+``dyn_leaf_query.launches``, ``dyn_node_walk.launches``), incremented where
+the kernel is launched and nowhere else. ``dyn_node_walk`` launches the same
+compiled source as ``fused_walk`` but counts in its own attribute.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import ctypes
 
 import torch
 
+from .dyn_query import dyn_leaf_query_library, dyn_leaf_query_ref, dyn_node_walk_ref, tree_offs
 from .fused_walk import (
     MAX_LEVELS,
     fused_leaf_library,
@@ -20,8 +23,9 @@ from .fused_walk import (
     fused_walk_library,
     fused_walk_ref,
 )
+from .tree_query import tree_query_library, tree_query_ref
 
-__all__ = ["fused_leaf", "fused_walk"]
+__all__ = ["dyn_leaf_query", "dyn_node_walk", "fused_leaf", "fused_walk", "tree_query"]
 
 # the fused_leaf kernel holds the two [W, k_t] temporal vectors in shared
 # memory (csrc/fused_leaf.cu SMEM_MAX)
@@ -43,6 +47,42 @@ def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
+def _walk_launch(kernel, nodeval, r_lo, r_hi, side, qs, offs):
+    """Checks and launch of ``csrc/fused_walk.cu`` for a CUDA ``nodeval``:
+    the shared body of :func:`fused_walk` and :func:`dyn_node_walk` (each
+    counts its own launches)."""
+    if nodeval.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {nodeval.device}")
+    if nodeval.dim() != 3 or qs.dim() != 3:
+        raise ValueError(f"{kernel}: nodeval must be [G, R2, W*2*k_s] and qs [G, Q, k_s]")
+    G, R2, WC = nodeval.shape
+    Q, ks = int(qs.shape[1]), int(qs.shape[2])
+    if ks == 0 or WC % (2 * ks) or len(offs) > MAX_LEVELS:
+        raise ValueError(
+            f"{kernel}: row width {WC} is not W*2*k_s for k_s={ks}, "
+            f"or more than {MAX_LEVELS} levels ({len(offs)})"
+        )
+    W = WC // (2 * ks)
+    dev = nodeval.device
+    _check(kernel, "nodeval", nodeval, torch.float64, (G, R2, WC), dev)
+    _check(kernel, "qs", qs, torch.float64, (G, Q, ks), dev)
+    for name, t in (("r_lo", r_lo), ("r_hi", r_hi), ("side", side)):
+        _check(kernel, name, t, torch.int32, (G, Q), dev)
+    out = torch.empty((G, W, Q), dtype=torch.float64, device=dev)
+    if out.numel() == 0:
+        return out, False  # nothing to launch
+    lib = fused_walk_library()
+    c_offs = (ctypes.c_int * max(len(offs), 1))(*offs)
+    err = lib.fused_walk_f64(
+        nodeval.data_ptr(), r_lo.data_ptr(), r_hi.data_ptr(), side.data_ptr(),
+        qs.data_ptr(), out.data_ptr(), G, R2, Q, W, ks, c_offs, len(offs),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed (cudaError {err})")
+    return out, True
+
+
 def fused_walk(nodeval, r_lo, r_hi, side, qs, *, offs) -> torch.Tensor:
     """Fused packed-plan walk: the whole canonical climb + window contraction
     in one launch (see fused_walk.py): [G, W, Q] float64, halves folded.
@@ -55,36 +95,9 @@ def fused_walk(nodeval, r_lo, r_hi, side, qs, *, offs) -> torch.Tensor:
     offs = tuple(int(o) for o in offs)
     if nodeval.device.type == "cpu":
         return fused_walk_ref(nodeval, r_lo, r_hi, side, qs, offs=offs)
-    if nodeval.device.type != "cuda":
-        raise ValueError(f"fused_walk: unsupported device {nodeval.device}")
-    if nodeval.dim() != 3 or qs.dim() != 3:
-        raise ValueError("fused_walk: nodeval must be [G, R2, W*2*k_s] and qs [G, Q, k_s]")
-    G, R2, WC = nodeval.shape
-    Q, ks = int(qs.shape[1]), int(qs.shape[2])
-    if ks == 0 or WC % (2 * ks) or len(offs) > MAX_LEVELS:
-        raise ValueError(
-            f"fused_walk: row width {WC} is not W*2*k_s for k_s={ks}, "
-            f"or more than {MAX_LEVELS} levels ({len(offs)})"
-        )
-    W = WC // (2 * ks)
-    dev = nodeval.device
-    _check("fused_walk", "nodeval", nodeval, torch.float64, (G, R2, WC), dev)
-    _check("fused_walk", "qs", qs, torch.float64, (G, Q, ks), dev)
-    for name, t in (("r_lo", r_lo), ("r_hi", r_hi), ("side", side)):
-        _check("fused_walk", name, t, torch.int32, (G, Q), dev)
-    out = torch.empty((G, W, Q), dtype=torch.float64, device=dev)
-    if out.numel() == 0:
-        return out  # nothing to launch
-    lib = fused_walk_library()
-    c_offs = (ctypes.c_int * max(len(offs), 1))(*offs)
-    err = lib.fused_walk_f64(
-        nodeval.data_ptr(), r_lo.data_ptr(), r_hi.data_ptr(), side.data_ptr(),
-        qs.data_ptr(), out.data_ptr(), G, R2, Q, W, ks, c_offs, len(offs),
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_walk: kernel launch failed (cudaError {err})")
-    fused_walk.launches += 1
+    out, launched = _walk_launch("fused_walk", nodeval, r_lo, r_hi, side, qs, offs)
+    if launched:
+        fused_walk.launches += 1
     return out
 
 
@@ -138,3 +151,111 @@ def fused_leaf(lcum, leaf_lo, leaf_hi, side, qs, qtl, qtr) -> torch.Tensor:
 
 
 fused_leaf.launches = 0
+
+
+def tree_query(pos, cum, r_lo, r_hi, pos_hi, pos_lo1, lo1_right, pos_lo2, q_vec) -> torch.Tensor:
+    """Merge-tree range query (see tree_query.py): [G, Wh, Q] float64.
+
+    ``pos [G, LVL, NPAD]``, ``cum [G, LVL, NPAD, K4]``, ``pos_hi/pos_lo1/
+    pos_lo2 [G, Q]`` and ``q_vec [G, Wh, Q, K4]`` float64; ``r_lo/r_hi
+    [G, Wh, Q]`` and ``lo1_right [G, Q]`` int32; all contiguous and on one
+    device. Launches on the current stream and does not synchronise.
+    """
+    if pos.device.type == "cpu":
+        return tree_query_ref(pos, cum, r_lo, r_hi, pos_hi, pos_lo1, lo1_right, pos_lo2, q_vec)
+    if pos.device.type != "cuda":
+        raise ValueError(f"tree_query: unsupported device {pos.device}")
+    if pos.dim() != 3 or cum.dim() != 4 or r_lo.dim() != 3:
+        raise ValueError("tree_query: pos must be [G, LVL, NPAD], cum [G, LVL, NPAD, K4], "
+                         "r_lo [G, Wh, Q]")
+    G, LVL, NPAD = pos.shape
+    K4 = int(cum.shape[-1])
+    Wh, Q = int(r_lo.shape[1]), int(r_lo.shape[2])
+    if K4 == 0 or LVL > 31 or (LVL and NPAD == 0):
+        raise ValueError(f"tree_query: K4={K4}, LVL={LVL}, NPAD={NPAD} not served")
+    dev = pos.device
+    _check("tree_query", "pos", pos, torch.float64, (G, LVL, NPAD), dev)
+    _check("tree_query", "cum", cum, torch.float64, (G, LVL, NPAD, K4), dev)
+    _check("tree_query", "q_vec", q_vec, torch.float64, (G, Wh, Q, K4), dev)
+    for name, t in (("r_lo", r_lo), ("r_hi", r_hi)):
+        _check("tree_query", name, t, torch.int32, (G, Wh, Q), dev)
+    for name, t in (("pos_hi", pos_hi), ("pos_lo1", pos_lo1), ("pos_lo2", pos_lo2)):
+        _check("tree_query", name, t, torch.float64, (G, Q), dev)
+    _check("tree_query", "lo1_right", lo1_right, torch.int32, (G, Q), dev)
+    out = torch.empty((G, Wh, Q), dtype=torch.float64, device=dev)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    lib = tree_query_library()
+    err = lib.tree_query_f64(
+        pos.data_ptr(), cum.data_ptr(), r_lo.data_ptr(), r_hi.data_ptr(), pos_hi.data_ptr(),
+        pos_lo1.data_ptr(), lo1_right.data_ptr(), pos_lo2.data_ptr(), q_vec.data_ptr(),
+        out.data_ptr(), G, LVL, NPAD, Q, Wh, K4, _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"tree_query: kernel launch failed (cudaError {err})")
+    tree_query.launches += 1
+    return out
+
+
+tree_query.launches = 0
+
+
+def dyn_leaf_query(tab, leaf_lo, leaf_hi, side, qv_l, qv_r) -> torch.Tensor:
+    """Quantized DRFS tree phase with materialised query vectors (see
+    dyn_query.py): [G, W, Q] float64, halves folded.
+
+    ``tab [G, R, W·2K]`` and ``qv_l/qv_r [G, W, Q, K]`` float64,
+    ``leaf_lo/leaf_hi/side [G, Q]`` int32, all contiguous and on one device.
+    Launches on the current stream and does not synchronise.
+    """
+    if tab.device.type == "cpu":
+        return dyn_leaf_query_ref(tab, leaf_lo, leaf_hi, side, qv_l, qv_r)
+    if tab.device.type != "cuda":
+        raise ValueError(f"dyn_leaf_query: unsupported device {tab.device}")
+    if tab.dim() != 3 or qv_l.dim() != 4:
+        raise ValueError("dyn_leaf_query: tab must be [G, R, W*2*K] and qv_l [G, W, Q, K]")
+    G, R, WK = tab.shape
+    W, Q, K = int(qv_l.shape[1]), int(qv_l.shape[2]), int(qv_l.shape[3])
+    if K == 0 or WK != W * 2 * K:
+        raise ValueError(f"dyn_leaf_query: row width {WK} is not W*2*K for W={W}, K={K}")
+    dev = tab.device
+    _check("dyn_leaf_query", "tab", tab, torch.float64, (G, R, WK), dev)
+    for name, t in (("qv_l", qv_l), ("qv_r", qv_r)):
+        _check("dyn_leaf_query", name, t, torch.float64, (G, W, Q, K), dev)
+    for name, t in (("leaf_lo", leaf_lo), ("leaf_hi", leaf_hi), ("side", side)):
+        _check("dyn_leaf_query", name, t, torch.int32, (G, Q), dev)
+    out = torch.empty((G, W, Q), dtype=torch.float64, device=dev)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    lib = dyn_leaf_query_library()
+    err = lib.dyn_leaf_query_f64(
+        tab.data_ptr(), leaf_lo.data_ptr(), leaf_hi.data_ptr(), side.data_ptr(),
+        qv_l.data_ptr(), qv_r.data_ptr(), out.data_ptr(), G, R, Q, W, K,
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"dyn_leaf_query: kernel launch failed (cudaError {err})")
+    dyn_leaf_query.launches += 1
+    return out
+
+
+dyn_leaf_query.launches = 0
+
+
+def dyn_node_walk(nodeval, r_lo, r_hi, side, qs, *, hq) -> torch.Tensor:
+    """Exact-mode DRFS tree phase over the complete tree of height ``hq``
+    (see dyn_query.py): [G, W, Q] float64, halves folded. The inputs of
+    :func:`fused_walk`; launches ``csrc/fused_walk.cu`` with
+    ``offs = tree_offs(hq)`` and counts in ``dyn_node_walk.launches``.
+    """
+    if nodeval.device.type == "cpu":
+        return dyn_node_walk_ref(nodeval, r_lo, r_hi, side, qs, hq=int(hq))
+    out, launched = _walk_launch("dyn_node_walk", nodeval, r_lo, r_hi, side, qs,
+                                 tree_offs(int(hq)))
+    if launched:
+        dyn_node_walk.launches += 1
+    return out
+
+
+dyn_node_walk.launches = 0

@@ -12,7 +12,8 @@ package.
 * streaming interleavings are held against the reference NumPy DRFS
   (≤ 1e-12) and, in exact mode, against the port's index-free SPS oracle
   over the current event set (≤ 1e-9: a different algorithm);
-* work counters equal the reference's ``jax/packed`` and ``jax/fused``.
+* work counters equal the reference's ``jax/packed``, ``jax/fused`` and,
+  for ``executor='kernel'``, its ``executor='pallas'`` tier.
 """
 import jax
 import numpy as np
@@ -148,7 +149,7 @@ def _reference(worlds, ks, kt, exact, ls):
     return _REF[key]
 
 
-@pytest.mark.parametrize("executor", ["packed", "fused"])
+@pytest.mark.parametrize("executor", ["packed", "fused", "kernel"])
 @pytest.mark.parametrize("exact", [False, True])
 @pytest.mark.parametrize("ls", [False, True])
 @pytest.mark.parametrize("W", [1, 5])
@@ -195,7 +196,7 @@ def _script(rng, n_ops):
     return ops
 
 
-@pytest.mark.parametrize("executor", ["packed", "fused"])
+@pytest.mark.parametrize("executor", ["packed", "fused", "kernel"])
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_seeded_interleavings_match_reference_and_sps(seed, executor):
     (net, ev), (rnet, rev) = _small_worlds(7 + seed)
@@ -224,7 +225,7 @@ def test_seeded_interleavings_match_reference_and_sps(seed, executor):
             np.testing.assert_allclose(got, sps, rtol=1e-9, atol=1e-9 * max(sps.max(), 1.0))
 
 
-@pytest.mark.parametrize("executor", ["packed", "fused"])
+@pytest.mark.parametrize("executor", ["packed", "fused", "kernel"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_compact_under_horizon_matches_reference_and_sps(seed, executor):
     """Bulk inserts + compact() under a sliding horizon: after every
@@ -259,7 +260,7 @@ def test_compact_under_horizon_matches_reference_and_sps(seed, executor):
     assert evicted > 0
 
 
-@pytest.mark.parametrize("executor", ["packed", "fused"])
+@pytest.mark.parametrize("executor", ["packed", "fused", "kernel"])
 def test_pinned_snapshot_answers_its_epoch(worlds, executor):
     """MVCC: a snapshot pinned before an insert, a seal and an extend answers
     bitwise like the query taken at pin time; the live head moves on."""
@@ -279,10 +280,11 @@ def test_pinned_snapshot_answers_its_epoch(worlds, executor):
     np.testing.assert_allclose(m.query(TS5), sps, rtol=1e-9, atol=1e-9 * sps.max())
 
 
-@pytest.mark.parametrize("executor", ["packed", "fused"])
+@pytest.mark.parametrize("executor", ["packed", "fused", "kernel"])
 def test_warm_query_and_launch_accounting(worlds, executor):
     """Warm == cold bitwise; a warm query searches nothing; the fused engine
-    counts one launch per atom block per flush, in both modes."""
+    counts one launch per atom block per flush, in both modes (the kernel
+    executor, as the reference's pallas tier, counts none there)."""
     (net, ev), _ = worlds
     m = TNKDE(net, _sub(Events, ev, 0, N_BASE), solution="drfs", engine="torch",
               executor=executor, device="cpu", drfs_depth=5, **KW)
@@ -301,17 +303,26 @@ def test_warm_query_and_launch_accounting(worlds, executor):
 
 
 # -------------------------------------------------------------- counters
-@pytest.mark.parametrize("executor", ["packed", "fused"])
+# the reference's name of each executor and the engine_desc it reports
+REF_EXECUTOR = {"packed": ("packed", "jax/packed"), "fused": ("fused", "jax/fused"),
+                "kernel": ("pallas", "pallas/pallas")}
+
+
+@pytest.mark.parametrize("executor", ["packed", "fused", "kernel"])
 def test_counters_equal_reference_device_engine(worlds, x64_shim, executor):
     """n_rank_searches / n_moment_gathers / bytes_moved / n_pending_scanned /
     n_partial_scanned (and the launch count) follow the reference's
-    formulas: equal to its jax engine, both modes, cold and warm, with
-    pending events live and after a seal."""
+    formulas: equal to its jax engine (for ``kernel``, its
+    ``executor='pallas'`` tier), both modes, cold and warm, with pending
+    events live and after a seal."""
     (net, ev), (rnet, rev) = worlds
-    mk = dict(solution="drfs", executor=executor, drfs_depth=5, **KW)
-    ref = RefTNKDE(rnet, _sub(RefEvents, rev, 0, N_BASE), engine="jax", **mk)
-    m = TNKDE(net, _sub(Events, ev, 0, N_BASE), engine="torch", device="cpu", **mk)
-    assert ref.engine_desc == f"jax/{executor}"
+    ref_executor, ref_desc = REF_EXECUTOR[executor]
+    mk = dict(solution="drfs", drfs_depth=5, **KW)
+    ref = RefTNKDE(rnet, _sub(RefEvents, rev, 0, N_BASE), engine="jax", executor=ref_executor,
+                   **mk)
+    m = TNKDE(net, _sub(Events, ev, 0, N_BASE), engine="torch", device="cpu", executor=executor,
+              **mk)
+    assert ref.engine_desc == ref_desc and m.engine_desc == f"torch/{executor}"
     ts = TS5[:3]
     for step in ("insert", "query", "seal", "query"):
         if step == "insert":

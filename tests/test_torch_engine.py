@@ -11,6 +11,9 @@ The same seeded world goes through ``repro`` and ``repro_torch``:
   feature contractions differs);
 * ``FlatForestEngine.from_host_tables`` fed the REFERENCE's packed tables
   answers like the port's own build;
+* the kernel executor's time ranks (``rank_boundaries``) equal the
+  reference's exactly, and its grouped tables are exact slices of the
+  RangeForest's time-major tables;
 * the DRFS device functions (leaf ranges, leaf-prefix and node-value window
   tables, all three phases of ``eval_atoms_dyn``) are held against
   ``jax_engine`` on the same forest: ≤ 1e-12 relative.
@@ -240,6 +243,47 @@ def test_packed_forest_from_numpy_types(hosts):
     assert meta["node_base_lvl"].shape == pf.node_base.T.shape
     assert meta["n_nodes"] == hosts[1]["n_nodes"]
     assert sum(int(s.shape[0]) for s in meta["node_starts"]) >= meta["n_nodes"]
+
+
+# ------------------------------------------- kernel executor (time-major)
+def test_rank_boundaries_exact(models):
+    """The [3, W, E] time ranks of the kernel executor equal
+    ``jax_engine.rank_boundaries`` on the same RangeForest, exactly."""
+    ref, port = models
+    rf = ref.index
+    fe = port_rfs.FlatForestEngine(port.index, executor="kernel", device="cpu")
+    with jax.enable_x64(True):
+        ff = je.FlatForest(
+            pos_flat=jnp.asarray(rf.pos_flat), cum_flat=jnp.asarray(rf.cum_flat),
+            edge_base=jnp.asarray(rf.edge_base[:-1]), n_pad=jnp.asarray(rf.n_pad),
+            n_lev=jnp.asarray(rf.n_levels), time_flat=jnp.asarray(rf.ee.time),
+            time_ptr=jnp.asarray(rf.ee.ptr), bridge=jnp.asarray(rf.bridge))
+        t_lo, t_hi, lo_right, half, qt = ref_rfs.make_window_batch(ref.ctx, TS)
+        wb = je.WindowBatch(*(jnp.asarray(x) for x in (t_lo, t_hi, lo_right, half, qt)))
+        want = np.asarray(je.rank_boundaries(ff, wb, search_steps=fe.search_steps))
+    got = te.rank_boundaries(fe._flat, fe.window_batch(port.ctx, TS), search_steps=fe.search_steps)
+    assert got.dtype == torch.int32 and got.shape == (3, len(TS), port.net.n_edges)
+    assert np.array_equal(got.numpy(), want) and (want > 0).any()
+
+
+def test_kernel_pack_tables_are_forest_slices(models, plans):
+    """Every kernel-executor entry holds, per edge group, exactly that edge's
+    [lvl, npad] block of the RangeForest's time-major tables (the reference's
+    ``_pallas_pack`` layout), and the entries cover the block's atoms."""
+    _, port = models
+    rf = port.index
+    fe = port_rfs.FlatForestEngine(rf, executor="kernel", device="cpu")
+    atoms = plans[1].blocks[0]
+    entries = fe._kernel_pack(atoms)
+    assert len(entries) > 1 and sum(e["m"] for e in entries) == atoms.m
+    for e in entries:
+        G, lvl, p = e["pos"].shape
+        assert e["cum"].shape == (G, lvl, p, 4 * rf.ctx.K) and lvl == p.bit_length()
+        for g, edge in enumerate(e["edges"].tolist()):
+            lo = int(rf.edge_base[edge])
+            assert np.array_equal(e["pos"][g].numpy(), rf.pos_flat[lo:lo + lvl * p].reshape(lvl, p))
+            assert np.array_equal(e["cum"][g].numpy(),
+                                  rf.cum_flat[lo:lo + lvl * p].reshape(lvl, p, -1))
 
 
 # ------------------------------------------------ DRFS device functions

@@ -1,11 +1,15 @@
 """Port kernels vs the JAX package's oracles, on the CPU.
 
-``fused_walk_ref`` and ``fused_leaf_ref`` (the plain PyTorch versions the
-CUDA kernels are held against on the card) must agree with BOTH
-``repro.kernels.ref`` and the Pallas kernels in interpret mode, over the
+``fused_walk_ref``, ``fused_leaf_ref``, ``tree_query_ref``,
+``dyn_leaf_query_ref`` and ``dyn_node_walk_ref`` (the plain PyTorch versions
+the CUDA kernels are held against on the card) must agree with BOTH
+``repro.kernels.ref`` and the Pallas kernels in interpret mode (and
+``tree_query_ref`` with a brute-force sum over the raw events), over the
 shapes of the reference's own sweeps: float64, rtol 1e-12 (only the
-association of ≤ 2·levels + k_s, resp. 2·k_s·k_t, addends differs). The CUDA
-kernels themselves are compiled and compared on the GPU by ``chip_smoke.py``.
+association of the addends differs). The reference's own sweeps
+(``tests/test_kernels_pallas.py``) are marked slow and deselected, so these
+are the tier-1 guard of the oracles. The CUDA kernels themselves are
+compiled and compared on the GPU by ``chip_smoke.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -16,7 +20,9 @@ import torch
 from repro.kernels import ops as ref_ops
 from repro.kernels import ref as ref_oracle
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.dyn_query import dyn_leaf_query_ref, dyn_node_walk_ref, tree_offs
 from repro_torch.kernels.fused_walk import MAX_LEVELS, fused_leaf_ref, fused_walk_ref
+from repro_torch.kernels.tree_query import tree_query_ref
 
 LAYOUTS = [
     ("rfs4", 7, 1, 2), ("rfs8", 33, 2, 3), ("rfs16", 65, 3, 2),
@@ -199,3 +205,251 @@ def test_fused_leaf_kernel_source():
     assert "__global__" in text and 'extern "C" int fused_leaf_f64' in text
     assert f"SMEM_MAX = {ops.LEAF_SMEM_MAX // 1024} * 1024" in text  # wrapper and kernel agree
     assert "fused_leaf_pallas" in text  # names the TPU kernel it replaces
+
+
+# ---------------------------------------------------------------- tree_query
+def _tree_forest(rng, G, n_events, K4, empty_group=None):
+    """Time-major merge-tree tables built as the reference's kernel tests
+    build them (tests/test_kernels_pallas.py): level ℓ buckets 2^ℓ
+    consecutive time ranks, position-sorted inside with +inf padding at the
+    end, inclusive prefix moments. ``empty_group`` holds no events at all:
+    its rows are all +inf and its moments zero."""
+    from repro_torch.core.aggregation import next_pow2, segmented_cumsum
+
+    npad = next_pow2(n_events)
+    lvl = npad.bit_length()
+    pos = np.full((G, lvl, npad), np.inf)
+    cum = np.zeros((G, lvl, npad, K4))
+    raw = []
+    for g in range(G):
+        n = 0 if g == empty_group else n_events
+        p = rng.uniform(0, 100, n)
+        f = rng.normal(size=(n, K4))
+        raw.append((p, f))
+        pp = np.full(npad, np.inf)
+        pp[:n] = p
+        ff = np.zeros((npad, K4))
+        ff[:n] = f
+        ranks = np.arange(npad)
+        for lev in range(lvl):
+            order = np.lexsort((pp, ranks >> lev))
+            pos[g, lev] = pp[order]
+            cum[g, lev] = segmented_cumsum(ff[order], np.arange(0, npad + 1, 1 << lev))
+    return pos, cum, raw
+
+
+TREE_CASES = [  # (n_events, K4, Q, Wh, empty_group): ragged Q, Wh > 8 half-windows
+    (5, 2, 7, 1, None), (16, 4, 33, 3, None), (21, 3, 130, 2, None),
+    (9, 8, 65, 10, 1),  # one group of all-+inf padding
+    (12, 88, 17, 2, None),  # 4·k_s·k_t of the gaussian × triangular kernels
+]
+
+
+def _tree_case(n_events, K4, Q, Wh, empty_group, G=3):
+    rng = np.random.default_rng(n_events * 31 + Q)
+    pos, cum, raw = _tree_forest(rng, G, n_events, K4, empty_group)
+    r_lo = rng.integers(0, n_events, (G, Wh, Q))
+    r_hi = np.maximum(rng.integers(0, n_events + 1, (G, Wh, Q)), r_lo)
+    ph = rng.uniform(0, 110, (G, Q))
+    pl1 = rng.uniform(-10, 100, (G, Q))
+    l1r = (rng.random((G, Q)) < 0.5).astype(np.int32)
+    pl2 = rng.uniform(-10, 60, (G, Q))
+    # padding slots of the grouped layout: bounds that select nothing
+    ph[:, ::5], pl1[:, ::5], pl2[:, ::5] = -np.inf, np.inf, np.inf
+    qv = rng.normal(size=(G, Wh, Q, K4))
+    return (pos, cum, r_lo, r_hi, ph, pl1, l1r, pl2, qv), raw
+
+
+def _tree_torch(arrs):
+    pos, cum, r_lo, r_hi, ph, pl1, l1r, pl2, qv = arrs
+    i32 = lambda x: torch.as_tensor(x).to(torch.int32)  # noqa: E731
+    f64 = torch.as_tensor
+    return (f64(pos), f64(cum), i32(r_lo), i32(r_hi), f64(ph), f64(pl1), i32(l1r), f64(pl2),
+            f64(qv))
+
+
+def _tree_bruteforce(arrs, raw):
+    """The range query over the raw events, no tree: Σ over events with a
+    time rank in [r_lo, r_hi) and a position inside the bounds of f·q_vec."""
+    _, _, r_lo, r_hi, ph, pl1, l1r, pl2, qv = arrs
+    G, Wh, Q = r_lo.shape
+    want = np.zeros((G, Wh, Q))
+    for g in range(G):
+        p, f = raw[g]
+        rank = np.arange(len(p))
+        for w in range(Wh):
+            for q in range(Q):
+                lo1_ok = (p > pl1[g, q]) if l1r[g, q] else (p >= pl1[g, q])
+                m = ((rank >= r_lo[g, w, q]) & (rank < r_hi[g, w, q]) & (p <= ph[g, q])
+                     & lo1_ok & (p >= pl2[g, q]))
+                want[g, w, q] = f[m].sum(axis=0) @ qv[g, w, q]
+    return want
+
+
+@pytest.mark.parametrize("oracle", ["ref", "pallas_interpret", "bruteforce"])
+@pytest.mark.parametrize("n_events,K4,Q,Wh,empty_group", TREE_CASES)
+def test_tree_query_ref_matches_reference(n_events, K4, Q, Wh, empty_group, oracle):
+    """Tolerance 1e-12 relative to max|want|: float64 on every side; only the
+    association of ≤ 2·levels buckets of K4 products differs."""
+    from repro.kernels.tree_query import tree_query_pallas
+
+    arrs, raw = _tree_case(n_events, K4, Q, Wh, empty_group)
+    got = tree_query_ref(*_tree_torch(arrs)).numpy()
+    if oracle == "bruteforce":
+        want = _tree_bruteforce(arrs, raw)
+    else:
+        with jax.enable_x64(True):
+            jargs = [jnp.asarray(x) for x in arrs]
+            if oracle == "ref":
+                want = np.asarray(ref_oracle.tree_query(*jargs))
+            else:
+                want = np.asarray(tree_query_pallas(*jargs, tq=32, interpret=True, precise=True))
+    assert want.dtype == np.float64 and got.dtype == np.float64
+    assert got.shape == want.shape == (3, Wh, Q)
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+    if empty_group is not None:
+        assert not got[empty_group].any()  # no events: exact zeros
+
+
+def test_ops_tree_query_cpu_uses_plain_version_and_counts_no_launch():
+    targs = _tree_torch(_tree_case(16, 4, 33, 3, None)[0])
+    before = ops.tree_query.launches
+    got = ops.tree_query(*targs)
+    assert ops.tree_query.launches == before  # only kernel launches count
+    assert torch.equal(got, tree_query_ref(*targs))
+
+
+def test_ops_tree_query_window_independence():
+    """Two half-windows with the same rank intervals and query vectors give
+    bitwise identical outputs; slots whose bounds select nothing give exact
+    zeros."""
+    pos, cum, r_lo, r_hi, ph, pl1, l1r, pl2, qv = _tree_case(21, 3, 130, 1, None)[0]
+    dup = lambda x: np.concatenate([x, x], axis=1)  # noqa: E731
+    out = ops.tree_query(*_tree_torch((pos, cum, dup(r_lo), dup(r_hi), ph, pl1, l1r, pl2,
+                                       dup(qv))))
+    assert out.shape == (3, 2, 130)
+    assert torch.equal(out[:, 0], out[:, 1])
+    assert bool((out[:, :, ::5] == 0.0).all())
+    assert bool((out != 0.0).any())
+
+
+# ------------------------------------------------------- dyn_leaf_query / walk
+DYN_LEAF_CASES = [
+    (4, 2, 7, 1), (8, 4, 33, 3), (16, 3, 65, 2),  # the reference's sweep
+    (32, 4, 130, 9),  # ragged Q above a block, W > 8
+    (8, 121, 17, 2),  # K = k_s·k_t of the gaussian kernels
+]
+
+
+def _dyn_leaf_case(nleaf, K, Q, W, G=3):
+    rng = np.random.default_rng(nleaf * 100 + Q)
+    R = (nleaf + 1) * 2
+    tab = np.cumsum(rng.normal(size=(G, R, W * 2 * K)), axis=1)
+    leaf_lo = rng.integers(0, nleaf + 1, (G, Q))
+    leaf_hi = np.maximum(rng.integers(0, nleaf + 1, (G, Q)), leaf_lo)
+    side = rng.integers(0, 2, (G, Q))
+    qv_l, qv_r = rng.normal(size=(G, W, Q, K)), rng.normal(size=(G, W, Q, K))
+    return tab, leaf_lo, leaf_hi, side, qv_l, qv_r
+
+
+def _dyn_leaf_torch(arrs):
+    tab, lo, hi, side, qv_l, qv_r = arrs
+    i32 = lambda x: torch.as_tensor(x).to(torch.int32)  # noqa: E731
+    f64 = torch.as_tensor
+    return f64(tab), i32(lo), i32(hi), i32(side), f64(qv_l), f64(qv_r)
+
+
+@pytest.mark.parametrize("oracle", ["ref", "pallas_interpret"])
+@pytest.mark.parametrize("nleaf,K,Q,W", DYN_LEAF_CASES)
+def test_dyn_leaf_query_ref_matches_reference(nleaf, K, Q, W, oracle):
+    """Tolerance 1e-12 relative to max|want| (float64, 2·K products per
+    output; only their association differs)."""
+    from repro.kernels.dyn_query import dyn_leaf_query_pallas
+
+    arrs = _dyn_leaf_case(nleaf, K, Q, W)
+    got = dyn_leaf_query_ref(*_dyn_leaf_torch(arrs)).numpy()
+    with jax.enable_x64(True):
+        jargs = [jnp.asarray(x) for x in arrs]
+        if oracle == "ref":
+            want = np.asarray(ref_oracle.dyn_leaf_query(*jargs))
+        else:
+            want = np.asarray(dyn_leaf_query_pallas(*jargs, tq=32, interpret=True))
+    assert want.dtype == np.float64 and got.dtype == np.float64
+    assert got.shape == want.shape == (3, W, Q)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("oracle", ["ref", "pallas_interpret"])
+@pytest.mark.parametrize("hq,ks,Q,W", [(2, 2, 7, 1), (3, 3, 33, 2), (4, 2, 65, 3)])
+def test_dyn_node_walk_ref_matches_reference(hq, ks, Q, W, oracle):
+    """Tolerance 1e-12 relative to max|want| (float64, ≤ 2·(hq+1) rows and
+    k_s products per output; only their association differs)."""
+    from repro.kernels.dyn_query import dyn_node_walk_pallas
+
+    arrs, offs = _case(f"tree{hq}", Q, W, ks)
+    assert offs == tree_offs(hq)
+    got = dyn_node_walk_ref(*_torch_args(arrs), hq=hq).numpy()
+    with jax.enable_x64(True):
+        jargs = [jnp.asarray(x) for x in arrs]
+        if oracle == "ref":
+            want = np.asarray(ref_oracle.dyn_node_walk(*jargs, hq=hq))
+        else:
+            want = np.asarray(dyn_node_walk_pallas(*jargs, hq=hq, tq=32, interpret=True))
+    assert want.dtype == np.float64 and got.dtype == np.float64
+    assert got.shape == want.shape == (3, W, Q)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+
+
+def test_ops_dyn_wrappers_cpu_use_plain_versions_and_count_no_launch():
+    targs = _dyn_leaf_torch(_dyn_leaf_case(8, 4, 33, 3))
+    wargs = _torch_args(_case("tree3", 33, 2, 3)[0])
+    before = (ops.dyn_leaf_query.launches, ops.dyn_node_walk.launches, ops.fused_walk.launches)
+    assert torch.equal(ops.dyn_leaf_query(*targs), dyn_leaf_query_ref(*targs))
+    assert torch.equal(ops.dyn_node_walk(*wargs, hq=3), dyn_node_walk_ref(*wargs, hq=3))
+    after = (ops.dyn_leaf_query.launches, ops.dyn_node_walk.launches, ops.fused_walk.launches)
+    assert after == before  # only kernel launches count
+
+
+def test_ops_dyn_leaf_query_window_independence():
+    """Two windows with the same rows and query vectors give bitwise identical
+    outputs; empty leaf ranges give exact zeros."""
+    tab, lo, hi, side, qv_l, qv_r = _dyn_leaf_case(8, 4, 33, 1)
+    G, R, _ = tab.shape
+    tab = np.concatenate([tab.reshape(G, R, 1, -1)] * 2, axis=2).reshape(G, R, -1)  # W=2
+    qv_l, qv_r = np.concatenate([qv_l, qv_l], axis=1), np.concatenate([qv_r, qv_r], axis=1)
+    hi[:, ::3] = lo[:, ::3]
+    out = ops.dyn_leaf_query(*_dyn_leaf_torch((tab, lo, hi, side, qv_l, qv_r)))
+    assert out.shape == (3, 2, 33)
+    assert torch.equal(out[:, 0], out[:, 1])
+    assert bool((out[:, :, ::3] == 0.0).all())
+    assert bool((out != 0.0).any())
+
+
+@pytest.mark.parametrize("name", ["tree_query", "dyn_leaf_query", "dyn_node_walk"])
+def test_ops_new_wrappers_never_fall_back_off_cpu(name):
+    """A tensor that is not on the CPU goes to the kernel or raises — the
+    plain version is never substituted (here: a device no kernel serves)."""
+    args = {
+        "tree_query": lambda: _tree_torch(_tree_case(5, 2, 7, 1, None)[0]),
+        "dyn_leaf_query": lambda: _dyn_leaf_torch(_dyn_leaf_case(4, 2, 7, 1)),
+        "dyn_node_walk": lambda: _torch_args(_case("tree2", 7, 1, 2)[0]),
+    }[name]()
+    kw = dict(hq=2) if name == "dyn_node_walk" else {}
+    wrapper = getattr(ops, name)
+    before = (wrapper.launches, ops.fused_walk.launches)
+    with pytest.raises(ValueError, match=f"{name}: unsupported device"):
+        wrapper(*[t.to("meta") for t in args], **kw)
+    assert (wrapper.launches, ops.fused_walk.launches) == before
+
+
+def test_new_kernel_sources():
+    """Each new source names the TPU kernel it replaces and exports its C
+    entry point; dyn_node_walk has no source of its own (it launches
+    fused_walk.cu)."""
+    for name, pallas in (("tree_query", "tree_query_pallas"),
+                         ("dyn_leaf_query", "dyn_leaf_query_pallas")):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert "__global__" in text and f'extern "C" int {name}_f64' in text
+        assert pallas in text
+    assert not (_build.CSRC / "dyn_node_walk.cu").exists()

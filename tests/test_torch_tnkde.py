@@ -80,7 +80,7 @@ def x64_shim(monkeypatch):
 
 
 # ------------------------------------------------------- equivalence matrix
-@pytest.mark.parametrize("executor", ["fused", "packed"])
+@pytest.mark.parametrize("executor", ["fused", "packed", "kernel"])
 @pytest.mark.parametrize("ls", [False, True])
 @pytest.mark.parametrize("W", [1, 5])
 @pytest.mark.parametrize("ks,kt", KERNEL_FAMILIES)
@@ -108,7 +108,7 @@ def test_executor_auto_resolves_to_packed(world):
     assert TNKDE(net, ev, solution="sps", **KW).engine_desc == "numpy"
 
 
-@pytest.mark.parametrize("executor", ["fused", "packed"])
+@pytest.mark.parametrize("executor", ["fused", "packed", "kernel"])
 def test_edge_case_windows(world, executor):
     """query([]), a window far outside the event span (exact zeros, not NaN)
     and duplicate centres (bitwise equal rows)."""
@@ -136,17 +136,24 @@ def test_dispatch_result_is_idempotent(world):
 
 
 # ----------------------------------------------------------------- counters
-@pytest.mark.parametrize("executor", ["fused", "packed"])
+# the reference's name of each executor and the engine_desc it reports
+REF_EXECUTOR = {"fused": ("fused", "jax/fused"), "packed": ("packed", "jax/packed"),
+                "kernel": ("pallas", "pallas/pallas")}
+
+
+@pytest.mark.parametrize("executor", ["fused", "packed", "kernel"])
 def test_counters_equal_reference_device_engine(world, ref_world, x64_shim, executor):
     """n_rank_searches / n_moment_gathers / bytes_moved (and the launch
-    count) follow the reference's formulas: equal to its jax engine, cold and
-    warm, on one world."""
+    count) follow the reference's formulas: equal to its jax engine (for
+    ``kernel``, its ``executor='pallas'`` tier, Pallas in interpret mode),
+    cold and warm, on one world."""
     ts = TS5[:3]
     rnet, rev = ref_world
-    ref = RefTNKDE(rnet, rev, solution="rfs", engine="jax", executor=executor, **KW)
+    ref_executor, ref_desc = REF_EXECUTOR[executor]
+    ref = RefTNKDE(rnet, rev, solution="rfs", engine="jax", executor=ref_executor, **KW)
     net, ev = world
     m = TNKDE(net, ev, solution="rfs", engine="torch", executor=executor, device="cpu", **KW)
-    assert ref.engine_desc == f"jax/{executor}"
+    assert ref.engine_desc == ref_desc and m.engine_desc == f"torch/{executor}"
     for _ in range(2):  # cold, then warm
         F_ref, F = ref.query(ts), m.query(ts)
         assert np.abs(F - F_ref).max() <= 1e-12 * np.abs(F_ref).max()
@@ -154,6 +161,19 @@ def test_counters_equal_reference_device_engine(world, ref_world, x64_shim, exec
             assert getattr(m.stats, stat) == getattr(ref.stats, stat), stat
         assert m._fe.counters["fused_launches"] == ref._fe.counters["fused_launches"]
     assert (m._fe.counters["fused_launches"] > 0) == (executor == "fused")
+
+
+def test_kernel_executor_counts_no_fused_launch_and_searches_once(world):
+    """executor='kernel': one [3, W, E] rank search per ts tuple (none on a
+    warm query), no fused_launches (as in the reference), warm == cold."""
+    net, ev = world
+    m = TNKDE(net, ev, solution="rfs", engine="torch", executor="kernel", device="cpu", **KW)
+    cold = m.query(TS5[:2])
+    s0 = m.stats.n_rank_searches
+    assert s0 == 3 * 2 * net.n_edges
+    assert np.array_equal(m.query(TS5[:2]), cold)
+    assert m.stats.n_rank_searches == s0 and m._fe.counters["fused_launches"] == 0
+    assert m.stats.bytes_per_shard == m._fe.device_bytes > 0
 
 
 def test_warm_query_searches_nothing_and_one_launch_per_pack(world):
@@ -186,7 +206,6 @@ def test_x64_shim_does_not_leak():
     (dict(table_codec="f32"), "A3"),
     (dict(table_codec="bf16"), "A3"),
     (dict(mesh=object()), "A8"),
-    (dict(executor="pallas"), "A5"),
     (dict(executor="search"), "A5"),
     (dict(executor="cascade"), "A5"),
     (dict(solution="drfs", horizon_s=3600.0, table_codec="bf16"), "A4"),
@@ -195,6 +214,18 @@ def test_unsupported_arguments_raise_not_implemented(world, kwargs, match):
     net, ev = world
     with pytest.raises(NotImplementedError, match=match):
         TNKDE(net, ev, device="cpu", **{**KW, **kwargs})
+
+
+@pytest.mark.parametrize("solution", ["rfs", "drfs"])
+def test_executor_pallas_is_called_kernel_here(world, solution):
+    """The reference's executor='pallas' tier is executor='kernel' in this
+    package: the old name is refused with a ValueError that names the new
+    one, never served under a different path."""
+    net, ev = world
+    with pytest.raises(ValueError, match="executor='kernel'"):
+        TNKDE(net, ev, solution=solution, engine="torch", executor="pallas", device="cpu", **KW)
+    m = TNKDE(net, ev, solution=solution, engine="torch", executor="kernel", device="cpu", **KW)
+    assert m.engine_desc == "torch/kernel"
 
 
 STREAMING_METHODS = ("insert", "seal", "extend", "compact", "snapshot")  # served (Queue A4)
