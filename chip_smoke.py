@@ -23,7 +23,17 @@ over the Table-3 berkeley replica:
   ``[main]``'s answer), then the streaming index (first 90 %, one insert of
   5 %) in both modes through ``dyn_leaf_query`` (quantized) and
   ``dyn_node_walk`` (exact), each answer held against the ``fused``
-  executor at the same snapshot and, in exact mode, the SPS oracle.
+  executor at the same snapshot and, in exact mode, the SPS oracle;
+* ``[minplus]`` device shortest paths: ``minplus_bellman_ford`` from every
+  vertex of the berkeley network (dense f64 adjacency, radius b_s = 800) for
+  as many rounds as the deepest bounded-Dijkstra tree has hops — one
+  ``minplus_matmul`` launch per round — held against scipy's bounded
+  Dijkstra (``endpoint_distance_rows``);
+* ``[lm]`` LM serving of qwen2.5-3b at full width with seeded weights:
+  bf16 prefill of 4 × 2 048 tokens with ``attn_impl='kernel'`` (one
+  ``flash_attention`` launch per layer) and 32 greedy decode steps; then in
+  float32 the kernel against ``attn_impl='dense'`` and prefill + 128
+  teacher-forced decode steps against ``forward``.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; ``[*-shapes]`` then holds every block the path gave a kernel against
@@ -36,7 +46,9 @@ Output, in order: the card's name and power limit as ``nvidia-smi`` gives
 them; one line per phase and step (with its time); one JSON line
 ``{"kernels": [...]}`` with one entry per (kernel, path): launches on that
 path, error against the plain version, time, the plain version's time and
-the roofline bound at the largest block of that path; and as the last line
+the roofline bound at the largest block of that path, and for
+``flash_attention`` the time of ``scaled_dot_product_attention`` on the same
+inputs (``library_ms``, timed only, never on the path); and as the last line
 ``{"ok": true, "device": {...}}``.
 
 ``--cpu-rehearsal`` walks the same control flow on the CPU at a small scale
@@ -64,13 +76,40 @@ import repro_torch  # noqa: E402,F401 — fail before any output if the package 
 # float64 rate outside the tensor cores — the kernel does scalar f64 adds
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_FLOPS = 34e12
+PEAK_BF16_TC_FLOPS = 989e12  # dense bf16 tensor-core peak: the yardstick of attention
+PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores, where flash_attention.cu computes
 
 KERNEL_TOL = 1e-13  # f64, kernel vs its plain version; only association and FMA differ
-KERNELS = ("fused_walk", "fused_leaf", "tree_query", "dyn_leaf_query", "dyn_node_walk")
+KERNELS = ("fused_walk", "fused_leaf", "tree_query", "dyn_leaf_query", "dyn_node_walk",
+           "minplus_matmul", "flash_attention")
 PACKED_TOL = 1e-12  # fused vs packed executor, relative to max|F|
 SPS_TOL = 1e-10  # index vs index-free oracle, relative to max|F|
 SPS_EDGES = 32  # most query edges in the SPS sample
 SPS_LIXELS = 96  # the sample stops once it holds this many lixels (>= 64 checked)
+MINPLUS_RADIUS = 800.0  # b_s of the TN-KDE queries above: the SPS precomputation's bound
+SP_TOL = 1e-12  # Bellman-Ford vs Dijkstra, relative per entry: equal-length paths may
+#                 sum their edges in another order
+# flash_attention vs its plain version, relative to max|out|: in f32 the two differ
+# only in the order of the sums (online softmax against one softmax), ~1e-6; in bf16
+# the output is rounded once to bf16 (one ulp is 2^-8 ≈ 3.9e-3 of a value), so two
+# f32 results a hair apart may round one ulp apart
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# [lm] float32 checks. Per layer, on all 36 layers' real activations: the
+# kernel's error against the same attention in float64 may be at most
+# LAYER_ACCURACY times that of its plain f32 version (+1e-6 of max|out|) — the
+# reference's init scales (fan-in of wq/wk = the head count) give attention
+# logits of magnitude ~1e3 at full width, where any f32 order of sums moves
+# the output by ~1e-4 of max|out|, so a fixed tolerance would measure the
+# weights, not the kernel; the kernel sums its 2 048 keys one chunk after
+# another, hence a factor of a few. End to end through the public entry
+# points, on the first LM_CHECK_LAYERS layers at full width, relative to
+# max|logit|: ~1e-4 of f32 attention error per layer, amplified by the next
+# layer, stays far below LM_TOL, while a wrong cache slot, rope position or
+# mask moves the logits by O(1). At 36 layers the random model amplifies any
+# change of arithmetic to O(1) (phase_lm prints it), hence the cut.
+LAYER_ACCURACY = 4.0
+LM_TOL = 1e-2
+LM_CHECK_LAYERS = 2  # depth of the [lm] f32 end-to-end checks (full width)
 
 
 def require(cond, msg):
@@ -118,12 +157,14 @@ def layout_case(layout, G, Q, W, ks, device):
 
 def plain_version(name):
     """The plain PyTorch version of ``ops.<name>``."""
-    from repro_torch.kernels import dyn_query, fused_walk, tree_query
+    from repro_torch.kernels import dyn_query, flash_attention, fused_walk, minplus, tree_query
 
     return dict(fused_walk=fused_walk.fused_walk_ref, fused_leaf=fused_walk.fused_leaf_ref,
                 tree_query=tree_query.tree_query_ref,
                 dyn_leaf_query=dyn_query.dyn_leaf_query_ref,
-                dyn_node_walk=dyn_query.dyn_node_walk_ref)[name]
+                dyn_node_walk=dyn_query.dyn_node_walk_ref,
+                minplus_matmul=minplus.minplus_matmul_ref,
+                flash_attention=flash_attention.flash_attention_ref)[name]
 
 
 def compare(name, args, **kw):
@@ -333,19 +374,20 @@ def tree_case(n_events, G, Q, Wh, K4, device, empty_group=None):
 def tree_query_bound(args):
     """Least time the card could take for this call, from this input: the
     larger of bytes/bandwidth and operations/peak f64. Bytes: each distinct
-    prefix row a non-empty bucket interval needs, the query row of every
-    (slot, half-window) with such a bucket, rank intervals, position bounds
-    and the output, each once (the position entries the searches probe are
-    left out: a lower bound). Operations: per non-empty bucket, the
-    difference, product and sum of every prefix value (3·K4)."""
+    prefix row a non-empty bucket interval needs, each distinct position
+    entry the three searches of an emitted bucket probe, the query row of
+    every (slot, half-window) with a non-empty bucket, rank intervals,
+    position bounds and the output, each once. Operations: per non-empty
+    bucket, the difference, product and sum of every prefix value (3·K4)."""
     from repro_torch.kernels.tree_query import tree_buckets
 
     pos, cum, r_lo, r_hi, ph, pl1, l1r, pl2, qv = args
     G, LVL, NPAD = pos.shape
     K4 = cum.shape[-1]
     live = torch.zeros(r_lo.numel(), dtype=torch.bool, device=pos.device)
-    rows, emitted, busy = [], 0, 0
-    for lev, lane, g, seg_lo, i_lo, i_hi in tree_buckets(pos, r_lo, r_hi, ph, pl1, l1r, pl2):
+    rows, probes, emitted, busy = [], [], 0, 0
+    for lev, lane, g, seg_lo, i_lo, i_hi in tree_buckets(pos, r_lo, r_hi, ph, pl1, l1r, pl2,
+                                                         probes=probes):
         emitted += int(lane.numel())
         on = i_hi > i_lo
         busy += int(on.sum())
@@ -353,14 +395,15 @@ def tree_query_bound(args):
         base = (g * LVL + lev) * NPAD - 1
         rows += [(base + i_hi)[on], (base + i_lo)[on & (i_lo > seg_lo)]]
     distinct = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+    probed = int(torch.unique(torch.cat(probes)).numel()) if probes else 0
     n_live = int(live.sum())
-    nbytes = ((distinct + n_live) * K4 * 8 + r_lo.numel() * (4 + 4 + 8)
+    nbytes = ((distinct + n_live) * K4 * 8 + probed * 8 + r_lo.numel() * (4 + 4 + 8)
               + G * r_lo.shape[2] * (3 * 8 + 4))
     flops = busy * 3 * K4
     t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS
     return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
                 bytes=nbytes, flops=flops, buckets_emitted=emitted, buckets_nonempty=busy,
-                rows_distinct=distinct, live_lanes=n_live)
+                rows_distinct=distinct, positions_probed=probed, live_lanes=n_live)
 
 
 def dyn_leaf_query_bound(args):
@@ -453,21 +496,28 @@ def sps_sample(m, ts, n_edges, seed, ee=None):
     return np.concatenate(ids), np.concatenate(vals, axis=1)
 
 
-def profile_warm(m, ts, path):
-    """Kernel-time table of one warm query (torch.profiler) written to ``path``."""
+def profile_call(fn, path, title, device):
+    """Kernel-time table of one call of ``fn`` (torch.profiler) written to
+    ``path``, headed by ``title`` and the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        m.query(ts)
-        if m._fe.device.type == "cuda":
+        fn()
+        if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t1
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
-        f.write(f"warm query under the profiler: {wall:.4f} s, engine {m.engine_desc}\n")
+        f.write(f"{title} under the profiler: {wall:.4f} s\n")
         f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=40))
-    say("profile", written=path, warm_s_profiled=round(wall, 4))
+    say("profile", written=path, wall_s_profiled=round(wall, 4))
+
+
+def profile_warm(m, ts, path):
+    """Kernel-time table of one warm query written to ``path``."""
+    profile_call(lambda: m.query(ts), path, f"warm query, engine {m.engine_desc}",
+                 m._fe.device)
 
 
 def phase_main(args, device, card):
@@ -942,16 +992,418 @@ def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes
     return result
 
 
+# ------------------------------------------------------ device shortest paths
+def minplus_case(M, K, N, dtype, device, seed):
+    """Seeded distances in [0, 10) with +inf entries: a whole row of a, a
+    whole column of b and scattered single entries of both."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, 10, (M, K))
+    b = rng.uniform(0, 10, (K, N))
+    a[rng.integers(0, M, max(1, M // 7)), rng.integers(0, K, max(1, M // 7))] = np.inf
+    b[rng.integers(0, K, max(1, N // 7)), rng.integers(0, N, max(1, N // 7))] = np.inf
+    a[rng.integers(0, M), :] = np.inf
+    b[:, rng.integers(0, N)] = np.inf
+    t = lambda x: torch.as_tensor(x, device=device).to(dtype).contiguous()  # noqa: E731
+    return t(a), t(b)
+
+
+def minplus_bound(M, K, N, itemsize):
+    """Least time of one (min, +) product: the larger of bytes/bandwidth (a,
+    b read once, out written once) and operations/peak f64 (an add and a min
+    per (i, j, k), counted against the f64 FLOP rate — lenient, since that
+    rate counts an FMA as two and neither operation is one)."""
+    nbytes = (M * K + K * N + M * N) * itemsize
+    ops_ = 2 * M * N * K
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, ops_ / PEAK_F64_FLOPS
+    return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
+                bytes=nbytes, ops=ops_)
+
+
+def phase_minplus_kernels(device):
+    """minplus_matmul vs its plain version, bitwise (torch.equal), float32
+    and float64, at shapes that are no tile multiples (the kernel's tile is
+    64 x 64 x 16) and at the [minplus] path's berkeley shape."""
+    from repro_torch.kernels import ops
+
+    big = 1576 if device != "cpu" else 100  # the rehearsal keeps the CPU small
+    n = 0
+    for dtype in (torch.float32, torch.float64):
+        for M, K, N in [(1, 1, 1), (65, 33, 17), (129, 257, 63), (big, big, big)]:
+            a, b = minplus_case(M, K, N, dtype, device, M * 7 + N)
+            got = ops.minplus_matmul(a, b)
+            if got.is_cuda:
+                torch.cuda.synchronize()
+            want = plain_version("minplus_matmul")(a, b)
+            require(got.dtype == dtype and got.shape == want.shape, "minplus_matmul shape/dtype")
+            require(torch.equal(got, want), f"minplus_matmul {M}x{K}x{N} {dtype}: not bitwise "
+                    f"equal to its plain version")
+            say("minplus-kernels", case=f"{M}x{K}x{N}:{str(dtype)[6:]}", bitwise_equal=True,
+                inf_outputs=int(torch.isinf(want).sum()))
+            n += 1
+    return n
+
+
+def phase_minplus(args, device, card):
+    """All-pairs bounded distances of the berkeley network on the device:
+    ``minplus_bellman_ford`` from every vertex, ``rounds`` = the deepest hop
+    count of scipy's bounded-Dijkstra trees within the radius (so every
+    distance Dijkstra finds is reached), held against
+    ``endpoint_distance_rows`` (the SPS precomputation on the host)."""
+    import scipy.sparse.csgraph as csgraph
+
+    from repro_torch.core import shortest_path as sp
+    from repro_torch.data.spatial import make_dataset
+    from repro_torch.kernels import ops
+
+    net, _, _ = make_dataset("berkeley", scale=args.scale, seed=args.seed)
+    V = net.n_vertices
+    csr = sp.adjacency_csr(net)
+    t1 = time.perf_counter()
+    want = sp.endpoint_distance_rows(net, MINPLUS_RADIUS, adj=csr)
+    scipy_s = time.perf_counter() - t1
+    _, pred = csgraph.dijkstra(csr, directed=False, indices=np.arange(V), limit=MINPLUS_RADIUS,
+                               return_predecessors=True)
+    rounds = int(sp.hop_depth(pred).max())
+    adj = torch.as_tensor(net.dense_adjacency(), device=device)
+    init = torch.full((V, V), float("inf"), dtype=torch.float64, device=device)
+    init.fill_diagonal_(0.0)
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    sync()
+    # ---- the path: counts set to 0 here, read right after the call
+    reset_launches()
+    t1 = time.perf_counter()
+    D = sp.minplus_bellman_ford(adj, init, rounds)
+    sync()
+    call_s = time.perf_counter() - t1
+    counts = read_launches()
+    launches = counts.pop("minplus_matmul")
+    require(not any(counts.values()), f"[minplus] launched another kernel: {counts}")
+    if device != "cpu":
+        require(launches == rounds, f"minplus_matmul launches {launches} for {rounds} rounds")
+    got = D.cpu().numpy()
+    within = np.isfinite(want)
+    err = np.abs(got[within] - want[within])
+    rel = float((err / np.maximum(want[within], np.finfo(np.float64).tiny)).max())
+    require(rel <= SP_TOL, f"[minplus] vs bounded Dijkstra: {rel}")
+    require(bool((got[~within] > MINPLUS_RADIUS).all()),
+            "[minplus] an entry Dijkstra leaves beyond the radius came out within it")
+    shape = dict(M=V, K=V, N=V, dtype="float64")
+    bound = minplus_bound(V, V, V, 8)
+    timing = dict(ms=None, plain_ms=None)
+    if device != "cpu":
+        buf = torch.empty_like(D)
+        timing["ms"] = time_ms(lambda: ops.minplus_matmul(D, adj, out=buf))
+        timing["plain_ms"] = time_ms(lambda: plain_version("minplus_matmul")(D, adj, out=buf),
+                                     reps=3)
+    say("minplus", card=card, vertices=V, edges=net.n_edges, radius=MINPLUS_RADIUS,
+        rounds=rounds, launches=launches, entries_within_radius=int(within.sum()),
+        vs_dijkstra_rel=rel, max_abs_err=float(err.max()), call_s=round(call_s, 4),
+        scipy_host_s=round(scipy_s, 4), round_kernel_ms=timing["ms"],
+        plain_ms=timing["plain_ms"], **bound)
+    return launches, float(err.max()), rel, shape, bound, timing
+
+
+# ----------------------------------------------------------- LM serving path
+LM_SHAPE = (4, 16, 2, 2048, 128)  # qwen2.5-3b prefill: B, H, Hkv, S, head_dim
+
+
+def flash_case(B, H, Hkv, S, D, dtype, device, seed, layout="bhsd"):
+    """Seeded standard-normal q, k, v; ``layout='bshd'`` makes them as the
+    LM path does: [B, S, heads, D] tensors viewed as [B, heads, S, D]."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for heads in (H, Hkv, Hkv):
+        shape = (B, S, heads, D) if layout == "bshd" else (B, heads, S, D)
+        x = torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=device)
+        x = x.to(dtype)
+        out.append(x.transpose(1, 2) if layout == "bshd" else x)
+    return tuple(out)
+
+
+def flash_bound(B, H, Hkv, S, D, itemsize, causal=True):
+    """Least time of one attention call: the larger of bytes/bandwidth (q,
+    k, v read once, out written once) and 4·B·H·S²·D FLOPs (halved when
+    causal) over the bf16 dense tensor-core peak. The same FLOPs over the
+    f32 CUDA-core peak (where this first kernel computes) ride beside it."""
+    nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize
+    flops = 4 * B * H * S * S * D // (2 if causal else 1)
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_TC_FLOPS
+    return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
+                bytes=nbytes, flops=flops, f32_cuda_core_bound_ms=flops / PEAK_F32_FLOPS * 1e3)
+
+
+def phase_flash_kernels(device):
+    """flash_attention vs its plain version: causal and not, f32 and bf16,
+    rep = H/Hkv in {1, 2, 8}, D in {16, 64, 128}, S in {64, 128, 384,
+    2 048}; D = 32 and 256 once each; and the [lm] prefill's shape in its
+    layout ([B, S, H, D] viewed as [B, H, S, D]), which is then timed against
+    the plain version and scaled_dot_product_attention. Returns the worst
+    (abs, rel) error, that shape, its bound and its times."""
+    from repro_torch.kernels import ops
+
+    small = device == "cpu"  # the rehearsal keeps the CPU small
+    cases = [(1, 2 * rep, 2, S, D, causal, dtype, "bhsd")
+             for dtype in (torch.float32, torch.bfloat16) for causal in (True, False)
+             for rep in (1, 2, 8) for D in (16, 64, 128)
+             for S in ((64, 128) if small else (64, 128, 384, 2048))]
+    cases += [(2, 4, 2, 128, 32, True, torch.bfloat16, "bhsd"),
+              (1, 8, 1, 256, 256, True, torch.bfloat16, "bhsd")]
+    if not small:
+        cases.append((*LM_SHAPE, True, torch.bfloat16, "bshd"))
+    worst_abs = worst_rel = 0.0
+    for i, (B, H, Hkv, S, D, causal, dtype, layout) in enumerate(cases):
+        q, k, v = flash_case(B, H, Hkv, S, D, dtype, device, i, layout)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        if got.is_cuda:
+            torch.cuda.synchronize()
+        want = plain_version("flash_attention")(q, k, v, causal=causal)
+        require(got.shape == want.shape and got.dtype == dtype, "flash_attention shape/dtype")
+        require(bool(torch.isfinite(got).all()), "flash_attention produced non-finite values")
+        abs_err = float((got.float() - want.float()).abs().max())
+        rel = abs_err / float(want.float().abs().max())
+        if layout == "bshd" or S == 2048 or D > 128 or i % 8 == 0:
+            say("flash-kernels", case=f"B{B}:H{H}:Hkv{Hkv}:S{S}:D{D}:{str(dtype)[6:]}:"
+                f"{'causal' if causal else 'full'}:{layout}", max_abs_err=abs_err,
+                max_rel_err=rel)
+        require(rel <= FLASH_TOL[dtype], f"flash_attention disagrees with its plain version "
+                f"at {(B, H, Hkv, S, D, causal, dtype)}: {rel}")
+        worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
+    say("flash-kernels", cases=len(cases), max_abs_err=worst_abs, max_rel_err=worst_rel,
+        tol=json.dumps({str(k)[6:]: v for k, v in FLASH_TOL.items()}))
+    B, H, Hkv, S, D = LM_SHAPE
+    shape = dict(B=B, H=H, Hkv=Hkv, S=S, D=D, dtype="bfloat16", causal=True, layout="bshd")
+    bound = flash_bound(B, H, Hkv, S, D, 2)
+    timing = dict(ms=None, plain_ms=None, library_ms=None)
+    if not small:
+        q, k, v = flash_case(B, H, Hkv, S, D, torch.bfloat16, device, 99, "bshd")
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        timing["ms"] = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+        timing["plain_ms"] = time_ms(lambda: plain_version("flash_attention")(q, k, v,
+                                                                             causal=True))
+        # the yardstick only, never on the path: one PyTorch call, same function
+        timing["library_ms"] = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+    say("flash-kernels", timed_shape=json.dumps(shape), **timing, **bound)
+    return worst_abs, worst_rel, shape, bound, timing
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def phase_lm(args, device, card):
+    """qwen2.5-3b at full width (not reduced; seeded weights on the card).
+    bf16: 4 prompts of 2 048 tokens prefilled with attn_impl='kernel' (cold,
+    then warm), one flash_attention launch per layer each, then 32 greedy
+    decode steps from the padded cache. float32 (TF32 off), 2 sequences of
+    2 048 tokens: the kernel against dense attention on each of the 36
+    layers' real activations (lm_layerwise); then, on the first
+    LM_CHECK_LAYERS layers at full width, (a) last-token prefill logits,
+    'kernel' vs 'dense', and (b) prefill of 1 920 tokens + 128
+    teacher-forced decode steps vs one forward over all 2 048 with
+    'kernel'. The rehearsal runs the reduced miniature."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import layer_params
+
+    small = device == "cpu"
+    cfg = get_config("qwen2.5-3b")
+    if small:
+        cfg = dataclasses.replace(reduce_for_smoke(cfg), param_dtype="bfloat16",
+                                  compute_dtype="bfloat16")
+    B, S, n_dec = (2, 128, 4) if small else (4, 2048, 32)
+    rng = np.random.default_rng(args.seed)
+
+    def sync():
+        if not small:
+            torch.cuda.synchronize()
+
+    # ---- bf16 serving, the path: counts set to 0 before the first prefill,
+    # read after the last decode step
+    if not small:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    params = model.init(args.seed, device=device)
+    sync()
+    say("lm", card=card, arch=cfg.arch_id, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv, head_dim=cfg.hd, d_ff=cfg.d_ff, vocab=cfg.vocab,
+        params=sum(t.numel() for t in _leaves(params)), dtype=cfg.param_dtype,
+        init_s=round(time.perf_counter() - t0, 3))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), device=device)
+    reset_launches()
+    secs = {}
+    for step in ("cold", "warm"):
+        n0 = ops.flash_attention.launches
+        t1 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": toks}, attn_impl="kernel")
+        sync()
+        secs[f"prefill_{step}_s"] = time.perf_counter() - t1
+        grew = ops.flash_attention.launches - n0
+        if not small:
+            require(grew == cfg.n_layers, f"prefill launched flash_attention {grew} times, "
+                    f"not once per layer ({cfg.n_layers})")
+    require(tuple(logits.shape) == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+            "[lm] prefill logits: shape or non-finite values")
+    cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, n_dec)) for k, c in cache.items()}
+    tok = torch.argmax(logits, -1)
+    finite = torch.isfinite(logits).all()
+    decoded = []
+    t1 = time.perf_counter()
+    for i in range(n_dec):
+        logits, cache = model.decode_step(params, tok, cache, S + i)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits, -1)
+        decoded.append(tok)
+    sync()
+    secs["decode_s_per_step"] = (time.perf_counter() - t1) / n_dec
+    counts = read_launches()
+    if args.profile:  # after the counts are read: these launches are not the path's
+        profile_call(lambda: model.prefill(params, {"tokens": toks}, attn_impl="kernel"),
+                     f"{args.profile}.lm-prefill", f"warm prefill, {B} x {S} tokens", device)
+        profile_call(lambda: model.decode_step(params, tok, cache, S + n_dec - 1),
+                     f"{args.profile}.lm-decode", f"one decode step, batch {B}", device)
+    launches = counts.pop("flash_attention")
+    require(not any(counts.values()), f"[lm] launched another kernel: {counts}")
+    if not small:
+        require(launches == 2 * cfg.n_layers, f"[lm] flash_attention launches {launches}")
+    require(bool(finite), "[lm] non-finite decode logits")
+    peak = torch.cuda.max_memory_allocated() if not small else None
+    say("lm", card=card, batch=B, prompt=S, decode_steps=n_dec, launches=launches,
+        **{k: round(v, 4) for k, v in secs.items()}, max_memory_allocated=peak,
+        last_logits_row0=[round(float(x), 4) for x in logits[0, :4]],
+        last_logits_absmax=float(logits.float().abs().max()),
+        decoded_row0=[int(t[0]) for t in decoded[:8]])
+    del params, cache, logits, model
+    free(device)
+
+    # ---- float32 at full width (TF32 off)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    t0 = time.perf_counter()
+    params = get_model(cfg32).init(args.seed + 1, device=device)
+    B2, P, T = (2, 96, 32) if small else (2, 1920, 128)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (B2, P + T)), device=device)
+    layer, e2e = lm_layerwise(params, cfg32, toks)
+    # (a), (b) end to end through the public entry points, depth cut to
+    # LM_CHECK_LAYERS (the first layers of the same weights): at 36 layers
+    # the random-weight model amplifies any difference of arithmetic past
+    # every tolerance (e2e above)
+    cfg_cut = dataclasses.replace(cfg32, n_layers=min(LM_CHECK_LAYERS, cfg.n_layers))
+    cut = dict(params, layers=layer_params(params["layers"], slice(0, cfg_cut.n_layers)))
+    model = get_model(cfg_cut)
+    lk, _ = model.prefill(cut, {"tokens": toks}, attn_impl="kernel")
+    ld, _ = model.prefill(cut, {"tokens": toks}, attn_impl="dense")
+    require(bool(torch.isfinite(lk).all()), "[lm] f32 kernel logits not finite")
+    err_a = float((lk - ld).abs().max()) / float(ld.abs().max())
+    require(err_a <= LM_TOL, f"[lm] f32 prefill, kernel vs dense: {err_a}")
+    _, cache = model.prefill(cut, {"tokens": toks[:, :P]}, attn_impl="kernel")
+    cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, T)) for k, c in cache.items()}
+    dec = []
+    for i in range(T):  # teacher-forced: the token at P + i, written at P + i
+        li, cache = model.decode_step(cut, toks[:, P + i], cache, P + i)
+        dec.append(li)
+    full, _ = model.forward(cut, {"tokens": toks}, attn_impl="kernel")
+    ref = full[:, P:]
+    err_b = float((torch.stack(dec, 1) - ref).abs().max()) / float(ref.abs().max())
+    require(err_b <= LM_TOL, f"[lm] f32 prefill + decode vs forward: {err_b}")
+    say("lm", card=card, step="float32", batch=B2, tokens=P + T,
+        layers_checked=cfg.n_layers, **{f"layerwise_{k}": v for k, v in layer.items()},
+        **{f"e2e_{k}_layers{cfg.n_layers}": v for k, v in e2e.items()},
+        check_layers=cfg_cut.n_layers, kernel_vs_dense_rel=err_a, prefill=P, decode_steps=T,
+        prefill_decode_vs_forward_rel=err_b, tol=LM_TOL,
+        seconds=round(time.perf_counter() - t0, 3))
+    del params, cut, cache, full, ref, dec, lk, ld, model
+    free(device)
+    return launches, secs, dict(layerwise=layer, kernel_vs_dense=err_a, decode_vs_forward=err_b,
+                                peak=peak)
+
+
+def attention_f64(q, k, v):
+    """Causal attention in float64 on [B, H, S, D] inputs (K/V heads
+    expanded by index): the exact yardstick of the per-layer check."""
+    B, H, S, D = q.shape
+    rep = H // k.shape[1]
+    kk, vv = (t.double().repeat_interleave(rep, dim=1) for t in (k, v))
+    s = torch.matmul(q.double(), kk.transpose(-1, -2)) * D ** -0.5
+    s = s.masked_fill(~torch.ones((S, S), dtype=torch.bool, device=q.device).tril(),
+                      float("-inf"))
+    return torch.matmul(torch.softmax(s, dim=-1), vv)
+
+
+def lm_layerwise(params, cfg, toks):
+    """The kernel on every layer's real activations: a dense prefill trunk,
+    layer by layer; at each layer the attention function of that layer's
+    q, k, v (f32) through the kernel and through its plain f32 version, both
+    against the same function in float64. Returns the worst per-layer
+    ratio (kernel error / plain error, each relative to max|out|) with the
+    worst errors, and — to show why the end-to-end checks cut depth — how
+    far the last-token logits of the whole stack move (relative to
+    max|logit|) between 'kernel' and 'dense', and under a 1e-7 relative
+    perturbation of the embeddings with 'dense'."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import attention, qkv
+    from repro_torch.models.common import rms_norm, rotary
+    from repro_torch.models.mlp import mlp
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import layer_params
+
+    require(not cfg.embed_scale and cfg.family == "dense", "lm_layerwise: plain dense embedding")
+    S = toks.shape[1]
+    cos, sin = rotary(torch.arange(S, device=toks.device), cfg.hd, cfg.rope_theta)
+    rope = (cos[None, :, None, :], sin[None, :, None, :])
+    x = params["embed"][toks]
+    worst = dict(ratio=0.0, kernel_vs_f64=0.0, plain_vs_f64=0.0, kernel_vs_plain=0.0)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = (t.transpose(1, 2) for t in qkv(lp["attn"], h, cfg, rope))
+        exact = attention_f64(q, k, v)
+        scale = float(exact.abs().max())
+        o_k = ops.flash_attention(q, k, v, causal=True)
+        o_p = plain_version("flash_attention")(q, k, v, causal=True)
+        e_k = float((o_k.double() - exact).abs().max()) / scale
+        e_p = float((o_p.double() - exact).abs().max()) / scale
+        require(e_k <= LAYER_ACCURACY * e_p + 1e-6,
+                f"[lm] layer {i}: kernel {e_k} vs plain {e_p} from the f64 attention")
+        for key, val in (("ratio", e_k / max(e_p, 1e-30)), ("kernel_vs_f64", e_k),
+                         ("plain_vs_f64", e_p),
+                         ("kernel_vs_plain", float((o_k - o_p).abs().max()) / scale)):
+            worst[key] = max(worst[key], val)
+        del q, k, v, exact, o_k, o_p
+        a, _ = attention(lp["attn"], h, cfg, rope, impl="dense")
+        x = x + a
+        x = x + mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    del x, h, a
+    model = get_model(cfg)
+    ld, _ = model.prefill(params, {"tokens": toks}, attn_impl="dense")
+    lk, _ = model.prefill(params, {"tokens": toks}, attn_impl="kernel")
+    lp_, _ = model.prefill(dict(params, embed=params["embed"] * (1 + 1e-7)), {"tokens": toks},
+                           attn_impl="dense")
+    top = float(ld.abs().max())
+    return worst, dict(kernel_vs_dense_rel=float((lk - ld).abs().max()) / top,
+                       perturbed_embed_rel=float((lp_ - ld).abs().max()) / top)
+
+
 def build_kernels():
     """Compile every kernel source, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.dyn_query import dyn_leaf_query_library
+    from repro_torch.kernels.flash_attention import flash_library
     from repro_torch.kernels.fused_walk import fused_leaf_library, fused_walk_library
+    from repro_torch.kernels.minplus import minplus_library
     from repro_torch.kernels.tree_query import tree_query_library
 
     builders = dict(fused_walk=fused_walk_library, fused_leaf=fused_leaf_library,
-                    tree_query=tree_query_library, dyn_leaf_query=dyn_leaf_query_library)
+                    tree_query=tree_query_library, dyn_leaf_query=dyn_leaf_query_library,
+                    minplus=minplus_library, flash_attention=flash_library)
     t1 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
         futures = [pool.submit(b, verbose=True) for b in builders.values()]
@@ -977,7 +1429,8 @@ def main():
                     help="also write torch.profiler tables of warm queries: the RFS ones to PATH "
                          "and PATH.kernel-rfs, the DRFS ones (base epoch) to "
                          "PATH.drfs-quantized / PATH.drfs-exact and "
-                         "PATH.kernel-drfs-quantized / PATH.kernel-drfs-exact")
+                         "PATH.kernel-drfs-quantized / PATH.kernel-drfs-exact, and of the LM's "
+                         "warm prefill and one decode step to PATH.lm-prefill / PATH.lm-decode")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="walk the control flow on the CPU (no card, no result, exit code 3)")
     args = ap.parse_args()
@@ -991,6 +1444,10 @@ def main():
                   file=sys.stderr)
             return 2
         device = "cuda"
+        # float32 matmuls in full float32 (the [lm] f32 checks); PyTorch's
+        # defaults, set so that nothing else can change them
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60,
@@ -1005,6 +1462,8 @@ def main():
     abs1, rel1 = phase_kernels(device)
     labs, lrel = phase_leaf_kernels(device)
     kworst = phase_kernel_kernels(device)
+    n_minplus_cases = phase_minplus_kernels(device)
+    fl_abs, fl_rel, fl_shape, fl_bound, fl_timing = phase_flash_kernels(device)
     say("kernels", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
     m, ts, F_main, launches, secs = phase_main(args, device, card)
@@ -1035,6 +1494,13 @@ def main():
     del kdm
     free(device)
     say("kernel", path="drfs", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
+    mp_launches, mp_abs, mp_rel, mp_shape, mp_bound, mp_timing = phase_minplus(args, device, card)
+    free(device)
+    say("minplus", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
+    lm_launches, lm_secs, lm_checks = phase_lm(args, device, card)
+    say("lm", seconds=round(time.perf_counter() - t1, 1))
 
     # each path's launches were read right after that path's queries: the
     # launches made since, to compare a kernel with its plain version, do
@@ -1042,6 +1508,8 @@ def main():
     if device != "cpu":
         require(launches > 0, "the main path never launched fused_walk")
         require(tq_launches > 0, "the rfs kernel path never launched tree_query")
+        require(mp_launches > 0, "the shortest-path path never launched minplus_matmul")
+        require(lm_launches > 0, "the lm prefill path never launched flash_attention")
 
     def entry(name, path, n, err_abs, err_rel, shp, bnd, tm, replaces, source=None, **extra):
         return dict(
@@ -1049,7 +1517,9 @@ def main():
             source=f"src/repro_torch/kernels/csrc/{source or name}.cu", replaces=replaces,
             launches=n, max_abs_err=err_abs, max_rel_err=err_rel,
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
-            library_ms=None,  # no single PyTorch call computes any of these functions
+            # flash_attention: scaled_dot_product_attention, timed only; no single
+            # PyTorch call computes any of the others
+            library_ms=tm.get("library_ms"),
             timed_shape=shp, card=card, **extra,
         )
 
@@ -1081,6 +1551,13 @@ def main():
               max(kw_["dyn_node_walk"][0], na), max(kw_["dyn_node_walk"][1], nr), nshape,
               nbound, ntiming, "src/repro/kernels/dyn_query.py:148", source="fused_walk",
               main_path=dict(scale=args.scale, warm_s=kdsecs["exact-warm"])),
+        entry("minplus_matmul", "shortest-path", mp_launches, mp_abs, mp_rel, mp_shape, mp_bound,
+              mp_timing, "src/repro/kernels/minplus.py:36", source="minplus",
+              bitwise_cases=n_minplus_cases, main_path=dict(scale=args.scale)),
+        entry("flash_attention", "lm-prefill", lm_launches, fl_abs, fl_rel, fl_shape, fl_bound,
+              fl_timing, "src/repro/kernels/flash_attention.py:72",
+              f32_cuda_core_bound_ms=fl_bound["f32_cuda_core_bound_ms"],
+              main_path=dict(arch="qwen2.5-3b", **lm_secs, **lm_checks)),
     ]
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,15 @@
 """Shortest-path substrate (paper: Dijkstra + Shortest Path Sharing, §3.2).
 
-``bounded_dijkstra`` — exact bounded-radius Dijkstra via scipy's C
-implementation (the host planning engine; the paper uses binary-heap
-Dijkstra per edge endpoint). The batched min-plus relaxation on the device
-is not part of this package yet (ROADMAP.md, Queue A9).
+Two engines:
+
+* ``bounded_dijkstra`` — exact bounded-radius Dijkstra via scipy's C
+  implementation (the host planning engine; the paper uses binary-heap
+  Dijkstra per edge endpoint).
+* ``minplus_bellman_ford`` — batched multi-source relaxation on the device
+  through repeated (min, +) matrix products: each round is one launch of the
+  hand-written ``minplus_matmul`` kernel (``repro_torch.kernels.ops``);
+  ``rounds`` bounds the hop count, which is small for bandwidth-bounded
+  queries. Like the reference, nothing in the TN-KDE planner calls it.
 
 Shortest Path Sharing (SPS): all lixels on a query edge (v_a, v_b) reuse the
 two endpoint distance rows d(v_a, .) and d(v_b, .) — so the per-edge cost is
@@ -24,6 +30,8 @@ __all__ = [
     "bounded_dijkstra",
     "endpoint_distance_rows",
     "candidate_edges",
+    "minplus_bellman_ford",
+    "hop_depth",
 ]
 
 
@@ -95,3 +103,59 @@ def candidate_edges(
         np.minimum(dist_rows[1][net.edge_src], dist_rows[1][net.edge_dst]),
     )
     return np.nonzero(d_min <= b_s + len_a)[0].astype(np.int32)
+
+
+def hop_depth(predecessors: np.ndarray) -> np.ndarray:
+    """Hop counts of shortest-path trees from their predecessor matrix
+    (``scipy.sparse.csgraph.dijkstra(..., return_predecessors=True)``:
+    ``[S, V]``, negative where there is no predecessor). 0 at each source and
+    at every vertex the search did not reach. The largest entry is a number
+    of Bellman-Ford rounds that reproduces every distance the search found."""
+    pred = np.asarray(predecessors)
+    rows = np.arange(pred.shape[0])[:, None]
+    has = pred >= 0
+    parent = np.where(has, pred, 0)
+    depth = np.where(has, -1, 0)
+    while (depth < 0).any():  # one tree level per pass
+        up = depth[rows, parent]
+        ready = (depth < 0) & (up >= 0)
+        if not ready.any():
+            raise ValueError("predecessor matrix has a cycle")
+        depth[ready] = up[ready] + 1
+    return depth
+
+
+def minplus_bellman_ford(adj_dense, source_rows, rounds: int):
+    """Batched multi-source bounded relaxation on the tensors' device.
+
+    D_{r+1} = min(D_r, minplus(D_r, A)); after ``rounds`` iterations D holds
+    exact distances for all paths of <= rounds hops (enough for
+    bandwidth-bounded KDE queries on road networks). Each round is one
+    ``ops.minplus_matmul`` — the CUDA kernel for a CUDA tensor, its plain
+    version for a CPU one — followed by an in-place minimum into D: the
+    reference's ``use_pallas`` switch is gone because the device decides.
+    The result equals the reference's bitwise (sums rounded once, minima
+    exact).
+
+    Args:
+      adj_dense: [V, V] float32/float64 tensor, the min-plus adjacency (inf
+        off-graph, 0 on the diagonal).
+      source_rows: [S, V] initial distances of that dtype and device (inf
+        except 0 at each source); not modified.
+      rounds: hop bound.
+
+    Returns a new [S, V] tensor.
+    """
+    import torch
+
+    from ..kernels import ops
+
+    if not isinstance(adj_dense, torch.Tensor) or not isinstance(source_rows, torch.Tensor):
+        raise TypeError("minplus_bellman_ford takes torch tensors")
+    d = source_rows.contiguous().clone()
+    adj = adj_dense.contiguous()
+    buf = torch.empty_like(d)
+    for _ in range(int(rounds)):
+        ops.minplus_matmul(d, adj, out=buf)
+        torch.minimum(d, buf, out=d)
+    return d

@@ -13,6 +13,12 @@
                    materialised query vectors (``csrc/dyn_leaf_query.cu``)
   dyn_node_walk  — the ``executor='kernel'`` DRFS exact tree phase: launches
                    ``csrc/fused_walk.cu`` on the complete tree
+  minplus_matmul — the (min, +) product, one launch per Bellman-Ford round
+                   of ``core.shortest_path.minplus_bellman_ford``
+                   (``csrc/minplus.cu``, f32 and f64)
+  flash_attention — forward online-softmax attention of the LM prefill /
+                   forward path with ``attn_impl='kernel'``, one launch per
+                   layer (``csrc/flash_attention.cu``, bf16 and f32 inputs)
 
 Each kernel ships with its plain PyTorch version in the same module (what a
 CPU tensor gets) and a launching wrapper in ``ops`` that counts launches.

@@ -5,7 +5,8 @@ on the CPU. For a CUDA tensor it launches the compiled kernel or raises:
 there is no fallback and no switch that swaps the plain version in on the
 card. Each wrapper counts its launches in a plain integer attribute
 (``fused_walk.launches``, ``fused_leaf.launches``, ``tree_query.launches``,
-``dyn_leaf_query.launches``, ``dyn_node_walk.launches``), incremented where
+``dyn_leaf_query.launches``, ``dyn_node_walk.launches``,
+``minplus_matmul.launches``, ``flash_attention.launches``), incremented where
 the kernel is launched and nowhere else. ``dyn_node_walk`` launches the same
 compiled source as ``fused_walk`` but counts in its own attribute.
 """
@@ -23,9 +24,12 @@ from .fused_walk import (
     fused_walk_library,
     fused_walk_ref,
 )
+from .flash_attention import HEAD_DIMS, check_seq_len, flash_attention_ref, flash_library
+from .minplus import minplus_library, minplus_matmul_ref
 from .tree_query import tree_query_library, tree_query_ref
 
-__all__ = ["dyn_leaf_query", "dyn_node_walk", "fused_leaf", "fused_walk", "tree_query"]
+__all__ = ["dyn_leaf_query", "dyn_node_walk", "flash_attention", "fused_leaf", "fused_walk",
+           "minplus_matmul", "tree_query"]
 
 # the fused_leaf kernel holds the two [W, k_t] temporal vectors in shared
 # memory (csrc/fused_leaf.cu SMEM_MAX)
@@ -259,3 +263,95 @@ def dyn_node_walk(nodeval, r_lo, r_hi, side, qs, *, hq) -> torch.Tensor:
 
 
 dyn_node_walk.launches = 0
+
+
+def minplus_matmul(a, b, *, out=None) -> torch.Tensor:
+    """(min, +) matrix product ``out[i, j] = min_k a[i, k] + b[k, j]`` (see
+    minplus.py): ``a [M, K]``, ``b [K, N]``, both float32 or both float64,
+    contiguous and on one device; ``[M, N]`` of their dtype, written into
+    ``out`` when given (contiguous, not overlapping ``a`` or ``b``). Inputs
+    are distances: finite or +inf. Launches on the current stream and does
+    not synchronise.
+    """
+    if a.device.type == "cpu":
+        return minplus_matmul_ref(a, b, out=out)
+    if a.device.type != "cuda":
+        raise ValueError(f"minplus_matmul: unsupported device {a.device}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"minplus_matmul: shapes {tuple(a.shape)} and {tuple(b.shape)} "
+                         "are not [M, K] and [K, N]")
+    if a.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"minplus_matmul: dtype must be float32 or float64, got {a.dtype}")
+    M, K = a.shape
+    N = int(b.shape[1])
+    dev = a.device
+    _check("minplus_matmul", "a", a, a.dtype, (M, K), dev)
+    _check("minplus_matmul", "b", b, a.dtype, (K, N), dev)
+    if out is None:
+        out = torch.empty((M, N), dtype=a.dtype, device=dev)
+    else:
+        _check("minplus_matmul", "out", out, a.dtype, (M, N), dev)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    if K == 0:
+        return out.fill_(float("inf"))  # the minimum of nothing
+    lib = minplus_library()
+    fn = lib.minplus_f64 if a.dtype == torch.float64 else lib.minplus_f32
+    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, _device_index(dev),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"minplus_matmul: kernel launch failed (cudaError {err})")
+    minplus_matmul.launches += 1
+    return out
+
+
+minplus_matmul.launches = 0
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None) -> torch.Tensor:
+    """Forward online-softmax attention (see flash_attention.py):
+    ``q [B, H, S, D]``, ``k/v [B, Hkv, S, D]``, one dtype (bfloat16 or
+    float32), on one device, each with its last dimension contiguous (any
+    batch, head and sequence strides: a ``[B, S, H, D]`` tensor transposed
+    is taken as it is). Returns ``[B, H, S, D]`` of ``q.dtype``, laid out in
+    memory as ``[B, S, H, D]`` (so ``.transpose(1, 2)`` of it is
+    contiguous). Launches on the current stream and does not synchronise.
+    """
+    B, H, S, D = q.shape
+    check_seq_len(S)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention: dtype must be float32 or bfloat16, got {q.dtype}")
+    Hkv = int(k.shape[1])
+    if D not in HEAD_DIMS or Hkv == 0 or H % Hkv:
+        raise ValueError(f"flash_attention: D={D} not in {HEAD_DIMS} or H={H} not a multiple "
+                         f"of Hkv={Hkv}")
+    dev = q.device
+    for name, t, shape in (("q", q, (B, H, S, D)), ("k", k, (B, Hkv, S, D)),
+                           ("v", v, (B, Hkv, S, D))):
+        if t.device != dev or t.dtype != q.dtype or tuple(t.shape) != shape:
+            raise ValueError(f"flash_attention: {name} must be {q.dtype} {shape} on {dev}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if t.stride(3) != 1:
+            raise ValueError(f"flash_attention: {name} must have its last dimension contiguous")
+    out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    scale = float(D ** -0.5) if scale is None else float(scale)
+    strides = (ctypes.c_longlong * 12)(*(int(t.stride(i)) for t in (q, k, v, out)
+                                         for i in (0, 1, 2)))
+    lib = flash_library()
+    fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 else lib.flash_attention_f32
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, S, D, strides,
+             scale, int(bool(causal)), _device_index(dev),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {err})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
