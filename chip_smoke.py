@@ -106,7 +106,11 @@ FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # max|logit|: ~1e-4 of f32 attention error per layer, amplified by the next
 # layer, stays far below LM_TOL, while a wrong cache slot, rope position or
 # mask moves the logits by O(1). At 36 layers the random model amplifies any
-# change of arithmetic to O(1) (phase_lm prints it), hence the cut.
+# change of arithmetic to O(1) (phase_lm prints it), hence the cut. At the cut
+# a sound run read (a) 2.8e-5 and (b) 2.9e-3 on an H100: (a) reads the last
+# token of 2 sequences, (b) 2 × 128 positions, where the forward alone, kernel
+# against dense, already differs by 4.9e-3. q and k rounded to bf16, or TF32
+# matmuls, read 0.20-0.60 (lm_cut_readings prints both each run).
 LAYER_ACCURACY = 4.0
 LM_TOL = 1e-2
 LM_CHECK_LAYERS = 2  # depth of the [lm] f32 end-to-end checks (full width)
@@ -379,21 +383,43 @@ def tree_query_bound(args):
     every (slot, half-window) with a non-empty bucket, rank intervals,
     position bounds and the output, each once. Operations: per non-empty
     bucket, the difference, product and sum of every prefix value (3·K4)."""
-    from repro_torch.kernels.tree_query import tree_buckets
+    from repro_torch.kernels import tree_query as tq
 
     pos, cum, r_lo, r_hi, ph, pl1, l1r, pl2, qv = args
     G, LVL, NPAD = pos.shape
     K4 = cum.shape[-1]
     live = torch.zeros(r_lo.numel(), dtype=torch.bool, device=pos.device)
     rows, probes, emitted, busy = [], [], 0, 0
-    for lev, lane, g, seg_lo, i_lo, i_hi in tree_buckets(pos, r_lo, r_hi, ph, pl1, l1r, pl2,
-                                                         probes=probes):
-        emitted += int(lane.numel())
-        on = i_hi > i_lo
-        busy += int(on.sum())
-        live[lane[on]] = True
-        base = (g * LVL + lev) * NPAD - 1
-        rows += [(base + i_hi)[on], (base + i_lo)[on & (i_lo > seg_lo)]]
+    search = tq._search
+
+    def probing(row, g, lo, hi, val, right, steps):
+        """tq._search, replayed to collect the storage index in ``pos`` of
+        every entry a live lane reads."""
+        want = search(row, g, lo, hi, val, right, steps)
+        lo, hi = lo.clone(), hi.clone()
+        at = row.storage_offset() + g * row.stride(0)
+        for _ in range(steps):
+            on = lo < hi
+            m = (lo + hi) >> 1
+            probes.append((at + m * row.stride(1))[on])
+            v = row[g, m.clamp(0, row.shape[1] - 1)]
+            go = torch.where(right, v <= val, v < val) & on
+            lo, hi = torch.where(go, m + 1, lo), torch.where(go | ~on, hi, m)
+        require(torch.equal(lo, want), "tree_query_bound: the replayed search differs")
+        return want
+
+    tq._search = probing
+    try:
+        for lev, lane, g, seg_lo, i_lo, i_hi in tq.tree_buckets(pos, r_lo, r_hi, ph, pl1, l1r,
+                                                                pl2):
+            emitted += int(lane.numel())
+            on = i_hi > i_lo
+            busy += int(on.sum())
+            live[lane[on]] = True
+            base = (g * LVL + lev) * NPAD - 1
+            rows += [(base + i_hi)[on], (base + i_lo)[on & (i_lo > seg_lo)]]
+    finally:
+        tq._search = search
     distinct = int(torch.unique(torch.cat(rows)).numel()) if rows else 0
     probed = int(torch.unique(torch.cat(probes)).numel()) if probes else 0
     n_live = int(live.sum())
@@ -1043,6 +1069,26 @@ def phase_minplus_kernels(device):
     return n
 
 
+def hop_depth(predecessors: np.ndarray) -> np.ndarray:
+    """Hop counts of shortest-path trees from their predecessor matrix
+    (``scipy.sparse.csgraph.dijkstra(..., return_predecessors=True)``:
+    ``[S, V]``, negative where there is no predecessor). 0 at each source and
+    at every vertex the search did not reach. The largest entry is a number
+    of Bellman-Ford rounds that reproduces every distance the search found."""
+    pred = np.asarray(predecessors)
+    rows = np.arange(pred.shape[0])[:, None]
+    has = pred >= 0
+    parent = np.where(has, pred, 0)
+    depth = np.where(has, -1, 0)
+    while (depth < 0).any():  # one tree level per pass
+        up = depth[rows, parent]
+        ready = (depth < 0) & (up >= 0)
+        if not ready.any():
+            raise ValueError("predecessor matrix has a cycle")
+        depth[ready] = up[ready] + 1
+    return depth
+
+
 def phase_minplus(args, device, card):
     """All-pairs bounded distances of the berkeley network on the device:
     ``minplus_bellman_ford`` from every vertex, ``rounds`` = the deepest hop
@@ -1063,7 +1109,7 @@ def phase_minplus(args, device, card):
     scipy_s = time.perf_counter() - t1
     _, pred = csgraph.dijkstra(csr, directed=False, indices=np.arange(V), limit=MINPLUS_RADIUS,
                                return_predecessors=True)
-    rounds = int(sp.hop_depth(pred).max())
+    rounds = int(hop_depth(pred).max())
     adj = torch.as_tensor(net.dense_adjacency(), device=device)
     init = torch.full((V, V), float("inf"), dtype=torch.float64, device=device)
     init.fill_diagonal_(0.0)
@@ -1298,42 +1344,172 @@ def phase_lm(args, device, card):
     cfg_cut = dataclasses.replace(cfg32, n_layers=min(LM_CHECK_LAYERS, cfg.n_layers))
     cut = dict(params, layers=layer_params(params["layers"], slice(0, cfg_cut.n_layers)))
     model = get_model(cfg_cut)
-    lk, _ = model.prefill(cut, {"tokens": toks}, attn_impl="kernel")
-    ld, _ = model.prefill(cut, {"tokens": toks}, attn_impl="dense")
-    require(bool(torch.isfinite(lk).all()), "[lm] f32 kernel logits not finite")
-    err_a = float((lk - ld).abs().max()) / float(ld.abs().max())
+    err_a = lm_kernel_vs_dense(model, cut, toks)
     require(err_a <= LM_TOL, f"[lm] f32 prefill, kernel vs dense: {err_a}")
-    _, cache = model.prefill(cut, {"tokens": toks[:, :P]}, attn_impl="kernel")
-    cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, T)) for k, c in cache.items()}
-    dec = []
-    for i in range(T):  # teacher-forced: the token at P + i, written at P + i
-        li, cache = model.decode_step(cut, toks[:, P + i], cache, P + i)
-        dec.append(li)
-    full, _ = model.forward(cut, {"tokens": toks}, attn_impl="kernel")
-    ref = full[:, P:]
-    err_b = float((torch.stack(dec, 1) - ref).abs().max()) / float(ref.abs().max())
+    err_b = lm_decode_vs_forward(model, cut, toks, P, T)
     require(err_b <= LM_TOL, f"[lm] f32 prefill + decode vs forward: {err_b}")
+    readings = lm_cut_readings(model, cut, cfg_cut, toks, P, T)
     say("lm", card=card, step="float32", batch=B2, tokens=P + T,
         layers_checked=cfg.n_layers, **{f"layerwise_{k}": v for k, v in layer.items()},
         **{f"e2e_{k}_layers{cfg.n_layers}": v for k, v in e2e.items()},
         check_layers=cfg_cut.n_layers, kernel_vs_dense_rel=err_a, prefill=P, decode_steps=T,
         prefill_decode_vs_forward_rel=err_b, tol=LM_TOL,
         seconds=round(time.perf_counter() - t0, 3))
-    del params, cut, cache, full, ref, dec, lk, ld, model
+    say("lm", card=card, step="float32-readings", check_layers=cfg_cut.n_layers, tol=LM_TOL,
+        **readings)
+    # the controls are held on the card only: on the CPU the TF32 switch does nothing
+    for name in ("control_bf16_qk", "control_tf32") if not small else ():
+        require(max(readings[f"{name}_kernel_vs_dense_rel"],
+                    readings[f"{name}_decode_vs_forward_rel"]) > LM_TOL,
+                f"[lm] the limit {LM_TOL} does not tell {name} from a sound run")
+    del params, cut, model
     free(device)
     return launches, secs, dict(layerwise=layer, kernel_vs_dense=err_a, decode_vs_forward=err_b,
                                 peak=peak)
 
 
-def attention_f64(q, k, v):
+def lm_kernel_vs_dense(model, params, toks):
+    """(a): last-token prefill logits, 'kernel' against 'dense', relative to
+    max|logit|."""
+    lk, _ = model.prefill(params, {"tokens": toks}, attn_impl="kernel")
+    ld, _ = model.prefill(params, {"tokens": toks}, attn_impl="dense")
+    require(bool(torch.isfinite(lk).all()), "[lm] f32 kernel logits not finite")
+    return float((lk - ld).abs().max()) / float(ld.abs().max())
+
+
+def lm_decode_vs_forward(model, params, toks, P, T, impl="kernel"):
+    """(b): prefill of P tokens with 'kernel', then T teacher-forced decode
+    steps (the token at P + i written at P + i), against one forward over
+    all P + T tokens with ``impl`` at those positions, relative to
+    max|logit|."""
+    _, cache = model.prefill(params, {"tokens": toks[:, :P]}, attn_impl="kernel")
+    cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, T)) for k, c in cache.items()}
+    dec = []
+    for i in range(T):
+        li, cache = model.decode_step(params, toks[:, P + i], cache, P + i)
+        dec.append(li)
+    ref = model.forward(params, {"tokens": toks}, attn_impl=impl)[0][:, P:]
+    return float((torch.stack(dec, 1) - ref).abs().max()) / float(ref.abs().max())
+
+
+def lm_cut_readings(model, params, cfg, toks, P, T):
+    """What the [lm] limit is read against, at the cut depth. The model's
+    own sensitivity: last-token logits under a 1e-7 relative change of the
+    embeddings ('dense'). Where (b)'s difference comes from: per layer (the
+    dense trunk's activations), decode_attention at every decoded position
+    against the same attention in float64 on decode's own one-token q/k/v
+    (out-projected, relative to max|out|), beside the kernel's error on the
+    full-sequence rows; how far decode's one-row projections of q and k lie
+    from the full sequence's at the same positions; (b) with 'dense' in
+    place of the kernel in the forward; the forward's logits at (b)'s
+    positions, 'kernel' against 'dense', and 'kernel' against itself with q
+    moved by seeded relative noise of decode's size before the kernel. Two
+    controls a sound run must not resemble: (a) and (b) with q and k rounded
+    to bf16 before the kernel, and with TF32 matmuls."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.attention import attention, decode_attention, qkv
+    from repro_torch.models.common import rms_norm, rotary
+    from repro_torch.models.mlp import mlp
+    from repro_torch.models.transformer import layer_params
+
+    out = {}
+    ld, _ = model.prefill(params, {"tokens": toks}, attn_impl="dense")
+    lp_, _ = model.prefill(dict(params, embed=params["embed"] * (1 + 1e-7)), {"tokens": toks},
+                           attn_impl="dense")
+    out["perturbed_embed_rel"] = float((lp_ - ld).abs().max()) / float(ld.abs().max())
+    del ld, lp_
+    out["decode_vs_forward_dense_rel"] = lm_decode_vs_forward(model, params, toks, P, T,
+                                                              impl="dense")
+
+    def forward_rows():  # the forward's logits at (b)'s positions, relative to them
+        return model.forward(params, {"tokens": toks}, attn_impl="kernel")[0][:, P:]
+
+    fk = forward_rows()
+    fd = model.forward(params, {"tokens": toks}, attn_impl="dense")[0][:, P:]
+    out["forward_kernel_vs_dense_rel"] = float((fk - fd).abs().max()) / float(fd.abs().max())
+    del fd
+    S = toks.shape[1]
+    cos, sin = rotary(torch.arange(S, device=toks.device), cfg.hd, cfg.rope_theta)
+    x = params["embed"][toks]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = qkv(lp["attn"], h, cfg, (cos[None, :, None, :], sin[None, :, None, :]))
+        wo = lp["attn"]["wo"].double().flatten(0, 1)
+        full = ops.flash_attention(*(t.transpose(1, 2) for t in (q, k, v)), causal=True)
+        exact = attention_f64(*(t.transpose(1, 2) for t in (q, k, v)))
+        proj = lambda o: o[:, :, P:].transpose(1, 2).flatten(-2).double() @ wo  # noqa: E731
+        top = float(proj(exact).abs().max())
+        e_kernel = float((proj(full) - proj(exact)).abs().max()) / top
+        e_dec = dq = dk = 0.0
+        for t in range(P, S):
+            rope_t = (cos[None, t:t + 1, None, :], sin[None, t:t + 1, None, :])
+            ck, cv = k.clone(), v.clone()
+            o_dec, _ = decode_attention(lp["attn"], h[:, t:t + 1], cfg, rope_t, ck, cv, t)
+            q1, k1, _ = qkv(lp["attn"], h[:, t:t + 1], cfg, rope_t)  # as decode computed them
+            e1 = attention_f64(q1.transpose(1, 2), ck[:, :t + 1].transpose(1, 2),
+                               cv[:, :t + 1].transpose(1, 2), last_row=True)
+            want = e1.transpose(1, 2).flatten(-2) @ wo
+            e_dec = max(e_dec, float((o_dec.double() - want).abs().max()) / top)
+            dq = max(dq, float((q1[:, 0] - q[:, t]).abs().max()) / float(q.abs().max()))
+            dk = max(dk, float((k1[:, 0] - k[:, t]).abs().max()) / float(k.abs().max()))
+        out.update({f"layer{i}_decode_vs_f64": e_dec, f"layer{i}_kernel_vs_f64": e_kernel,
+                    f"layer{i}_decode_q_vs_full": dq, f"layer{i}_decode_k_vs_full": dk})
+        del q, k, v, full, exact
+        a, _ = attention(lp["attn"], h, cfg, (cos[None, :, None, :], sin[None, :, None, :]),
+                         impl="dense")
+        x = x + a
+        x = x + mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps), cfg)
+    del x, h, a
+
+    kernel = ops.flash_attention
+
+    def bf16_qk(q, k, v, **kw):
+        return kernel(q.bfloat16().float(), k.bfloat16().float(), v, **kw)
+
+    delta = max(out[f"layer{i}_decode_q_vs_full"] for i in range(cfg.n_layers))
+    gen = torch.Generator(device=toks.device).manual_seed(0)
+
+    def noisy_q(q, k, v, **kw):
+        noise = torch.randn(q.shape, generator=gen, device=q.device, dtype=q.dtype)
+        return kernel(q * (1 + delta * noise), k, v, **kw)
+
+    # while a stand-in is ops.flash_attention, the kernel counts its launches there
+    bf16_qk.launches = noisy_q.launches = 0
+    try:  # q moved as far as decode's q lies from the forward's
+        ops.flash_attention = noisy_q
+        noisy = forward_rows()
+    finally:
+        ops.flash_attention = kernel
+    out["q_noise_forward_rel"] = float((noisy - fk).abs().max()) / float(fk.abs().max())
+    del noisy
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    for name in ("control_bf16_qk", "control_tf32"):
+        try:
+            if name == "control_bf16_qk":
+                ops.flash_attention = bf16_qk
+            else:
+                torch.backends.cuda.matmul.allow_tf32 = True
+            out[f"{name}_kernel_vs_dense_rel"] = lm_kernel_vs_dense(model, params, toks)
+            out[f"{name}_decode_vs_forward_rel"] = lm_decode_vs_forward(model, params, toks, P, T)
+        finally:
+            ops.flash_attention = kernel
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    del fk
+    return out
+
+
+def attention_f64(q, k, v, last_row=False):
     """Causal attention in float64 on [B, H, S, D] inputs (K/V heads
-    expanded by index): the exact yardstick of the per-layer check."""
+    expanded by index): the exact yardstick of the per-layer check. With
+    ``last_row`` the one query row ``q [B, H, 1, D]`` sits at the last key."""
     B, H, S, D = q.shape
     rep = H // k.shape[1]
     kk, vv = (t.double().repeat_interleave(rep, dim=1) for t in (k, v))
     s = torch.matmul(q.double(), kk.transpose(-1, -2)) * D ** -0.5
-    s = s.masked_fill(~torch.ones((S, S), dtype=torch.bool, device=q.device).tril(),
-                      float("-inf"))
+    if not last_row:
+        s = s.masked_fill(~torch.ones((S, S), dtype=torch.bool, device=q.device).tril(),
+                          float("-inf"))
     return torch.matmul(torch.softmax(s, dim=-1), vv)
 
 
@@ -1556,7 +1732,6 @@ def main():
               bitwise_cases=n_minplus_cases, main_path=dict(scale=args.scale)),
         entry("flash_attention", "lm-prefill", lm_launches, fl_abs, fl_rel, fl_shape, fl_bound,
               fl_timing, "src/repro/kernels/flash_attention.py:72",
-              f32_cuda_core_bound_ms=fl_bound["f32_cuda_core_bound_ms"],
               main_path=dict(arch="qwen2.5-3b", **lm_secs, **lm_checks)),
     ]
     say("done", seconds=round(time.perf_counter() - t_start, 1))

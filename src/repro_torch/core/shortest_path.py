@@ -31,7 +31,6 @@ __all__ = [
     "endpoint_distance_rows",
     "candidate_edges",
     "minplus_bellman_ford",
-    "hop_depth",
 ]
 
 
@@ -103,26 +102,6 @@ def candidate_edges(
         np.minimum(dist_rows[1][net.edge_src], dist_rows[1][net.edge_dst]),
     )
     return np.nonzero(d_min <= b_s + len_a)[0].astype(np.int32)
-
-
-def hop_depth(predecessors: np.ndarray) -> np.ndarray:
-    """Hop counts of shortest-path trees from their predecessor matrix
-    (``scipy.sparse.csgraph.dijkstra(..., return_predecessors=True)``:
-    ``[S, V]``, negative where there is no predecessor). 0 at each source and
-    at every vertex the search did not reach. The largest entry is a number
-    of Bellman-Ford rounds that reproduces every distance the search found."""
-    pred = np.asarray(predecessors)
-    rows = np.arange(pred.shape[0])[:, None]
-    has = pred >= 0
-    parent = np.where(has, pred, 0)
-    depth = np.where(has, -1, 0)
-    while (depth < 0).any():  # one tree level per pass
-        up = depth[rows, parent]
-        ready = (depth < 0) & (up >= 0)
-        if not ready.any():
-            raise ValueError("predecessor matrix has a cycle")
-        depth[ready] = up[ready] + 1
-    return depth
 
 
 def minplus_bellman_ford(adj_dense, source_rows, rounds: int):

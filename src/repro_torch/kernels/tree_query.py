@@ -35,26 +35,22 @@ import torch
 __all__ = ["tree_buckets", "tree_query_library", "tree_query_ref"]
 
 
-def _search(row, g, lo, hi, val, right, steps: int, probes=None):
+def _search(row, g, lo, hi, val, right, steps: int):
     """Branch-free binary search of val[n] in row[g[n], lo[n]:hi[n]]
     (ascending): the insertion point, after equal values where ``right``.
-    A finished lane (lo == hi) keeps its state; its load is clamped.
-    ``probes`` (a list) collects ``g·NPAD + index`` of every entry a live
-    lane reads."""
+    A finished lane (lo == hi) keeps its state; its load is clamped."""
     npad = row.shape[1]
     lo, hi = lo.clone(), hi.clone()
     for _ in range(steps):
         live = lo < hi
         m = (lo + hi) >> 1
-        if probes is not None:
-            probes.append((g * npad + m)[live])
         v = row[g, m.clamp(0, npad - 1)]
         go = torch.where(right, v <= val, v < val) & live
         lo, hi = torch.where(go, m + 1, lo), torch.where(go | ~live, hi, m)
     return lo
 
 
-def tree_buckets(pos, r_lo, r_hi, pos_hi, pos_lo1, lo1_right, pos_lo2, probes=None):
+def tree_buckets(pos, r_lo, r_hi, pos_hi, pos_lo1, lo1_right, pos_lo2):
     """The buckets the canonical decomposition emits, in the kernel's order.
 
     Yields ``(lev, lane, g, seg_lo, i_lo, i_hi)`` per (level, side), left
@@ -63,9 +59,6 @@ def tree_buckets(pos, r_lo, r_hi, pos_hi, pos_lo1, lo1_right, pos_lo2, probes=No
     in the level row and the position-selected interval [i_lo, i_hi) of the
     segment (absolute indices in the level row). Lanes that emit nothing are
     skipped, not masked: the values are the same, the work is not.
-    ``probes`` (a list) collects, per level and side, the flat indices
-    ``(g·LVL + lev)·NPAD + i`` of the position entries the three searches
-    read.
     """
     G, LVL, NPAD = pos.shape
     Wh, Q = r_lo.shape[1], r_lo.shape[2]
@@ -82,14 +75,9 @@ def tree_buckets(pos, r_lo, r_hi, pos_hi, pos_lo1, lo1_right, pos_lo2, probes=No
             g, q = g_of[lane], q_of[lane]
             seg_lo = (l[lane] if left else r[lane] - 1) << lev
             seg_hi = (seg_lo + (1 << lev)).clamp_max(NPAD)
-            seen = [] if probes is not None else None
-            i_hi = _search(row, g, seg_lo, seg_hi, pos_hi[g, q], yes, steps, seen)
-            i_l1 = _search(row, g, seg_lo, seg_hi, pos_lo1[g, q], lo1_right[g, q] != 0, steps,
-                           seen)
-            i_l2 = _search(row, g, seg_lo, seg_hi, pos_lo2[g, q], ~yes, steps, seen)
-            if seen:  # g·NPAD + i  ->  (g·LVL + lev)·NPAD + i
-                flat = torch.cat(seen)
-                probes.append((flat // NPAD * LVL + lev) * NPAD + flat % NPAD)
+            i_hi = _search(row, g, seg_lo, seg_hi, pos_hi[g, q], yes, steps)
+            i_l1 = _search(row, g, seg_lo, seg_hi, pos_lo1[g, q], lo1_right[g, q] != 0, steps)
+            i_l2 = _search(row, g, seg_lo, seg_hi, pos_lo2[g, q], ~yes, steps)
             i_lo = torch.maximum(i_l1, i_l2)
             yield lev, lane, g, seg_lo, i_lo, torch.maximum(i_hi, i_lo)
             if left:

@@ -149,10 +149,11 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     """One decode step: ``token [B]`` at position ``pos`` (the write index)
     -> (logits [B, V], cache).
 
-    ``cfg.decode_loop`` picks how the stacked cache is carried, as in the
-    reference, and both give the same numbers: ``'fori'`` writes the new
-    token's K/V into the given cache tensors in place and returns them;
-    ``'scan'`` leaves them untouched and returns updated copies.
+    Both of the reference's ``cfg.decode_loop`` names are accepted and run
+    the same loop: the reference's ``'fori'`` exists only to keep XLA from
+    copying the stacked cache through ``lax.scan``, and eager PyTorch has no
+    such copy. The new token's K/V are written into the given cache tensors
+    in place, and those tensors are returned.
     """
     check_served(cfg)
     if cfg.decode_loop not in DECODE_LOOPS:
@@ -161,8 +162,6 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos):
     pos = int(pos)
     rope = _rope_for(cfg, torch.tensor([pos], device=x.device))
     ck, cv = cache["k"], cache["v"]
-    if cfg.decode_loop == "scan":
-        ck, cv = ck.clone(), cv.clone()
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)

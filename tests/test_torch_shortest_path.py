@@ -9,6 +9,9 @@ is one rounding (a + b) followed by exact minima, so no order can differ.
 Dijkstra to 1e-12. The CUDA kernel itself is compiled and compared on the
 GPU by ``chip_smoke.py`` (``[minplus-kernels]``, ``[minplus]``).
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +28,15 @@ from repro_torch.kernels import minplus, ops
 
 SHAPES = [(4, 4, 4), (16, 32, 8), (65, 33, 17), (128, 128, 128)]
 DTYPES = {"float32": (np.float32, torch.float32), "float64": (np.float64, torch.float64)}
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the root of the repo, as a module."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _case(m, k, n, np_dt):
@@ -115,7 +127,8 @@ def test_bellman_ford_matches_reference_and_dijkstra(dtype):
 def test_bellman_ford_bounded_rounds():
     """With rounds = the largest hop depth of the bounded Dijkstra trees, the
     relaxation is exact within the radius and > radius wherever Dijkstra
-    stops (the [minplus] phase of chip_smoke.py, on a small network)."""
+    stops (the [minplus] phase of chip_smoke.py, with its ``hop_depth``, on a
+    small network)."""
     import scipy.sparse.csgraph as csgraph
 
     net = make_network(60, 100, seed=13)
@@ -123,7 +136,7 @@ def test_bellman_ford_bounded_rounds():
     V = net.n_vertices
     dist, pred = csgraph.dijkstra(sp.adjacency_csr(net), directed=False, indices=np.arange(V),
                                   limit=radius, return_predecessors=True)
-    rounds = int(sp.hop_depth(pred).max())
+    rounds = int(_chip_smoke().hop_depth(pred).max())
     assert 1 < rounds < V
     init = np.full((V, V), np.inf)
     np.fill_diagonal(init, 0.0)
