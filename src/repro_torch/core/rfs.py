@@ -34,7 +34,7 @@ tables per ts tuple, and three executors — the gather-lean ``packed`` walk
 in plain torch (default) and ``fused``, ONE hand-written CUDA ``fused_walk``
 launch per flush (``repro_torch.kernels.fused_walk``), both over the
 position-major tables, and ``kernel``, the per-bucket-search tier: ONE
-``tree_query`` launch per flush over per-edge grouped time-major tables
+``tree_query`` launch per flush over the flat forest's time-major tables
 (``repro_torch.kernels.tree_query``).
 
 ``FlatDynamicEngine`` does the same for the streaming DRFS index
@@ -692,43 +692,30 @@ def _rfs_flush(nv_g, entry, heat):
     _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
 
 
-def _combo_query_vectors(qs, qt, side, half):
-    """q_vec [G, Wh, Qp, 4K] of the kernel executor: the slot's (side, half)
-    combo holds q_s ⊗ q_t (s-major), the other three combos zeros — the
-    kernel stays combo-agnostic. ``qs`` is masked (padding slots zero)."""
-    G, Qp, ks = qs.shape
-    Wh, kt = qt.shape
-    qfull = (qs[:, None, :, :, None] * qt[None, :, None, None, :]).reshape(G, Wh, Qp, 1, ks * kt)
-    combo = side.to(torch.int64)[:, None, :] * 2 + half.to(torch.int64)[None, :, None]
-    oh = torch.arange(N_COMBOS, device=qs.device) == combo[..., None]  # [G, Wh, Qp, 4]
-    return torch.where(oh[..., None], qfull, 0.0).reshape(G, Wh, Qp, N_COMBOS * ks * kt)
-
-
-def tree_query_args(ranks, entry, wb):
+def tree_query_args(ff, ranks, entry, wb):
     """The inputs of the ONE ``tree_query`` launch of a kernel-executor flush:
-    the per-edge (lo, mid, hi) time ranks broadcast to [G, Wh, Qp] (row
-    order w0 left, w0 right, w1 left, ...), the grouped tables and position
-    bounds of the entry, and the 4-combo query vectors."""
-    G, Qp = entry["side"].shape
+    the flat forest's tables as they are, the entry's edge block starts and
+    per-slot bounds, the per-edge (lo, mid, hi) time ranks as [G, Wh]
+    intervals (row order w0 left, w0 right, w1 left, ...) and the
+    half-window coefficients. No query vector is built here: the kernel
+    builds it from ``qs``, ``qt``, ``side`` and ``half``."""
+    G = entry["side"].shape[0]
     Wh = wb.t_lo.shape[0]
     k = ranks[:, :, entry["edges"]]  # [3, W, G]
-    r_lo = torch.stack([k[0], k[1]], dim=1).reshape(Wh, G).T
-    r_hi = torch.stack([k[1], k[2]], dim=1).reshape(Wh, G).T
-    r_lo = r_lo[:, :, None].expand(G, Wh, Qp).contiguous()
-    r_hi = r_hi[:, :, None].expand(G, Wh, Qp).contiguous()
-    q_vec = _combo_query_vectors(entry["qs"], wb.qt, entry["side"], wb.half)
-    return (entry["pos"], entry["cum"], r_lo, r_hi, entry["pos_hi"], entry["pos_lo1"],
-            entry["lo1_right"], entry["pos_lo2"], q_vec)
+    r_lo = torch.stack([k[0], k[1]], dim=1).reshape(Wh, G).T.contiguous()
+    r_hi = torch.stack([k[1], k[2]], dim=1).reshape(Wh, G).T.contiguous()
+    return ((ff.pos_flat, ff.cum_flat.reshape(ff.cum_flat.shape[0], -1), entry["base"], r_lo,
+             r_hi, entry["pos_hi"], entry["pos_lo1"], entry["lo1_right"], entry["pos_lo2"],
+             entry["qs"], wb.qt, entry["side"], wb.half), dict(npad=entry["npad"]))
 
 
-def _rfs_kernel_flush(ranks, entry, wb, heat):
-    """ONE ``tree_query`` launch for the entry: [G, Wh, Qp], window halves
-    folded, then only the real atoms' rows scattered onto heat [L, W]."""
-    W = heat.shape[1]
-    out = ops.tree_query(*tree_query_args(ranks, entry, wb))  # [G, Wh, Qp]
-    per_win = out[:, 0::2] + out[:, 1::2]  # [G, W, Qp]
-    flat = per_win.permute(0, 2, 1).reshape(-1, W)
-    _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
+def _rfs_kernel_flush(ff, ranks, entry, wb, heat):
+    """ONE ``tree_query`` launch for the entry: [G, Qp, Wh], then the real
+    atoms' rows, window halves folded, scattered onto heat [L, W]."""
+    args, kw = tree_query_args(ff, ranks, entry, wb)
+    out = ops.tree_query(*args, **kw)  # [G, Qp, Wh]
+    rows = out.reshape(-1, out.shape[2]).index_select(0, entry["rows"])  # [M, Wh]
+    _scatter_add(heat, entry["lixel"], rows[:, 0::2] + rows[:, 1::2])
 
 
 def _scatter_add(heat, lixel, rows):
@@ -758,10 +745,11 @@ class FlatForestEngine(_DeviceEngine):
                           in-kernel over per-edge grouped node values
                           (kernels/fused_walk.py).
       executor='kernel'   ONE hand-written CUDA ``tree_query`` launch per
-                          atom pack over per-edge grouped slices of the
-                          time-major RangeForest tables: per (atom,
+                          atom pack over the flat forest's time-major tables
+                          as they are (no per-entry copies): per (atom,
                           half-window) the canonical time-rank decomposition
-                          with three position searches per bucket
+                          with three position searches per bucket and the
+                          query vector built in the kernel
                           (kernels/tree_query.py). Window-side state is the
                           [3, W, E] time-rank table (:func:`rank_boundaries`).
 
@@ -933,25 +921,22 @@ class FlatForestEngine(_DeviceEngine):
         return entries
 
     def _kernel_pack(self, atoms):
-        """Grouped layout for the kernel executor: per entry the edges'
-        time-major tables ``pos [G, lvl, npad]`` / ``cum [G, lvl, npad, 4K]``
-        (slices of the flat forest, gathered on the device) and the atoms'
-        three position bounds, so a flush only adds the ts-keyed ranks and
-        the query vectors."""
+        """Grouped layout for the kernel executor: per entry the first row
+        of each edge's block in the flat forest (``base``; the tables stay
+        where the forest holds them) and the atoms' three position bounds,
+        so a flush only adds the ts-keyed ranks."""
         ff = self._flat
         entries = []
         for p, fa, entry in self._grouped(atoms):
             G, qp = entry["side"].shape
-            lvl = p.bit_length()
-            idx = ff.edge_base[entry["edges"]][:, None] + torch.arange(lvl * p, device=self.device)
             entry.update(
-                pos=ff.pos_flat[idx].reshape(G, lvl, p),
-                cum=ff.cum_flat[idx].reshape(G, lvl, p, -1),
+                base=ff.edge_base[entry["edges"]],
+                npad=p,
                 pos_hi=fa.pos_hi.reshape(G, qp),
                 pos_lo1=fa.pos_lo1.reshape(G, qp),
                 lo1_right=fa.lo1_right.reshape(G, qp).to(torch.int32),
                 pos_lo2=fa.pos_lo2.reshape(G, qp),
-                max_levels=lvl,
+                max_levels=p.bit_length(),
             )
             entries.append(entry)
         return entries
@@ -1009,7 +994,7 @@ class FlatForestEngine(_DeviceEngine):
         for bi, entry in enumerate(packs):
             c, m = entry["max_levels"], entry["m"]
             if self.executor == "kernel":
-                _rfs_kernel_flush(tabs, entry, wb, heat)
+                _rfs_kernel_flush(self._flat, tabs, entry, wb, heat)
                 # two buckets of two [4, K] prefix rows per (half-window,
                 # level) of every atom: the reference's count for this tier
                 gathers = 4 * 2 * W * m * c

@@ -17,7 +17,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["load_library", "build_dir", "find_nvcc", "NVCC_FLAGS"]
+__all__ = ["load_library", "build_dir", "build_log", "find_nvcc", "NVCC_FLAGS"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = (
@@ -25,6 +25,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 _LIBS: dict = {}
+_LOGS: dict = {}
 
 
 def build_dir() -> Path:
@@ -48,6 +49,13 @@ def find_nvcc() -> str:
     )
 
 
+def build_log(name: str):
+    """What ``nvcc`` printed when this process built ``csrc/<name>.cu``
+    (with ``verbose``: ptxas's registers, shared memory and spills per
+    kernel); None if the library was already built."""
+    return _LOGS.get(name)
+
+
 def load_library(name: str, *, verbose: bool = False) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, and load it."""
     lib = _LIBS.get(name)
@@ -69,8 +77,9 @@ def load_library(name: str, *, verbose: bool = False) -> ctypes.CDLL:
                 f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
                 f"{proc.stdout}\n{proc.stderr}"
             )
+        _LOGS[name] = proc.stdout + proc.stderr
         if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
+            print(_LOGS[name], flush=True)
         os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib

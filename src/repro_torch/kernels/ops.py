@@ -24,7 +24,7 @@ from .fused_walk import (
     fused_walk_library,
     fused_walk_ref,
 )
-from .flash_attention import HEAD_DIMS, check_seq_len, flash_attention_ref, flash_library
+from .flash_attention import HEAD_DIMS, LOG2E, check_seq_len, flash_attention_ref, flash_library
 from .minplus import minplus_library, minplus_matmul_ref
 from .tree_query import tree_query_library, tree_query_ref
 
@@ -34,6 +34,16 @@ __all__ = ["dyn_leaf_query", "dyn_node_walk", "flash_attention", "fused_leaf", "
 # the fused_leaf kernel holds the two [W, k_t] temporal vectors in shared
 # memory (csrc/fused_leaf.cu SMEM_MAX)
 LEAF_SMEM_MAX = 48 * 1024
+# the tree_query kernel copies an edge's block of the flat forest into
+# shared memory when it takes at most this many bytes (tree_staged)
+TREE_STAGE_MAX = 64 * 1024
+
+
+def tree_staged(npad: int, k4: int) -> bool:
+    """Whether the tree_query kernel stages an edge's block — npad.bit_length()
+    levels of npad rows, a position and 4K = ``k4`` prefix values each, f64 —
+    in shared memory (csrc/tree_query.cu's ``staged`` branch)."""
+    return int(npad).bit_length() * int(npad) * (1 + int(k4)) * 8 <= TREE_STAGE_MAX
 
 
 def _check(kernel, name, t, dtype, shape, device):
@@ -157,44 +167,59 @@ def fused_leaf(lcum, leaf_lo, leaf_hi, side, qs, qtl, qtr) -> torch.Tensor:
 fused_leaf.launches = 0
 
 
-def tree_query(pos, cum, r_lo, r_hi, pos_hi, pos_lo1, lo1_right, pos_lo2, q_vec) -> torch.Tensor:
-    """Merge-tree range query (see tree_query.py): [G, Wh, Q] float64.
+def tree_query(pos_flat, cum_flat, base, r_lo, r_hi, pos_hi, pos_lo1, lo1_right, pos_lo2, qs,
+               qt, side, half, *, npad: int) -> torch.Tensor:
+    """Merge-tree range query over the flat forest (see tree_query.py):
+    [G, Q, Wh] float64.
 
-    ``pos [G, LVL, NPAD]``, ``cum [G, LVL, NPAD, K4]``, ``pos_hi/pos_lo1/
-    pos_lo2 [G, Q]`` and ``q_vec [G, Wh, Q, K4]`` float64; ``r_lo/r_hi
-    [G, Wh, Q]`` and ``lo1_right [G, Q]`` int32; all contiguous and on one
-    device. Launches on the current stream and does not synchronise.
+    ``pos_flat [T]`` and ``cum_flat [T, 4·k_s·k_t]`` (the forest's tables),
+    ``pos_hi/pos_lo1/pos_lo2 [G, Q]``, ``qs [G, Q, k_s]`` and
+    ``qt [Wh, k_t]`` float64; ``base [G]`` int64 (each group's first row,
+    ``npad.bit_length()`` levels of ``npad`` rows from there);
+    ``r_lo/r_hi [G, Wh]``, ``lo1_right/side [G, Q]`` and ``half [Wh]``
+    int32; all contiguous and on one device. Launches on the current stream
+    and does not synchronise.
     """
-    if pos.device.type == "cpu":
-        return tree_query_ref(pos, cum, r_lo, r_hi, pos_hi, pos_lo1, lo1_right, pos_lo2, q_vec)
-    if pos.device.type != "cuda":
-        raise ValueError(f"tree_query: unsupported device {pos.device}")
-    if pos.dim() != 3 or cum.dim() != 4 or r_lo.dim() != 3:
-        raise ValueError("tree_query: pos must be [G, LVL, NPAD], cum [G, LVL, NPAD, K4], "
-                         "r_lo [G, Wh, Q]")
-    G, LVL, NPAD = pos.shape
-    K4 = int(cum.shape[-1])
-    Wh, Q = int(r_lo.shape[1]), int(r_lo.shape[2])
-    if K4 == 0 or LVL > 31 or (LVL and NPAD == 0):
-        raise ValueError(f"tree_query: K4={K4}, LVL={LVL}, NPAD={NPAD} not served")
-    dev = pos.device
-    _check("tree_query", "pos", pos, torch.float64, (G, LVL, NPAD), dev)
-    _check("tree_query", "cum", cum, torch.float64, (G, LVL, NPAD, K4), dev)
-    _check("tree_query", "q_vec", q_vec, torch.float64, (G, Wh, Q, K4), dev)
+    if pos_flat.device.type == "cpu":
+        return tree_query_ref(pos_flat, cum_flat, base, r_lo, r_hi, pos_hi, pos_lo1, lo1_right,
+                              pos_lo2, qs, qt, side, half, npad=npad)
+    if pos_flat.device.type != "cuda":
+        raise ValueError(f"tree_query: unsupported device {pos_flat.device}")
+    if pos_flat.dim() != 1 or cum_flat.dim() != 2 or r_lo.dim() != 2 or qs.dim() != 3 \
+            or qt.dim() != 2:
+        raise ValueError("tree_query: pos_flat must be [T], cum_flat [T, 4K], r_lo [G, Wh], "
+                         "qs [G, Q, k_s], qt [Wh, k_t]")
+    T = int(pos_flat.shape[0])
+    G, Wh = int(r_lo.shape[0]), int(r_lo.shape[1])
+    Q, ks, kt = int(qs.shape[1]), int(qs.shape[2]), int(qt.shape[1])
+    npad = int(npad)
+    lvl = npad.bit_length()
+    if ks == 0 or kt == 0 or lvl > 31 or npad & (npad - 1):
+        raise ValueError(f"tree_query: k_s={ks}, k_t={kt}, npad={npad} not served "
+                         "(npad is a power of two or 0)")
+    dev = pos_flat.device
+    _check("tree_query", "pos_flat", pos_flat, torch.float64, (T,), dev)
+    _check("tree_query", "cum_flat", cum_flat, torch.float64, (T, 4 * ks * kt), dev)
+    _check("tree_query", "base", base, torch.int64, (G,), dev)
     for name, t in (("r_lo", r_lo), ("r_hi", r_hi)):
-        _check("tree_query", name, t, torch.int32, (G, Wh, Q), dev)
+        _check("tree_query", name, t, torch.int32, (G, Wh), dev)
     for name, t in (("pos_hi", pos_hi), ("pos_lo1", pos_lo1), ("pos_lo2", pos_lo2)):
         _check("tree_query", name, t, torch.float64, (G, Q), dev)
-    _check("tree_query", "lo1_right", lo1_right, torch.int32, (G, Q), dev)
-    out = torch.empty((G, Wh, Q), dtype=torch.float64, device=dev)
+    for name, t in (("lo1_right", lo1_right), ("side", side)):
+        _check("tree_query", name, t, torch.int32, (G, Q), dev)
+    _check("tree_query", "qs", qs, torch.float64, (G, Q, ks), dev)
+    _check("tree_query", "qt", qt, torch.float64, (Wh, kt), dev)
+    _check("tree_query", "half", half, torch.int32, (Wh,), dev)
+    out = torch.empty((G, Q, Wh), dtype=torch.float64, device=dev)
     if out.numel() == 0:
         return out  # nothing to launch
     lib = tree_query_library()
     err = lib.tree_query_f64(
-        pos.data_ptr(), cum.data_ptr(), r_lo.data_ptr(), r_hi.data_ptr(), pos_hi.data_ptr(),
-        pos_lo1.data_ptr(), lo1_right.data_ptr(), pos_lo2.data_ptr(), q_vec.data_ptr(),
-        out.data_ptr(), G, LVL, NPAD, Q, Wh, K4, _device_index(dev),
-        torch.cuda.current_stream(dev).cuda_stream,
+        pos_flat.data_ptr(), cum_flat.data_ptr(), base.data_ptr(), r_lo.data_ptr(),
+        r_hi.data_ptr(), pos_hi.data_ptr(), pos_lo1.data_ptr(), lo1_right.data_ptr(),
+        pos_lo2.data_ptr(), qs.data_ptr(), qt.data_ptr(), side.data_ptr(), half.data_ptr(),
+        out.data_ptr(), G, npad, Q, Wh, ks, kt, int(tree_staged(npad, 4 * ks * kt)),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"tree_query: kernel launch failed (cudaError {err})")
@@ -310,9 +335,10 @@ minplus_matmul.launches = 0
 
 def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None) -> torch.Tensor:
     """Forward online-softmax attention (see flash_attention.py):
-    ``q [B, H, S, D]``, ``k/v [B, Hkv, S, D]``, one dtype (bfloat16 or
-    float32), on one device, each with its last dimension contiguous (any
-    batch, head and sequence strides: a ``[B, S, H, D]`` tensor transposed
+    ``q [B, H, S, D]``, ``k/v [B, Hkv, S, D]``, one dtype (bfloat16: the
+    tensor-core kernel; float32: the CUDA-core kernel), on one device, each
+    with its last dimension contiguous (any batch, head and sequence strides
+    — for bf16 multiples of 8 elements: a ``[B, S, H, D]`` tensor transposed
     is taken as it is). Returns ``[B, H, S, D]`` of ``q.dtype``, laid out in
     memory as ``[B, S, H, D]`` (so ``.transpose(1, 2)`` of it is
     contiguous). Launches on the current stream and does not synchronise.
@@ -337,6 +363,12 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} must have its last dimension contiguous")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:  # the TMA maps of the tensor-core kernel
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if any(t.stride(i) % 8 for i in (0, 1, 2)) or t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: bf16 {name} needs batch, head and sequence "
+                                 "strides of multiples of 8 elements and a 16-byte aligned base")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev).transpose(1, 2)
     if out.numel() == 0:
         return out  # nothing to launch
@@ -344,9 +376,9 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     strides = (ctypes.c_longlong * 12)(*(int(t.stride(i)) for t in (q, k, v, out)
                                          for i in (0, 1, 2)))
     lib = flash_library()
-    fn = lib.flash_attention_bf16 if q.dtype == torch.bfloat16 else lib.flash_attention_f32
+    fn = lib.flash_attention_bf16 if bf16 else lib.flash_attention_f32
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, S, D, strides,
-             scale, int(bool(causal)), _device_index(dev),
+             scale * LOG2E if bf16 else scale, int(bool(causal)), _device_index(dev),
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed (cudaError {err})")

@@ -267,23 +267,36 @@ def test_rank_boundaries_exact(models):
 
 
 def test_kernel_pack_tables_are_forest_slices(models, plans):
-    """Every kernel-executor entry holds, per edge group, exactly that edge's
-    [lvl, npad] block of the RangeForest's time-major tables (the reference's
-    ``_pallas_pack`` layout), and the entries cover the block's atoms."""
+    """Every kernel-executor entry points, per edge group, at exactly that
+    edge's [lvl, npad] block of the RangeForest's time-major tables (the
+    reference's ``_pallas_pack`` layout) without copying it: the entry holds
+    the block's first row and the bounds, no ``pos``/``cum`` copy, and the
+    launch's arguments are the forest's own tensors and no 4K-wide query
+    vector. The entries cover the block's atoms."""
     _, port = models
     rf = port.index
     fe = port_rfs.FlatForestEngine(rf, executor="kernel", device="cpu")
     atoms = plans[1].blocks[0]
     entries = fe._kernel_pack(atoms)
     assert len(entries) > 1 and sum(e["m"] for e in entries) == atoms.m
+    ff = fe._flat
+    ranks = fe.window_tables(fe.window_batch(port.ctx, TS), tuple(TS))
+    wb = fe.window_batch(port.ctx, TS)
     for e in entries:
-        G, lvl, p = e["pos"].shape
-        assert e["cum"].shape == (G, lvl, p, 4 * rf.ctx.K) and lvl == p.bit_length()
+        assert "pos" not in e and "cum" not in e
+        p = e["npad"]
+        lvl = p.bit_length()
+        G, qp = e["side"].shape
+        assert e["base"].shape == (G,) and e["base"].dtype == torch.int64
         for g, edge in enumerate(e["edges"].tolist()):
             lo = int(rf.edge_base[edge])
-            assert np.array_equal(e["pos"][g].numpy(), rf.pos_flat[lo:lo + lvl * p].reshape(lvl, p))
-            assert np.array_equal(e["cum"][g].numpy(),
-                                  rf.cum_flat[lo:lo + lvl * p].reshape(lvl, p, -1))
+            assert int(e["base"][g]) == lo and int(rf.n_pad[edge]) == p
+            assert int(rf.edge_base[edge + 1]) - lo >= lvl * p  # the block is the edge's own
+        args, kw = port_rfs.tree_query_args(ff, ranks, e, wb)
+        assert kw == dict(npad=p)
+        assert args[0] is ff.pos_flat and args[1].data_ptr() == ff.cum_flat.data_ptr()
+        assert all(t.dim() <= 3 for t in args)
+        assert all(t.numel() < G * qp * len(TS) * 4 * rf.ctx.K for t in args[2:])
 
 
 # ------------------------------------------------ DRFS device functions

@@ -22,7 +22,7 @@ from repro.kernels import ref as ref_oracle
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.dyn_query import dyn_leaf_query_ref, dyn_node_walk_ref, tree_offs
 from repro_torch.kernels.fused_walk import MAX_LEVELS, fused_leaf_ref, fused_walk_ref
-from repro_torch.kernels.tree_query import tree_query_ref
+from repro_torch.kernels.tree_query import tree_buckets, tree_query_ref
 
 LAYOUTS = [
     ("rfs4", 7, 1, 2), ("rfs8", 33, 2, 3), ("rfs16", 65, 3, 2),
@@ -238,40 +238,83 @@ def _tree_forest(rng, G, n_events, K4, empty_group=None):
     return pos, cum, raw
 
 
-TREE_CASES = [  # (n_events, K4, Q, Wh, empty_group): ragged Q, Wh > 8 half-windows
-    (5, 2, 7, 1, None), (16, 4, 33, 3, None), (21, 3, 130, 2, None),
-    (9, 8, 65, 10, 1),  # one group of all-+inf padding
-    (12, 88, 17, 2, None),  # 4·k_s·k_t of the gaussian × triangular kernels
+TREE_CASES = [  # (n_events, k_s, k_t, Q, Wh, empty_group): ragged Q, Wh > 8 half-windows
+    (5, 1, 1, 7, 1, None), (16, 1, 1, 33, 3, None), (21, 2, 1, 130, 2, None),
+    (9, 2, 1, 65, 10, 1),  # one group of all-+inf padding
+    (12, 11, 2, 17, 2, None),  # 4·k_s·k_t = 88: the gaussian × triangular kernels
 ]
 
 
-def _tree_case(n_events, K4, Q, Wh, empty_group, G=3):
+def _tree_case(n_events, ks, kt, Q, Wh, empty_group, G=3):
+    """One seeded case in both forms. ``new``: the kernel's inputs over a
+    flat forest made by concatenating the per-group tables (``base =
+    g·LVL·NPAD``), per-edge rank intervals [G, Wh] and the factors of the
+    query vector. ``old``: the reference's inputs — per-group tables, rank
+    intervals broadcast to [G, Wh, Q] and the one-hot ``q_vec [G, Wh, Q, 4K]``
+    materialised from the same factors."""
+    K = ks * kt
     rng = np.random.default_rng(n_events * 31 + Q)
-    pos, cum, raw = _tree_forest(rng, G, n_events, K4, empty_group)
-    r_lo = rng.integers(0, n_events, (G, Wh, Q))
-    r_hi = np.maximum(rng.integers(0, n_events + 1, (G, Wh, Q)), r_lo)
+    pos, cum, raw = _tree_forest(rng, G, n_events, 4 * K, empty_group)
+    npad, lvl = pos.shape[2], pos.shape[1]
+    r_lo = rng.integers(0, n_events, (G, Wh))
+    r_hi = np.maximum(rng.integers(0, n_events + 1, (G, Wh)), r_lo)
     ph = rng.uniform(0, 110, (G, Q))
     pl1 = rng.uniform(-10, 100, (G, Q))
     l1r = (rng.random((G, Q)) < 0.5).astype(np.int32)
     pl2 = rng.uniform(-10, 60, (G, Q))
-    # padding slots of the grouped layout: bounds that select nothing
-    ph[:, ::5], pl1[:, ::5], pl2[:, ::5] = -np.inf, np.inf, np.inf
-    qv = rng.normal(size=(G, Wh, Q, K4))
-    return (pos, cum, r_lo, r_hi, ph, pl1, l1r, pl2, qv), raw
+    qs = rng.normal(size=(G, Q, ks))
+    # padding slots of the grouped layout: bounds that select nothing, qs zero
+    ph[:, ::5], pl1[:, ::5], pl2[:, ::5], qs[:, ::5] = -np.inf, np.inf, np.inf, 0.0
+    qt = rng.normal(size=(Wh, kt))
+    side = rng.integers(0, 2, (G, Q)).astype(np.int32)
+    half = (np.arange(Wh) % 2).astype(np.int32)
+    new = (pos.reshape(-1), cum.reshape(-1, 4 * K), np.arange(G) * lvl * npad, r_lo, r_hi,
+           ph, pl1, l1r, pl2, qs, qt, side, half)
+    qfull = (qs[:, None, :, :, None] * qt[None, :, None, None, :]).reshape(G, Wh, Q, K)
+    combo = side[:, None, :] * 2 + half[None, :, None]  # [G, Wh, Q]
+    q_vec = np.zeros((G, Wh, Q, 4, K))
+    for c in range(4):
+        q_vec[:, :, :, c] = np.where((combo == c)[..., None], qfull, 0.0)
+    b3 = lambda x: np.broadcast_to(x[:, :, None], (G, Wh, Q)).copy()  # noqa: E731
+    old = (pos, cum, b3(r_lo), b3(r_hi), ph, pl1, l1r, pl2, q_vec.reshape(G, Wh, Q, 4 * K))
+    return new, int(npad), old, raw
 
 
-def _tree_torch(arrs):
-    pos, cum, r_lo, r_hi, ph, pl1, l1r, pl2, qv = arrs
+def _tree_torch(new):
     i32 = lambda x: torch.as_tensor(x).to(torch.int32)  # noqa: E731
     f64 = torch.as_tensor
-    return (f64(pos), f64(cum), i32(r_lo), i32(r_hi), f64(ph), f64(pl1), i32(l1r), f64(pl2),
-            f64(qv))
+    pf, cf, base, r_lo, r_hi, ph, pl1, l1r, pl2, qs, qt, side, half = new
+    return (f64(pf), f64(cf), torch.as_tensor(base).to(torch.int64), i32(r_lo), i32(r_hi),
+            f64(ph), f64(pl1), i32(l1r), f64(pl2), f64(qs), f64(qt), i32(side), i32(half))
 
 
-def _tree_bruteforce(arrs, raw):
+def _tree_query_qvec_form(pos, cum, r_lo, r_hi, ph, pl1, l1r, pl2, q_vec):
+    """The composition the kernel executor ran before the kernel built its
+    query vectors: per-group table copies, [G, Wh, Q] rank intervals and a
+    materialised one-hot q_vec, summed over all 4K columns in order."""
+    NPAD, K4 = pos.shape[2], cum.shape[-1]
+    acc = torch.zeros(r_lo.numel(), dtype=cum.dtype)
+    q_flat = q_vec.reshape(-1, K4)
+    for lev, lane, g, seg_lo, i_lo, i_hi in tree_buckets(pos, r_lo, r_hi, ph, pl1, l1r, pl2):
+        c = cum[:, lev]
+
+        def pref(i):
+            rows = c[g, (i - 1).clamp(0, NPAD - 1)]
+            return torch.where((i > seg_lo)[:, None], rows, 0.0)
+
+        mom = (pref(i_hi) - pref(i_lo)).T.contiguous()
+        qv = q_flat[lane].T.contiguous()
+        d = qv[0] * mom[0]
+        for k in range(1, K4):
+            d = d + qv[k] * mom[k]
+        acc[lane] = acc[lane] + d
+    return acc.reshape(r_lo.shape)
+
+
+def _tree_bruteforce(old, raw):
     """The range query over the raw events, no tree: Σ over events with a
     time rank in [r_lo, r_hi) and a position inside the bounds of f·q_vec."""
-    _, _, r_lo, r_hi, ph, pl1, l1r, pl2, qv = arrs
+    _, _, r_lo, r_hi, ph, pl1, l1r, pl2, qv = old
     G, Wh, Q = r_lo.shape
     want = np.zeros((G, Wh, Q))
     for g in range(G):
@@ -287,19 +330,20 @@ def _tree_bruteforce(arrs, raw):
 
 
 @pytest.mark.parametrize("oracle", ["ref", "pallas_interpret", "bruteforce"])
-@pytest.mark.parametrize("n_events,K4,Q,Wh,empty_group", TREE_CASES)
-def test_tree_query_ref_matches_reference(n_events, K4, Q, Wh, empty_group, oracle):
+@pytest.mark.parametrize("n_events,ks,kt,Q,Wh,empty_group", TREE_CASES)
+def test_tree_query_ref_matches_reference(n_events, ks, kt, Q, Wh, empty_group, oracle):
     """Tolerance 1e-12 relative to max|want|: float64 on every side; only the
-    association of ≤ 2·levels buckets of K4 products differs."""
+    association of ≤ 2·levels buckets of K4 products differs. The reference
+    takes the old form (table copies, materialised q_vec) of the same case."""
     from repro.kernels.tree_query import tree_query_pallas
 
-    arrs, raw = _tree_case(n_events, K4, Q, Wh, empty_group)
-    got = tree_query_ref(*_tree_torch(arrs)).numpy()
+    new, npad, old, raw = _tree_case(n_events, ks, kt, Q, Wh, empty_group)
+    got = tree_query_ref(*_tree_torch(new), npad=npad).numpy().transpose(0, 2, 1)
     if oracle == "bruteforce":
-        want = _tree_bruteforce(arrs, raw)
+        want = _tree_bruteforce(old, raw)
     else:
         with jax.enable_x64(True):
-            jargs = [jnp.asarray(x) for x in arrs]
+            jargs = [jnp.asarray(x) for x in old]
             if oracle == "ref":
                 want = np.asarray(ref_oracle.tree_query(*jargs))
             else:
@@ -312,25 +356,55 @@ def test_tree_query_ref_matches_reference(n_events, K4, Q, Wh, empty_group, orac
         assert not got[empty_group].any()  # no events: exact zeros
 
 
+@pytest.mark.parametrize("n_events,ks,kt,Q,Wh,empty_group", TREE_CASES)
+def test_tree_query_ref_matches_qvec_form(n_events, ks, kt, Q, Wh, empty_group):
+    """The query vector built from qs·qt over the slot's combo columns gives
+    the materialised one-hot q_vec's answer: the other combos only add ±0,
+    so the two agree to 1e-15 of max|out| (bit for bit up to zero signs)."""
+    new, npad, old, _ = _tree_case(n_events, ks, kt, Q, Wh, empty_group)
+    got = tree_query_ref(*_tree_torch(new), npad=npad).permute(0, 2, 1)
+    to = lambda x, i: torch.as_tensor(x).to(torch.int32 if i else torch.float64)  # noqa: E731
+    want = _tree_query_qvec_form(*(to(x, i in (2, 3, 6)) for i, x in enumerate(old)))
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-15 * float(want.abs().max())
+
+
 def test_ops_tree_query_cpu_uses_plain_version_and_counts_no_launch():
-    targs = _tree_torch(_tree_case(16, 4, 33, 3, None)[0])
+    new, npad, _, _ = _tree_case(16, 1, 1, 33, 3, None)
+    targs = _tree_torch(new)
     before = ops.tree_query.launches
-    got = ops.tree_query(*targs)
+    got = ops.tree_query(*targs, npad=npad)
     assert ops.tree_query.launches == before  # only kernel launches count
-    assert torch.equal(got, tree_query_ref(*targs))
+    assert torch.equal(got, tree_query_ref(*targs, npad=npad))
+
+
+@pytest.mark.parametrize("npad,k4,staged", [
+    (32, 16, True),  # the berkeley ×1.0 timed entry: 6·32·17·8 = 26 112 bytes
+    (64, 16, True),  # 7·64·17·8 = 60 928 bytes, the largest staged at K4 = 16
+    (128, 16, False),  # 8·128·17·8 = 139 264 bytes
+    (32, 484, False),  # the gaussian kernels' 4K
+    (0, 16, True),  # an edge with no events stages nothing
+])
+def test_ops_tree_staged_rule(npad, k4, staged):
+    """The one rule for staging an edge block in shared memory: its bytes,
+    LVL·NPAD·(1 + 4K)·8, at most ops.TREE_STAGE_MAX."""
+    nbytes = int(npad).bit_length() * npad * (1 + k4) * 8
+    assert (nbytes <= ops.TREE_STAGE_MAX) == staged
+    assert ops.tree_staged(npad, k4) is staged
 
 
 def test_ops_tree_query_window_independence():
-    """Two half-windows with the same rank intervals and query vectors give
+    """Two half-windows with the same rank intervals, half and q_t give
     bitwise identical outputs; slots whose bounds select nothing give exact
     zeros."""
-    pos, cum, r_lo, r_hi, ph, pl1, l1r, pl2, qv = _tree_case(21, 3, 130, 1, None)[0]
-    dup = lambda x: np.concatenate([x, x], axis=1)  # noqa: E731
-    out = ops.tree_query(*_tree_torch((pos, cum, dup(r_lo), dup(r_hi), ph, pl1, l1r, pl2,
-                                       dup(qv))))
-    assert out.shape == (3, 2, 130)
-    assert torch.equal(out[:, 0], out[:, 1])
-    assert bool((out[:, :, ::5] == 0.0).all())
+    new, npad, _, _ = _tree_case(21, 2, 1, 130, 1, None)
+    pf, cf, base, r_lo, r_hi, ph, pl1, l1r, pl2, qs, qt, side, half = new
+    dup = lambda x, axis: np.concatenate([x, x], axis=axis)  # noqa: E731
+    out = ops.tree_query(*_tree_torch((pf, cf, base, dup(r_lo, 1), dup(r_hi, 1), ph, pl1, l1r,
+                                       pl2, qs, dup(qt, 0), side, dup(half, 0))), npad=npad)
+    assert out.shape == (3, 130, 2)
+    assert torch.equal(out[:, :, 0], out[:, :, 1])
+    assert bool((out[:, ::5] == 0.0).all())
     assert bool((out != 0.0).any())
 
 
@@ -431,11 +505,11 @@ def test_ops_new_wrappers_never_fall_back_off_cpu(name):
     """A tensor that is not on the CPU goes to the kernel or raises — the
     plain version is never substituted (here: a device no kernel serves)."""
     args = {
-        "tree_query": lambda: _tree_torch(_tree_case(5, 2, 7, 1, None)[0]),
+        "tree_query": lambda: _tree_torch(_tree_case(5, 1, 1, 7, 1, None)[0]),
         "dyn_leaf_query": lambda: _dyn_leaf_torch(_dyn_leaf_case(4, 2, 7, 1)),
         "dyn_node_walk": lambda: _torch_args(_case("tree2", 7, 1, 2)[0]),
     }[name]()
-    kw = dict(hq=2) if name == "dyn_node_walk" else {}
+    kw = dict(hq=2) if name == "dyn_node_walk" else dict(npad=8) if name == "tree_query" else {}
     wrapper = getattr(ops, name)
     before = (wrapper.launches, ops.fused_walk.launches)
     with pytest.raises(ValueError, match=f"{name}: unsupported device"):

@@ -32,7 +32,11 @@ from repro.models import transformer as ref_tf
 from repro.models.registry import get_model as ref_get_model
 from repro_torch import configs
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention import (
+    flash_attention_bf16_ref,
+    flash_attention_f32_ref,
+    flash_attention_ref,
+)
 from repro_torch.launch import serve
 from repro_torch.models import transformer
 from repro_torch.models.registry import get_model
@@ -242,9 +246,10 @@ def test_flash_ref_matches_pallas(b, h, hkv, s, d, causal, dtype):
 
 def test_flash_ref_differs_from_ref_only_by_p_cast():
     """ref.flash_attention rounds the softmax weights to v's dtype before
-    p @ v; the Pallas body (and the port's contract) keeps them f32. In f32
-    the two agree; in bf16, rounding p to bf16 in the port's arithmetic
-    gives ref.flash_attention back."""
+    p @ v; the Pallas body (and the port's f32 contract) keeps them f32. In
+    f32 the two agree; in bf16, rounding p to bf16 in the Pallas body's
+    arithmetic gives ref.flash_attention back, and the port's bf16 contract,
+    which rounds p, stays within two output roundings of it."""
     b, h, hkv, s, d = 2, 4, 2, 128, 32
     arrs = _qkv(b, h, hkv, s, d, 7)
     f32 = [torch.as_tensor(x, dtype=torch.float32) for x in arrs]
@@ -262,10 +267,40 @@ def test_flash_ref_differs_from_ref_only_by_p_cast():
     vv = bf[2].repeat_interleave(rep, 1)
     cast_p = torch.matmul(p.to(torch.bfloat16).float(), vv.float()).to(torch.bfloat16)
     keep_p = torch.matmul(p, vv.float()).to(torch.bfloat16)
-    assert torch.equal(keep_p, flash_attention_ref(*bf))
+    assert torch.equal(keep_p, flash_attention_f32_ref(*bf))
     ulp = 2.0 ** -7 * np.abs(want).max()  # one bf16 rounding of the output
     assert np.abs(_np(cast_p) - want).max() <= ulp
     assert np.abs(_np(keep_p) - want).max() > 0.0  # the cast of p is the difference
+    # the bf16 kernel's contract rounds p as the oracle does (per key tile,
+    # before normalising): within two roundings of the output
+    assert np.abs(_np(flash_attention_ref(*bf)) - want).max() <= 2 * ulp
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,hkv,s,d", FLASH_GRID)
+def test_flash_bf16_ref_matches_reference(b, h, hkv, s, d, causal):
+    """The bf16 kernel's plain version (p rounded to bf16 per key tile) is
+    within two bf16 ulps of max|out| of ``repro.kernels.ref.flash_attention``
+    (which rounds p too) and within 2e-2 of the Pallas kernel (f32 p), the
+    reference's own bf16 tolerance; ``ops.flash_attention`` on CPU bf16
+    tensors is exactly it and launches nothing. f32 inputs keep the Pallas
+    body's arithmetic bit for bit."""
+    arrs = _qkv(b, h, hkv, s, d, 11 * h + s + d)
+    t = [torch.as_tensor(x, dtype=torch.float32).to(torch.bfloat16) for x in arrs]
+    got = flash_attention_bf16_ref(*t, causal=causal)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, h, s, d)
+    n0 = ops.flash_attention.launches
+    assert torch.equal(ops.flash_attention(*t, causal=causal), got)
+    assert torch.equal(flash_attention_ref(*t, causal=causal), got)
+    assert ops.flash_attention.launches == n0
+    jq = [jnp.asarray(x, jnp.bfloat16) for x in arrs]
+    want = np.asarray(ref_oracle.flash_attention(*jq, causal=causal), np.float32)
+    assert np.abs(_np(got) - want).max() <= 2 * 2.0 ** -7 * np.abs(want).max()
+    pallas = np.asarray(ref_ops.flash_attention(*jq, causal=causal, tq=64, tk=64), np.float32)
+    np.testing.assert_allclose(_np(got), pallas, rtol=2e-2, atol=2e-2)
+    f32 = [x.float() for x in t]
+    assert torch.equal(flash_attention_ref(*f32, causal=causal),
+                       flash_attention_f32_ref(*f32, causal=causal))
 
 
 def test_flash_rejects_sequence_lengths_the_pallas_kernel_rejects():
