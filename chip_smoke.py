@@ -17,7 +17,8 @@ Table-3 berkeley replica:
 * ``[drfs]`` the streaming index, ``TNKDE(solution='drfs', engine='torch',
   executor='fused', drfs_depth=8, auto_seal=False, horizon_s=0.9·span)``
   built from the first 90 % of the events: queries in both modes
-  (quantized: ``fused_leaf``; exact: ``fused_walk`` on the complete tree),
+  (quantized: ``fused_leaf``; exact: ``fused_walk`` on the complete tree;
+  both on the window tables in place),
   a pinned snapshot, two inserts of 5 % each, ``query(at=snapshot)`` and
   ``compact()``, each answer checked against the ``packed`` executor and,
   in exact mode, the SPS oracle over the surviving events;
@@ -40,7 +41,11 @@ Table-3 berkeley replica:
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; ``[*-shapes]`` then holds every block the path gave a kernel against
-its plain version and times the largest.
+its plain version and times the largest (the in-place walk in both of its
+forms, edge block staged in shared memory and read through L1/L2, timed in
+turns: ``ms_staged``, ``ms_unstaged``; ``ms`` is the form ``ops.walk_staged``
+keeps). ``[flat-kernels]`` sweeps the in-place walk and leaf kernels over
+seeded flat tables first.
 
 Any failed check raises (non-zero exit). Without a CUDA device it exits
 non-zero and prints no result.
@@ -168,6 +173,9 @@ def plain_version(name):
     from repro_torch.kernels import dyn_query, flash_attention, fused_walk, minplus, tree_query
 
     return dict(fused_walk=fused_walk.fused_walk_ref, fused_leaf=fused_walk.fused_leaf_ref,
+                fused_walk_flat=fused_walk.fused_walk_flat_ref,
+                dyn_node_walk_flat=fused_walk.fused_walk_flat_ref,
+                fused_leaf_flat=fused_walk.fused_leaf_flat_ref,
                 tree_query=tree_query.tree_query_ref,
                 dyn_leaf_query=dyn_query.dyn_leaf_query_ref,
                 dyn_node_walk=dyn_query.dyn_node_walk_ref,
@@ -175,12 +183,12 @@ def plain_version(name):
                 flash_attention=flash_attention.flash_attention_ref)[name]
 
 
-def compare(name, args, **kw):
-    """(max_abs_err, max_rel_err) of ops.<name> against its plain version,
-    relative to max|plain|; synchronises so a fault surfaces here."""
+def compare(name, args, fn=None, **kw):
+    """(max_abs_err, max_rel_err) of ops.<name> (or ``fn``) against its plain
+    version, relative to max|plain|; synchronises so a fault surfaces here."""
     from repro_torch.kernels import ops
 
-    got = getattr(ops, name)(*args, **kw)
+    got = (fn or getattr(ops, name))(*args, **kw)
     if got.is_cuda:
         torch.cuda.synchronize()
     want = plain_version(name)(*args, **kw)
@@ -232,15 +240,17 @@ def time_ms(fn, *, reps=10, flush=None):
     return float(np.median(time_samples(fn, reps=reps, flush=flush)))
 
 
-def walk_work(r_lo, r_hi, side, offs, R2):
-    """What THIS input makes the walk do: (rows emitted, distinct rows)."""
+def walk_work(index, r_lo, r_hi, side):
+    """What THIS input makes the in-place walk do: (rows emitted, distinct
+    flat table rows)."""
+    nlev = int(index.span).bit_length()
+    base = index.lvl_base[:nlev][:, index.edges][..., None]  # [nlev, G, 1]
     l, r = r_lo.to(torch.int64), r_hi.to(torch.int64)
-    g = torch.arange(l.shape[0], device=l.device)[:, None] * R2
     emitted, rows = 0, []
-    for off in offs:
+    for lev in range(nlev):
         for left in (True, False):
             emit = (l < r) & (((l if left else r) & 1) == 1)
-            row = ((off + (l if left else r - 1)) * 2 + side + g)[emit]
+            row = ((base[lev] + (l if left else r - 1)) * 2 + side)[emit]
             emitted += int(emit.sum())
             rows.append(row)
             if left:
@@ -252,22 +262,64 @@ def walk_work(r_lo, r_hi, side, offs, R2):
     return emitted, distinct
 
 
-def fused_walk_bound(args, offs):
-    """Least time the card could take for this call, from this input: the
-    larger of bytes/bandwidth (each distinct node row the climb needs, the
-    per-atom coefficients and rank state read once, the output written once)
-    and operations/peak f64 (one add per gathered value, 3 per (atom,
-    window, feature) in the contraction)."""
-    nv, r_lo, r_hi, side, qs = args
-    G, R2, WC = nv.shape
-    Q, ks = qs.shape[1], qs.shape[2]
+def fused_walk_bound(args):
+    """Least time the card could take for this in-place walk, from this
+    input: the larger of bytes/bandwidth (each distinct flat row the climb
+    needs; r_lo/r_hi of every slot, which say whether it is live; side and
+    the coefficients of the live slots only, since a padding slot's answer
+    is 0 whatever they hold; each group's lvl_base column and edge, read
+    once; the output written once) and operations/peak f64 (one add per
+    gathered value, 3 per (live atom, window, feature) in the contraction)."""
+    table, index, r_lo, r_hi, side, qs = args
+    WC = table.shape[1]
+    G, Q, ks = qs.shape
     W = WC // (2 * ks)
-    emitted, distinct = walk_work(r_lo, r_hi, side, offs, R2)
-    nbytes = distinct * WC * 8 + G * Q * (ks * 8 + 12) + G * W * Q * 8
-    flops = emitted * WC + G * Q * W * 3 * ks
+    nlev = int(index.span).bit_length()
+    emitted, distinct = walk_work(index, r_lo, r_hi, side)
+    n_live = int((r_lo < r_hi).sum())
+    nbytes = (distinct * WC * 8 + G * Q * 8 + n_live * (ks * 8 + 4) + G * W * Q * 8
+              + G * (nlev + 1) * 8)
+    flops = emitted * WC + n_live * W * 3 * ks
     t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS
     return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
-                bytes=nbytes, flops=flops, rows_emitted=emitted, rows_distinct=distinct)
+                bytes=nbytes, flops=flops, live_slots=n_live, rows_emitted=emitted,
+                rows_distinct=distinct)
+
+
+def walk_forms(kernel, kargs, device):
+    """The in-place walk at one shape in both forms — the edge block staged
+    in shared memory, and read through L1/L2 — each held against the plain
+    version, then (on the card) timed in turns with L2 flushed (unstaged,
+    staged, staged, unstaged: 5 samples each time) beside the plain
+    version. ``ms`` is the form ``ops.walk_staged`` keeps."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused_walk import fused_walk_flat_ref
+
+    forms = {"unstaged": False}
+    if ops.walk_stageable(kargs[1].span, kargs[0].shape[1]):
+        forms["staged"] = True
+    worst = (0.0, 0.0)
+    for form, st in forms.items():
+        # the CPU rehearsal has no kernel: it walks the same comparison on
+        # the wrapper, which takes the plain version there
+        fn = (lambda *x, st=st: ops._walk_flat(kernel, *x, staged=st)[0]) if device != "cpu" \
+            else ops.fused_walk_flat
+        a, r = compare("fused_walk_flat", kargs, fn=fn)
+        require(r <= KERNEL_TOL, f"{kernel} {form} vs plain: {r}")
+        worst = max(worst[0], a), max(worst[1], r)
+    kept = "staged" if ops.walk_staged(kargs[1].span, kargs[0].shape[1]) else "unstaged"
+    timing = dict(ms=None, plain_ms=None, kept=kept, **{f"ms_{f}": None for f in forms})
+    if device != "cpu":
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)  # 256 MB > L2
+        samples = {f: [] for f in forms}
+        for form in sorted(forms, reverse=True) + sorted(forms):
+            samples[form] += time_samples(
+                lambda: ops._walk_flat(kernel, *kargs, staged=forms[form]), reps=5, flush=flush)
+        for form in forms:
+            timing[f"ms_{form}"] = float(np.median(samples[form]))
+        timing["ms"] = timing[f"ms_{kept}"]
+        timing["plain_ms"] = time_ms(lambda: fused_walk_flat_ref(*kargs), flush=flush)
+    return worst, timing
 
 
 def phase_kernels(device):
@@ -308,22 +360,27 @@ def leaf_case(nleaf, G, Q, W, ks, kt, device):
 
 
 def fused_leaf_bound(args):
-    """Least time the card could take for this call, from this input: the
-    larger of bytes/bandwidth (each distinct prefix row that a slot with a
-    non-empty leaf range needs — an empty range differences a row with
-    itself, exactly 0 — plus per-atom state, the two temporal tables and the
-    output, each once) and operations/peak f64 (per live slot, window and
-    value: the difference, the q_s·q_t product, the multiply and the add)."""
-    lcum, lo, hi, side, qs, qtl, qtr = args
-    G, R, WK = lcum.shape
-    Q, ks = qs.shape[1], qs.shape[2]
+    """Least time the card could take for this in-place leaf phase, from
+    this input: the larger of bytes/bandwidth (each distinct flat prefix row
+    that a slot whose two rows differ needs — equal rows difference to
+    exactly 0 —; lo/hi of every slot, which say whether it is live; side and
+    q_s of the live slots only; each group's edge, the two temporal tables
+    and the output, each once) and operations/peak f64 (per live slot,
+    window and value: the difference, the q_s·q_t product, the multiply and
+    the add)."""
+    lcum, index, lo, hi, side, qs, qtl, qtr = args
+    WK = lcum.shape[1]
+    G, Q, ks = qs.shape
     W, kt = qtl.shape
-    live = hi > lo
-    g = torch.arange(G, device=lcum.device)[:, None] * R
-    rows = torch.cat([(g + hi * 2 + side)[live], (g + lo * 2 + side)[live]])
-    distinct = int(torch.unique(rows).numel())
+    R = (int(index.span) + 1) * 2
+    base = index.edges[:, None] * R
+    i_hi = base + (hi.to(torch.int64) * 2 + side).clamp(0, R - 1)
+    i_lo = base + (lo.to(torch.int64) * 2 + side).clamp(0, R - 1)
+    live = i_hi != i_lo
+    distinct = int(torch.unique(torch.cat([i_hi[live], i_lo[live]])).numel())
     n_live = int(live.sum())
-    nbytes = distinct * WK * 8 + G * Q * (ks * 8 + 12) + 2 * W * kt * 8 + G * W * Q * 8
+    nbytes = (distinct * WK * 8 + G * Q * 8 + n_live * (ks * 8 + 4) + 2 * W * kt * 8
+              + G * W * Q * 8 + G * 8)
     flops = n_live * WK * 4
     t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS
     return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
@@ -349,6 +406,109 @@ def phase_leaf_kernels(device):
         require(rel <= KERNEL_TOL, f"fused_leaf disagrees with its plain version: {rel}")
         worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
     return worst_abs, worst_rel
+
+
+def flat_walk_case(layout, E, G, Q, W, ks, device):
+    """Seeded inputs for the in-place walk: a level-major flat table of E
+    edges of one npad ('rfs<npad>': the packed forest's node order, level ℓ
+    of every edge before level ℓ+1; 'tree<hq>': the complete tree's,
+    torch_engine.dyn_node_base), G groups on edges drawn with repeats, every
+    fifth slot padding (empty interval, qs = 0)."""
+    from repro_torch.core.torch_engine import dyn_node_base
+    from repro_torch.kernels import ops
+
+    n = int(layout.lstrip("rfstre"))
+    npad = n if layout.startswith("rfs") else 1 << n
+    nlev = npad.bit_length()
+    if layout.startswith("rfs"):
+        e = torch.arange(E, dtype=torch.int64)
+        lvl_base = torch.stack([E * (2 * npad - 2 * (npad >> lev)) + e * (npad >> lev)
+                                for lev in range(nlev)])
+    else:
+        lvl_base = dyn_node_base(E, n)
+    rng = np.random.default_rng(npad * 1000 + E * 10 + Q)
+    table = rng.normal(size=(2 * E * (2 * npad - 1), W * 2 * ks))
+    edges = rng.integers(0, E, G)
+    r_lo = rng.integers(0, npad + 1, (G, Q))
+    r_hi = np.maximum(rng.integers(0, npad + 1, (G, Q)), r_lo)
+    r_hi[:, ::5] = r_lo[:, ::5]
+    side = rng.integers(0, 2, (G, Q))
+    qs = rng.normal(size=(G, Q, ks))
+    qs[:, ::5] = 0.0
+    t = lambda x, dt: torch.as_tensor(x, device=device).to(dt).contiguous()  # noqa: E731
+    index = ops.walk_index(t(lvl_base, torch.int64), t(edges, torch.int64), npad)
+    return (t(table, torch.float64), index, t(r_lo, torch.int32), t(r_hi, torch.int32),
+            t(side, torch.int32), t(qs, torch.float64))
+
+
+def flat_leaf_case(nleaf, E, G, Q, W, ks, kt, device):
+    """Seeded inputs for the in-place leaf phase: dyn_window_tables' layout
+    (per edge (nleaf+1)·2 prefix rows) for E edges, G groups on edges drawn
+    with repeats, every fifth slot an empty leaf range."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(nleaf * 1000 + E * 10 + Q)
+    R = (nleaf + 1) * 2
+    lcum = np.cumsum(rng.normal(size=(E, R, W * 2 * ks * kt)), axis=1).reshape(E * R, -1)
+    edges = rng.integers(0, E, G)
+    lo = rng.integers(0, nleaf + 1, (G, Q))
+    hi = np.maximum(rng.integers(0, nleaf + 1, (G, Q)), lo)
+    hi[:, ::5] = lo[:, ::5]
+    side = rng.integers(0, 2, (G, Q))
+    qs = rng.normal(size=(G, Q, ks))
+    qtl, qtr = rng.normal(size=(W, kt)), rng.normal(size=(W, kt))
+    t = lambda x, dt: torch.as_tensor(x, device=device).to(dt).contiguous()  # noqa: E731
+    return (t(lcum, torch.float64), ops.leaf_index(t(edges, torch.int64), nleaf),
+            t(lo, torch.int32), t(hi, torch.int32), t(side, torch.int32), t(qs, torch.float64),
+            t(qtl, torch.float64), t(qtr, torch.float64))
+
+
+def phase_flat_kernels(device):
+    """The in-place kernels against their plain versions: fused_walk_flat on
+    the RFS layouts npad 4-512 and the trees hq 2-8, in both forms (staged
+    where the edge block fits a block's shared memory, and through L1/L2;
+    ragged Q, W > 8 windows, the gaussian k_s), and fused_leaf_flat over
+    nleaf 4-256 (K = 121 included). Returns the worst (abs, rel) per
+    kernel."""
+    from repro_torch.kernels import ops
+
+    small = device == "cpu"  # the rehearsal keeps the CPU small
+    worst = {}
+
+    def check(name, case, args, fn=None):
+        abs_err, rel = compare(name, args, fn=fn)
+        say("flat-kernels", kernel=name, case=case, max_abs_err=abs_err, max_rel_err=rel)
+        require(rel <= KERNEL_TOL, f"{name} disagrees with its plain version: {rel}")
+        a, r = worst.get(name, (0.0, 0.0))
+        worst[name] = (max(a, abs_err), max(r, rel))
+
+    forms = set()
+    for layout, E, G, Q, W, ks in [
+        ("rfs4", 5, 3, 7, 1, 2), ("rfs8", 5, 4, 33, 2, 3), ("rfs16", 6, 5, 65, 3, 2),
+        ("rfs32", 40, 60 if small else 1600, 512, 5, 2), ("rfs64", 5, 5, 130, 9, 11),
+        ("rfs512", 6, 8 if small else 64, 1000, 5, 2),
+        ("tree2", 5, 3, 7, 1, 2), ("tree3", 5, 4, 33, 2, 3), ("tree4", 6, 5, 65, 2, 2),
+        ("tree8", 40, 20 if small else 400, 512, 5, 2),
+    ]:
+        args = flat_walk_case(layout, E, G, Q, W, ks, device)
+        case = f"{layout}:E{E}:G{G}:Q{Q}:W{W}:ks{ks}"
+        check("fused_walk_flat", case, args)
+        if device == "cpu":
+            continue
+        for st in (False, True):
+            if st and not ops.walk_stageable(args[1].span, args[0].shape[1]):
+                continue
+            forms.add(st)
+            check("fused_walk_flat", f"{case}:{'staged' if st else 'unstaged'}", args,
+                  fn=lambda *x, st=st: ops._walk_flat("fused_walk", *x, staged=st)[0])
+    require(device == "cpu" or forms == {True, False}, "the in-place walk sweep misses a form")
+    for nleaf, E, G, Q, W, ks, kt in [
+        (4, 5, 3, 7, 1, 2, 1), (8, 5, 4, 33, 3, 2, 2), (16, 6, 5, 65, 2, 3, 1),
+        (32, 5, 5, 130, 9, 11, 11), (256, 40, 40 if small else 4000, 512, 5, 2, 2),
+    ]:
+        check("fused_leaf_flat", f"nleaf{nleaf}:E{E}:G{G}:Q{Q}:W{W}:ks{ks}:kt{kt}",
+              flat_leaf_case(nleaf, E, G, Q, W, ks, kt, device))
+    return worst
 
 
 def tree_case(n_events, G, Q, Wh, ks, kt, device, empty_group=None):
@@ -687,48 +847,50 @@ def phase_main(args, device, card):
 
 
 def phase_main_shapes(m, ts, device, card):
-    """The kernel at the shapes the main path gave it: every atom pack of the
-    plan is compared with the plain version; the largest is timed."""
-    from repro_torch.core.rfs import _rfs_group
+    """The kernel at the shapes the main path gave it, on the window table in
+    place: every atom pack of the plan is compared with the plain version;
+    the largest is timed in both forms (walk_forms)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.fused_walk import fused_walk_ref
 
     fe = m._fe
     packs = fe._pack_cache.get(((m.epoch, m.ls), "fused"))
     tabs = fe.window_tables(fe.window_batch(m.ctx, ts), tuple(ts))
+    table = tabs.reshape(tabs.shape[0], -1)
     worst_abs = worst_rel = 0.0
     biggest, big_n = None, -1
-    t_group = t_kernel = 0.0
+    t1 = time.perf_counter()
     for entry in packs:
-        if device != "cpu":
-            torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        nv = _rfs_group(tabs, fe._packed["node_base_lvl"], entry["edges"],
-                        npad=entry["npad"], nlev=entry["max_levels"])
-        if device != "cpu":
-            torch.cuda.synchronize()
-        t_group += time.perf_counter() - t1
-        kargs = (nv, entry["r_lo"], entry["r_hi"], entry["side"], entry["qs"])
-        t1 = time.perf_counter()
-        abs_err, rel = compare("fused_walk", kargs, offs=entry["offs"])  # syncs after the kernel
-        t_kernel += time.perf_counter() - t1
+        kargs = (table, entry["index"], entry["r_lo"], entry["r_hi"], entry["side"], entry["qs"])
+        abs_err, rel = compare("fused_walk_flat", kargs)  # syncs after the kernel
         require(rel <= KERNEL_TOL, f"fused_walk vs plain at npad={entry['npad']}: {rel}")
         worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
         n = entry["r_lo"].numel()
         if n > big_n:
-            biggest, big_n = (kargs, entry["offs"], entry["npad"]), n
-    kargs, offs, npad = biggest
-    G, Q = kargs[1].shape
-    shape = dict(G=G, npad=npad, R2=kargs[0].shape[1], Q=Q, W=len(ts), k_s=kargs[4].shape[2])
-    bound = fused_walk_bound(kargs, offs)
-    timing = dict(ms=None, plain_ms=None)
-    if device != "cpu":
-        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)  # 256 MB > L2
-        timing["ms"] = time_ms(lambda: ops.fused_walk(*kargs, offs=offs), flush=flush)
-        timing["plain_ms"] = time_ms(lambda: fused_walk_ref(*kargs, offs=offs), flush=flush)
+            biggest, big_n = kargs, n
+    t_kernel = time.perf_counter() - t1
+    kargs = biggest
+    G, Q = kargs[2].shape
+    npad = int(kargs[1].span)
+    shape = dict(G=G, npad=npad, rows=table.shape[0], Q=Q, W=len(ts), k_s=kargs[5].shape[2],
+                 staged=ops.walk_staged(npad, table.shape[1]))
+    bound = fused_walk_bound(kargs)
+    (fa, fr), timing = walk_forms("fused_walk", kargs, device)
+    worst_abs, worst_rel = max(worst_abs, fa), max(worst_rel, fr)
     say("main-shapes", card=card, packs=len(packs), max_abs_err=worst_abs, max_rel_err=worst_rel,
-        regroup_all_packs_s=round(t_group, 4), walk_and_compare_all_packs_s=round(t_kernel, 4),
-        timed_shape=json.dumps(shape), **{k: v for k, v in bound.items() if k not in ("bound_ms", "bound_by")})
+        walk_and_compare_all_packs_s=round(t_kernel, 4), timed_shape=json.dumps(shape),
+        **timing, **{k: v for k, v in bound.items() if k not in ("bound_ms", "bound_by")})
+    # the two forms at the other RFS block sizes below the tree's 163 KB:
+    # npad 64 (~40 KB) and npad 128 (~80 KB), both staged by default
+    for npad in (64, 128):
+        sized = [e for e in packs if int(e["index"].span) == npad]
+        if not sized:
+            continue
+        e = max(sized, key=lambda e: e["r_lo"].numel())
+        kargs = (table, e["index"], e["r_lo"], e["r_hi"], e["side"], e["qs"])
+        _, t = walk_forms("fused_walk", kargs, device)
+        say("main-shapes", card=card, forms_at_npad=npad, G=kargs[2].shape[0], Q=kargs[2].shape[1],
+            stage_bytes=ops.walk_stage_bytes(npad, table.shape[1]), **t,
+            bound_ms=fused_walk_bound(kargs)["bound_ms"])
     return worst_abs, worst_rel, shape, bound, timing
 
 
@@ -1011,13 +1173,19 @@ def phase_drfs(args, device, card, *, executor="fused", versus="packed", inserts
     return m, ts, mine, secs
 
 
+# the ops wrapper each DRFS flush calls, by the kernel (launch count) it runs
+DRFS_CALLS = dict(fused_leaf="fused_leaf_flat", fused_walk="fused_walk_flat",
+                  dyn_leaf_query="dyn_leaf_query", dyn_node_walk="dyn_node_walk_flat")
+
+
 def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes"):
     """Both DRFS kernels of the executor at the shapes the path gave them:
-    every atom block of the last epoch's plan, in both modes, against the
-    plain version; the largest block of each kernel is timed."""
-    from repro_torch.core.rfs import _dyn_group, dyn_kernel_call
+    every atom block of the last epoch's plan, in both modes, with the
+    arguments the flush builds (the window table in place; for
+    dyn_leaf_query its grouped copy), against the plain version; the largest
+    block of each kernel is timed (the walk in both forms)."""
+    from repro_torch.core.rfs import dyn_kernel_call
     from repro_torch.kernels import ops
-    from repro_torch.kernels.dyn_query import tree_offs
 
     fe = m._fe
     snap = m.snapshot()
@@ -1035,39 +1203,39 @@ def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes
         worst_abs = worst_rel = 0.0
         biggest, big_n = None, -1
         for entry in packs:
-            grouped = _dyn_group(tables, entry["edges"], hq=hq, exact=bool(exact), E=m.net.n_edges)
-            got_name, kargs, kw = dyn_kernel_call(forest, grouped, entry, wb, hq=hq,
-                                                  exact=bool(exact), executor=executor)
-            require(got_name == name, f"{executor} block called {got_name}, not {name}")
-            abs_err, rel = compare(name, kargs, **kw)
+            tab, index = fe.tree_table(tables, entry, hq=hq, exact=bool(exact))
+            got_name, kargs, kw = dyn_kernel_call(forest, tab, entry, wb, hq=hq, exact=bool(exact),
+                                                  executor=executor, index=index)
+            require(got_name == DRFS_CALLS[name], f"{executor} block called {got_name}, not {name}")
+            abs_err, rel = compare(got_name, kargs, **kw)
             require(rel <= KERNEL_TOL, f"{name} vs plain on a DRFS block: {rel}")
             worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
-            if kargs[1].numel() > big_n:
-                biggest, big_n = (kargs, kw), kargs[1].numel()
-            del grouped, kargs
-        kargs, kw = biggest
-        G, Q = kargs[1].shape
-        shape = dict(G=G, R=kargs[0].shape[1], Q=Q, W=len(ts), k_s=int(m.ctx.k_s),
+            n = entry["side"].numel()
+            if n > big_n:
+                biggest, big_n = (got_name, kargs, kw, tuple(entry["side"].shape)), n
+            del tab, kargs
+        got_name, kargs, kw, (G, Q) = biggest
+        shape = dict(G=G, Q=Q, table=list(kargs[0].shape), W=len(ts), k_s=int(m.ctx.k_s),
                      k_t=int(m.ctx.k_t), hq=hq)
-        if not exact:
-            bound = fused_leaf_bound(kargs) if name == "fused_leaf" else dyn_leaf_query_bound(kargs)
-        else:
-            bound = fused_walk_bound(kargs, kw.get("offs", tree_offs(hq)))
         timing = dict(ms=None, plain_ms=None)
-        if device != "cpu":
-            fn, ref = getattr(ops, name), plain_version(name)
-            timing["ms"] = time_ms(lambda: fn(*kargs, **kw), flush=flush)
-            timing["plain_ms"] = time_ms(lambda: ref(*kargs, **kw), flush=flush)
+        if exact:
+            bound = fused_walk_bound(kargs)
+            (fa, fr), timing = walk_forms(name, kargs, device)
+            worst_abs, worst_rel = max(worst_abs, fa), max(worst_rel, fr)
+        else:
+            bound = fused_leaf_bound(kargs) if name == "fused_leaf" else dyn_leaf_query_bound(kargs)
+            if device != "cpu":
+                fn, ref = getattr(ops, got_name), plain_version(got_name)
+                timing["ms"] = time_ms(lambda: fn(*kargs, **kw), flush=flush)
+                timing["plain_ms"] = time_ms(lambda: ref(*kargs, **kw), flush=flush)
         say(tag, card=card, kernel=name, mode="exact" if exact else "quantized",
             blocks=len(packs), max_abs_err=worst_abs, max_rel_err=worst_rel,
-            timed_shape=json.dumps(shape), ms=timing["ms"], plain_ms=timing["plain_ms"],
-            **bound)
+            timed_shape=json.dumps(shape), **timing, **bound)
         result[name] = (worst_abs, worst_rel, shape, bound, timing)
         del biggest, kargs, tables
     return result
 
 
-# ------------------------------------------------------ device shortest paths
 def minplus_case(M, K, N, dtype, device, seed):
     """Seeded distances in [0, 10) with +inf entries: a whole row of a, a
     whole column of b and scattered single entries of both."""
@@ -1762,6 +1930,7 @@ def main():
     t1 = time.perf_counter()
     abs1, rel1 = phase_kernels(device)
     labs, lrel = phase_leaf_kernels(device)
+    flat_worst = phase_flat_kernels(device)
     kworst = phase_kernel_kernels(device)
     n_minplus_cases = phase_minplus_kernels(device)
     fl_abs, fl_rel, fl_shape, fl_bound, fl_timing = phase_flash_kernels(device)
@@ -1813,6 +1982,8 @@ def main():
         require(lm_launches > 0, "the lm prefill path never launched flash_attention")
 
     def entry(name, path, n, err_abs, err_rel, shp, bnd, tm, replaces, source=None, **extra):
+        # the walk's two forms, timed in turns at the same shape (walk_forms)
+        forms = {k: tm[k] for k in ("kept", "ms_staged", "ms_unstaged") if k in tm}
         return dict(
             name=name, route="cuda", path=path,
             source=f"src/repro_torch/kernels/csrc/{source or name}.cu", replaces=replaces,
@@ -1821,7 +1992,7 @@ def main():
             # flash_attention: scaled_dot_product_attention, timed only; no single
             # PyTorch call computes any of the others
             library_ms=tm.get("library_ms"),
-            timed_shape=shp, card=card, **extra,
+            timed_shape=shp, card=card, **forms, **extra,
         )
 
     la, lr, lshape, lbound, ltiming = dshapes["fused_leaf"]
@@ -1830,15 +2001,17 @@ def main():
     qa, qr, qshape, qbound, qtiming = kdshapes["dyn_leaf_query"]
     na, nr, nshape, nbound, ntiming = kdshapes["dyn_node_walk"]
     kw_ = {k: kworst[k] for k in ("tree_query", "dyn_leaf_query", "dyn_node_walk")}
+    fwa, fwr = flat_worst["fused_walk_flat"]
+    fla, flr = flat_worst["fused_leaf_flat"]
     kernels = [
-        entry("fused_walk", "rfs", launches, max(abs1, abs2), max(rel1, rel2), shape, bound,
-              timing, "src/repro/kernels/fused_walk.py:86",
+        entry("fused_walk", "rfs", launches, max(abs1, abs2, fwa), max(rel1, rel2, fwr), shape,
+              bound, timing, "src/repro/kernels/fused_walk.py:86",
               main_path=dict(scale=args.scale, cold_s=secs["cold_s"], warm_s=secs["warm_s"])),
-        entry("fused_walk", "drfs-exact", dlaunches["fused_walk"], max(abs1, wa), max(rel1, wr),
-              wshape, wbound, wtiming, "src/repro/kernels/fused_walk.py:86",
+        entry("fused_walk", "drfs-exact", dlaunches["fused_walk"], max(abs1, wa, fwa),
+              max(rel1, wr, fwr), wshape, wbound, wtiming, "src/repro/kernels/fused_walk.py:86",
               main_path=dict(scale=args.scale, warm_s=dsecs["exact-warm"])),
-        entry("fused_leaf", "drfs-quantized", dlaunches["fused_leaf"], max(labs, la), max(lrel, lr),
-              lshape, lbound, ltiming, "src/repro/kernels/fused_walk.py:177",
+        entry("fused_leaf", "drfs-quantized", dlaunches["fused_leaf"], max(labs, la, fla),
+              max(lrel, lr, flr), lshape, lbound, ltiming, "src/repro/kernels/fused_walk.py:177",
               main_path=dict(scale=args.scale, warm_s=dsecs["quantized-warm"])),
         entry("tree_query", "rfs-kernel", tq_launches, max(kw_["tree_query"][0], ta),
               max(kw_["tree_query"][1], tr), tshape, tbound, ttiming,

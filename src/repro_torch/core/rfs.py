@@ -32,19 +32,20 @@ The device engine (``FlatForestEngine``) runs the packed query plan
 (DESIGN.md §7) in PyTorch: host plans cached per snapshot epoch, window
 tables per ts tuple, and three executors — the gather-lean ``packed`` walk
 in plain torch (default) and ``fused``, ONE hand-written CUDA ``fused_walk``
-launch per flush (``repro_torch.kernels.fused_walk``), both over the
-position-major tables, and ``kernel``, the per-bucket-search tier: ONE
-``tree_query`` launch per flush over the flat forest's time-major tables
-(``repro_torch.kernels.tree_query``).
+launch per flush (``repro_torch.kernels.fused_walk``) reading the window
+table in place, both over the position-major tables, and ``kernel``, the
+per-bucket-search tier: ONE ``tree_query`` launch per flush over the flat
+forest's time-major tables (``repro_torch.kernels.tree_query``).
 
 ``FlatDynamicEngine`` does the same for the streaming DRFS index
 (``drfs.DynamicRangeForest``): device packs per snapshot epoch, window tables
 per (ts tuple, structure epoch, mode), and per atom block either the plain
 torch flush (``packed``) or ONE kernel launch for the tree phase (``fused``:
 ``fused_leaf`` in quantized mode, ``fused_walk`` over the complete tree in
-exact mode; ``kernel``: ``dyn_leaf_query`` over materialised query vectors,
-``dyn_node_walk``) plus the masked boundary-leaf and pending scans in plain
-torch.
+exact mode, both on the window table in place; ``kernel``: ``dyn_leaf_query``
+over materialised query vectors and a grouped copy of the leaf table,
+``dyn_node_walk`` in place) plus the masked boundary-leaf and pending scans
+in plain torch.
 """
 from __future__ import annotations
 
@@ -66,7 +67,6 @@ from .aggregation import (
 from .events import EdgeEvents
 from .network import RoadNetwork
 from ..kernels import ops
-from ..kernels.dyn_query import tree_offs
 from .plan import AtomSet
 from .query_plan import PlanCache, group_atoms_by_edge
 from .torch_engine import (
@@ -75,6 +75,7 @@ from .torch_engine import (
     FlatForest,
     WindowBatch,
     _dyn_leaf_range,
+    dyn_node_base,
     dyn_node_tables,
     dyn_window_tables,
     eval_atoms_dyn,
@@ -466,17 +467,23 @@ def make_window_batch(ctx: MomentContext, ts) -> Tuple[np.ndarray, ...]:
     return t_lo, t_hi, lo_right, half, qt
 
 
-def _device_nbytes(obj) -> int:
+def _device_nbytes(obj, seen=None) -> int:
     """Total bytes of every device tensor reachable from ``obj`` — the ONE
     accounting helper for engine tables, atom packs and packed plans
     (accepts tensors, NamedTuples, dicts, lists/tuples and the DRFS packs,
-    which carry their own ``nbytes``; anything else counts 0)."""
+    which carry their own ``nbytes``; anything else counts 0). A tensor
+    reachable twice counts once: a pack's ``FlatIndex`` holds the pack's
+    edges and the engine's node bases."""
+    seen = set() if seen is None else seen
     if hasattr(obj, "element_size"):
+        if id(obj) in seen:
+            return 0
+        seen.add(id(obj))
         return int(obj.numel()) * obj.element_size()
     if isinstance(obj, dict):
-        return sum(_device_nbytes(v) for v in obj.values())
+        return sum(_device_nbytes(v, seen) for v in obj.values())
     if isinstance(obj, (list, tuple)):
-        return sum(_device_nbytes(v) for v in obj)
+        return sum(_device_nbytes(v, seen) for v in obj)
     if isinstance(obj, (_SealedPack, _PendPack)):
         return obj.nbytes
     return 0
@@ -656,39 +663,17 @@ class _DeviceEngine:
         return heat.t().contiguous().cpu().numpy()
 
 
-def _rfs_group(nodeval, node_base_lvl, edges, *, npad: int, nlev: int):
-    """Per-edge grouped node values from the flat packed tables: [G, R2, W·C].
-
-    The packed build lays an edge's level-ℓ rows contiguously at
-    [node_base[e, ℓ]·2, node_base[e, ℓ]·2 + 2·(npad >> ℓ)), so the fused
-    kernel's per-edge blocks are per-level slices stacked in walk-level
-    order. Depends only on (window tables, plan edges) — both stable across
-    warm flushes — so the engine caches the result alongside the window
-    tables.
-    """
-    G = edges.shape[0]
-    W, C = nodeval.shape[1], nodeval.shape[2]
-    parts = []
-    for lev in range(nlev):
-        nb = npad >> lev
-        base = node_base_lvl[lev][edges]  # [G]
-        idx = base[:, None] * 2 + torch.arange(nb * 2, device=edges.device)[None, :]
-        parts.append(nodeval[idx])  # [G, nb·2, W, C]
-    nv = torch.cat(parts, dim=1)
-    return nv.reshape(G, nv.shape[1], W * C)
-
-
-def _rfs_flush(nv_g, entry, heat):
-    """ONE fused kernel launch: walk + window contraction, scattered onto
-    heat [L, W] in place. Padding slots of the [G, Qp] layout carry qs = 0
-    and an empty interval, so the kernel writes exact zeros there; only the
-    real atoms' rows (``entry["rows"]``) are scattered."""
-    W = heat.shape[1]
-    out = ops.fused_walk(
-        nv_g, entry["r_lo"], entry["r_hi"], entry["side"], entry["qs"],
-        offs=entry["offs"],
-    )  # [G, W, Qp]
-    flat = out.permute(0, 2, 1).reshape(-1, W)
+def _rfs_flush(tabs, entry, heat):
+    """ONE fused kernel launch on the window table in place: walk + window
+    contraction, [G, Qp, W], scattered onto heat [L, W] in place. Padding
+    slots of the [G, Qp] layout carry qs = 0 and an empty interval, so the
+    kernel writes exact zeros there; only the real atoms' rows
+    (``entry["rows"]``) are scattered."""
+    out = ops.fused_walk_flat(
+        tabs.reshape(tabs.shape[0], -1), entry["index"], entry["r_lo"], entry["r_hi"],
+        entry["side"], entry["qs"],
+    )  # [G, Qp, W]
+    flat = out.reshape(-1, heat.shape[1])
     _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
 
 
@@ -742,8 +727,8 @@ class FlatForestEngine(_DeviceEngine):
                           one paired gather per level — no searches at all.
       executor='fused'    ONE hand-written CUDA launch per atom pack: the
                           whole canonical walk + window contraction runs
-                          in-kernel over per-edge grouped node values
-                          (kernels/fused_walk.py).
+                          in-kernel, reading the packed node values where
+                          the window tables hold them (kernels/fused_walk.py).
       executor='kernel'   ONE hand-written CUDA ``tree_query`` launch per
                           atom pack over the flat forest's time-major tables
                           as they are (no per-entry copies): per (atom,
@@ -774,8 +759,6 @@ class FlatForestEngine(_DeviceEngine):
         self.search_steps = max(int(np.ceil(np.log2(max(npmax, nemax) + 1))) + 1, 1)
         self._tab_cache = PlanCache(2)  # ts_key -> window tables (plans)
         self._pack_cache = PlanCache(2)  # plan.key -> device atom packs
-        # (ts_key, plan.key, block) -> per-edge grouped node values (fused)
-        self._group_cache = PlanCache(8)
         self._packed = self._flat = None
         if executor == "kernel":
             self._flat = self._flat_forest()
@@ -816,15 +799,13 @@ class FlatForestEngine(_DeviceEngine):
 
     @property
     def device_bytes(self) -> int:
-        """Index tables + cached packed plans (atom packs, window tables,
-        grouped node values)."""
+        """Index tables + cached packed plans (atom packs, window tables)."""
         return _device_nbytes(
             [
                 self._flat,
                 self._packed,
                 list(self._tab_cache.values()),
                 list(self._pack_cache.values()),
-                list(self._group_cache.values()),
             ]
         )
 
@@ -900,23 +881,19 @@ class FlatForestEngine(_DeviceEngine):
     def _fused_pack(self, atoms):
         """Grouped packed-plan layout for the fused executor, with the
         window-independent root rank intervals searched once per plan and
-        cached on the entry — the fused kernel's only remaining inputs are
-        the ts-keyed grouped node values."""
+        cached on the entry, and where its edges' node rows lie in the
+        window tables (``index``: walk level ℓ of edge e holds npad >> ℓ
+        nodes from ``node_base_lvl[ℓ, e]``, range-checked here, once) — the
+        fused kernel's only remaining input is the ts-keyed window table."""
         entries = []
         for p, fa, entry in self._grouped(atoms):
             G, qp = entry["side"].shape
-            nlev = p.bit_length()
-            # walk level ℓ of an edge block holds npad >> ℓ node rows; the
-            # kernel's static offs are their cumulative starts (node units)
-            offs, o = [], 0
-            for lev in range(nlev):
-                offs.append(o)
-                o += p >> lev
             r_lo, r_hi = packed_root_ranks(
                 self._packed["pf"], fa, search_steps=self.search_steps
             )
-            entry.update(r_lo=r_lo.reshape(G, qp), r_hi=r_hi.reshape(G, qp),
-                         offs=tuple(offs), npad=p, max_levels=nlev)
+            entry.update(r_lo=r_lo.reshape(G, qp), r_hi=r_hi.reshape(G, qp), npad=p,
+                         max_levels=p.bit_length(),
+                         index=ops.walk_index(self._packed["node_base_lvl"], entry["edges"], p))
             entries.append(entry)
         return entries
 
@@ -991,7 +968,7 @@ class FlatForestEngine(_DeviceEngine):
         # the per-atom walk gathers q_t-folded node-value rows [W, 2k_s] f64
         row_bytes = W * 2 * k_s * 8
         pk = self._packed
-        for bi, entry in enumerate(packs):
+        for entry in packs:
             c, m = entry["max_levels"], entry["m"]
             if self.executor == "kernel":
                 _rfs_kernel_flush(self._flat, tabs, entry, wb, heat)
@@ -1010,15 +987,7 @@ class FlatForestEngine(_DeviceEngine):
                 per_win = vals[0::2] + vals[1::2]  # fold window halves
                 _scatter_add(heat, fa.lixel, per_win.T)
             else:
-                gkey = (ts_key, plan.key, bi)
-                nv_g = self._group_cache.get(gkey)
-                if nv_g is None:
-                    nv_g = _rfs_group(
-                        tabs, pk["node_base_lvl"], entry["edges"],
-                        npad=entry["npad"], nlev=c,
-                    )
-                    self._group_cache.put(gkey, nv_g)
-                _rfs_flush(nv_g, entry, heat)
+                _rfs_flush(tabs, entry, heat)
                 # ONE kernel launch answered the whole pack; the walk still
                 # touches the same node rows
                 self.counters["fused_launches"] += 1
@@ -1039,69 +1008,63 @@ def _dyn_plain_flush(forest, fa, wb, tables, heat, *, n_levels: int, hq: int,
     _scatter_add(heat, fa.lixel, (vals[0::2] + vals[1::2]).T)  # fold window halves
 
 
-def _dyn_group(tables, edges, *, hq: int, exact: bool, E: int):
-    """Per-edge grouped kernel tables from the flat window tables (plain
-    gathers, no kernel): exact mode [G, R2, W·2k_s] complete-tree node rows
-    stacked depth 0..hq (walk level ℓ reads depth hq − ℓ at node offset
-    2^(hq−ℓ) − 1), quantized mode [G, (nleaf+1)·2, W·2K] leaf-prefix rows.
-    Depends only on (window tables, plan edges) — both stable across warm
-    flushes — so the engine caches the result beside the window tables."""
-    (tab,) = tables
-    G = edges.shape[0]
-    if exact:
-        W, C = tab.shape[1], tab.shape[2]
-        parts = []
-        for d in range(hq + 1):
-            lo = E * ((1 << d) - 1) * 2
-            hi = E * ((1 << (d + 1)) - 1) * 2
-            parts.append(tab[lo:hi].reshape(E, (1 << d) * 2, W, C).index_select(0, edges))
-        nv = torch.cat(parts, dim=1)  # [G, R2, W, C]
-        return nv.reshape(G, nv.shape[1], W * C)
+def _dyn_group(tab, edges, *, hq: int, E: int):
+    """Per-edge grouped leaf-prefix rows [G, (nleaf+1)·2, W·2K] from the flat
+    quantized window table (one plain gather, no kernel): the input of
+    ``dyn_leaf_query``, the one DRFS kernel that still takes the grouped
+    layout. Depends only on (window tables, plan edges) — both stable across
+    warm flushes — so the engine caches the result beside the window
+    tables."""
     R = (1 << hq) * 2 + 2
     return tab.reshape(E, R, -1).index_select(0, edges)
 
 
-def dyn_kernel_call(forest, grouped, entry, wb, *, hq: int, exact: bool, executor: str):
+def dyn_kernel_call(forest, tab, entry, wb, *, hq: int, exact: bool, executor: str, index=None):
     """The one kernel launch of a DRFS flush's tree phase: ``(name, args,
-    kwargs)`` for ``ops.<name>``. ``fused``: exact mode ``fused_walk`` over
-    the complete tree (offs = 2^(hq−ℓ) − 1), quantized mode ``fused_leaf``
-    with q_s ⊗ q_t built in-kernel. ``kernel``: exact mode ``dyn_node_walk``
-    on the same tree, quantized mode ``dyn_leaf_query`` over the
-    materialised per-half query vectors ``qv_l/qv_r [G, W, Qp, k_s·k_t]``
-    (masked q_s ⊗ q_t of the left / right temporal vectors, s-major). Leaf
-    ranges are resolved from the grouped slots' position bounds (padding
-    slots come out empty)."""
+    kwargs)`` for ``ops.<name>``. ``tab`` is the block's window table: the
+    flat rows, read in place through ``index`` (a ``FlatIndex``), for
+    ``fused`` — exact mode ``fused_walk_flat`` over the complete tree,
+    quantized mode ``fused_leaf_flat`` with q_s ⊗ q_t built in-kernel — and
+    for ``kernel`` exact mode, ``dyn_node_walk_flat`` on the same tree. For
+    ``kernel`` quantized mode it is the grouped copy (:func:`_dyn_group`,
+    ``index`` None) that ``dyn_leaf_query`` reads with the materialised
+    per-half query vectors ``qv_l/qv_r [G, W, Qp, k_s·k_t]`` (masked
+    q_s ⊗ q_t of the left / right temporal vectors, s-major). Leaf ranges
+    are resolved from the grouped slots' position bounds (padding slots come
+    out empty)."""
     G, Qp = entry["side"].shape
     leaf_lo, leaf_hi = _dyn_leaf_range(forest, entry["gfa"], hq)
     leaf_hi = torch.maximum(leaf_hi, leaf_lo)
-    leaf_lo = leaf_lo.to(torch.int32).reshape(G, Qp)
-    leaf_hi = leaf_hi.to(torch.int32).reshape(G, Qp)
-    base = (grouped, leaf_lo, leaf_hi, entry["side"])
+    ranges = (leaf_lo.to(torch.int32).reshape(G, Qp), leaf_hi.to(torch.int32).reshape(G, Qp),
+              entry["side"])
     qs = entry["qs"]
     if exact:
-        if executor == "kernel":
-            return "dyn_node_walk", (*base, qs), dict(hq=hq)
-        return "fused_walk", (*base, qs), dict(offs=tree_offs(hq))
+        name = "dyn_node_walk_flat" if executor == "kernel" else "fused_walk_flat"
+        return name, (tab, index, *ranges, qs), {}
     qtl = wb.qt[0::2].contiguous()
     qtr = wb.qt[1::2].contiguous()
     if executor == "fused":
-        return "fused_leaf", (*base, qs, qtl, qtr), {}
+        return "fused_leaf_flat", (tab, index, *ranges, qs, qtl, qtr), {}
     W, k_t = qtl.shape
     k_s = qs.shape[-1]
 
     def qv(qt):
         return (qs[:, None, :, :, None] * qt[None, :, None, None, :]).reshape(G, W, Qp, k_s * k_t)
 
-    return "dyn_leaf_query", (*base, qv(qtl), qv(qtr)), {}
+    return "dyn_leaf_query", (tab, *ranges, qv(qtl), qv(qtr)), {}
 
 
-def _dyn_flush(forest, grouped, entry, wb, heat, *, hq: int, exact: bool, executor: str):
+def _dyn_flush(forest, tab, index, entry, wb, heat, *, hq: int, exact: bool, executor: str):
     """ONE kernel launch for the block's tree phase, scattered onto heat
-    [L, W] in place — only the real atoms' slots (``entry["rows"]``)."""
-    name, args, kwargs = dyn_kernel_call(forest, grouped, entry, wb, hq=hq, exact=exact,
-                                         executor=executor)
-    out = getattr(ops, name)(*args, **kwargs)  # [G, W, Qp]
-    flat = out.permute(0, 2, 1).reshape(-1, heat.shape[1])
+    [L, W] in place — only the real atoms' slots (``entry["rows"]``). The
+    in-place kernels write [G, Qp, W]; ``dyn_leaf_query`` keeps the grouped
+    contract's [G, W, Qp]."""
+    name, args, kwargs = dyn_kernel_call(forest, tab, entry, wb, hq=hq, exact=exact,
+                                         executor=executor, index=index)
+    out = getattr(ops, name)(*args, **kwargs)
+    if name == "dyn_leaf_query":
+        out = out.transpose(1, 2)
+    flat = out.reshape(-1, heat.shape[1])
     _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
 
 
@@ -1144,11 +1107,12 @@ class FlatDynamicEngine(_DeviceEngine):
 
     Executors: ``packed`` runs every phase in plain torch
     (:func:`eval_atoms_dyn`); ``fused`` answers the tree phase of each atom
-    block with ONE kernel launch — ``fused_leaf`` in quantized mode,
-    ``fused_walk`` over the complete tree in exact mode — and runs only the
-    boundary-leaf and pending scans in plain torch; ``kernel`` does the same
-    with ``dyn_leaf_query`` (materialised query vectors) and
-    ``dyn_node_walk``. Both the quantized-H₀
+    block with ONE kernel launch on the window table in place —
+    ``fused_leaf`` in quantized mode, ``fused_walk`` over the complete tree
+    in exact mode — and runs only the boundary-leaf and pending scans in
+    plain torch; ``kernel`` does the same with ``dyn_leaf_query``
+    (materialised query vectors, over a grouped copy of the leaf table) and
+    ``dyn_node_walk`` (in place). Both the quantized-H₀
     mode (partial boundary leaves dropped, paper §5.2) and the exact-leaf
     mode run on the device; scan work is accounted into the forest's
     counters host-side (same units as the NumPy path).
@@ -1171,8 +1135,11 @@ class FlatDynamicEngine(_DeviceEngine):
         # plan.key -> device atom packs (epoch-independent: the atoms and the
         # grouped kernel layout derive from the plan's host blocks only)
         self._pack_cache = PlanCache(2)
-        # (table key, plan.key, block) -> per-edge grouped kernel tables
+        # (table key, plan.key, block) -> grouped leaf-prefix rows
+        # (dyn_leaf_query, the kernel executor's quantized mode, only)
         self._group_cache = PlanCache(8)
+        # hq -> [hq+1, E] complete-tree node bases of the exact-mode walk
+        self._tree_base = {}
         snap = df.snapshot()
         self._get_sealed(snap)
         self._get_pending(snap)
@@ -1244,13 +1211,15 @@ class FlatDynamicEngine(_DeviceEngine):
 
     @property
     def device_bytes(self) -> int:
-        """Sealed + pending packs + cached window tables, atom packs and
-        grouped kernel tables — one accounting helper with the static engine."""
+        """Sealed + pending packs + cached window tables, tree node bases,
+        atom packs and grouped leaf tables — one accounting helper with the
+        static engine."""
         return _device_nbytes(
             [
                 list(self._sealed_packs.values()),
                 list(self._pend_packs.values()),
                 list(self._tab_cache.values()),
+                list(self._tree_base.values()),
                 list(self._pack_cache.values()),
                 list(self._group_cache.values()),
             ]
@@ -1368,6 +1337,7 @@ class FlatDynamicEngine(_DeviceEngine):
                 rows = torch.nonzero(gfa.valid).reshape(-1)
                 entry.update(
                     edges=self._as(edges, torch.int64),
+                    index={},  # (hq, exact) -> FlatIndex, built by tree_table
                     gfa=gfa,
                     # flat [G·Qp] slots of the real atoms, and their lixels
                     rows=rows,
@@ -1378,6 +1348,34 @@ class FlatDynamicEngine(_DeviceEngine):
             packs.append(entry)
         self._pack_cache.put(plan.key, packs)
         return packs
+
+    def tree_table(self, tables, entry, *, hq: int, exact: bool, gkey=None):
+        """``(tab, index)`` for :func:`dyn_kernel_call`: the block's window
+        table as flat rows with its ``FlatIndex`` (built and range-checked
+        once per block and (hq, mode), cached on the entry; exact mode reads
+        the complete tree through ``dyn_node_base(E, hq)``, cached per hq),
+        or for the kernel executor's quantized mode the grouped copy, cached
+        under ``gkey`` when given."""
+        (tab,) = tables
+        E, hq = self.df.net.n_edges, int(hq)
+        if exact or self.executor == "fused":
+            index = entry["index"].get((hq, bool(exact)))
+            if index is None:
+                if exact:
+                    base = self._tree_base.get(hq)
+                    if base is None:
+                        base = self._tree_base[hq] = dyn_node_base(E, hq, self.device)
+                    index = ops.walk_index(base, entry["edges"], 1 << hq)
+                else:
+                    index = ops.leaf_index(entry["edges"], 1 << hq)
+                entry["index"][(hq, bool(exact))] = index
+            return tab.reshape(tab.shape[0], -1), index
+        grouped = self._group_cache.get(gkey) if gkey is not None else None
+        if grouped is None:
+            grouped = _dyn_group(tab, entry["edges"], hq=hq, E=E)
+            if gkey is not None:
+                self._group_cache.put(gkey, grouped)
+        return grouped, None
 
     def flush_plan(self, heat, plan, wb, ts_key, *, h0=None, exact_leaf=False,
                    snapshot=None, **_):
@@ -1426,13 +1424,9 @@ class FlatDynamicEngine(_DeviceEngine):
                 _dyn_plain_flush(forest, entry["fa"], wb, tables, heat, **scan_kw)
                 continue
             # tree phase: ONE kernel launch; scans stay in plain torch
-            gkey = (tab_key, plan.key, bi)
-            grouped = self._group_cache.get(gkey)
-            if grouped is None:
-                grouped = _dyn_group(tables, entry["edges"], hq=int(hq), exact=exact,
-                                     E=snap.net.n_edges)
-                self._group_cache.put(gkey, grouped)
-            _dyn_flush(forest, grouped, entry, wb, heat, hq=int(hq), exact=exact,
+            tab, index = self.tree_table(tables, entry, hq=int(hq), exact=exact,
+                                         gkey=(tab_key, plan.key, bi))
+            _dyn_flush(forest, tab, index, entry, wb, heat, hq=int(hq), exact=exact,
                        executor=self.executor)
             if self.executor == "fused":
                 self.counters["fused_launches"] += 1

@@ -495,10 +495,13 @@ def dyn_window_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: i
         right = (p[2] - p[1])[..., 1::2, :]  # combos (ψ·right)
         parts.append(torch.cat([left, right], dim=-1))  # [W, n, 2, 2K]
     # per-edge inclusive leaf prefix with a leading zero row, laid out
-    # row-major [E·(nleaf+1)·2, W, 2K] for one-stacked-gather addressing
+    # row-major [E·(nleaf+1)·2, W, 2K] for one-stacked-gather addressing —
+    # contiguous, so a flush reads the rows in place: the permute alone is a
+    # strided view, and every reshape of it to [rows, W·2K] would copy the
+    # whole table again
     cum = torch.cat(parts, dim=1).reshape(W, E, nleaf, 2, 2 * K).cumsum(dim=2)
     cum = torch.cat([torch.zeros_like(cum[:, :, :1]), cum], dim=2)
-    return cum.permute(1, 2, 3, 0, 4).reshape(E * (nleaf + 1) * 2, W, 2 * K)
+    return cum.permute(1, 2, 3, 0, 4).contiguous().reshape(E * (nleaf + 1) * 2, W, 2 * K)
 
 
 def dyn_node_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: int,

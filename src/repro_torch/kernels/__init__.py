@@ -1,18 +1,19 @@
 """Hand-written Hopper kernels of the port.
 
   fused_walk     — the packed-plan canonical climb + window contraction, one
-                   CUDA launch per flush (``csrc/fused_walk.cu``); serves the
-                   static RFS forest and the DRFS exact-mode complete tree
+                   CUDA launch per flush (``csrc/fused_walk.cu``) reading the
+                   flat window table in place; serves the static RFS forest
+                   and the DRFS exact-mode complete tree
   fused_leaf     — the DRFS quantized tree phase: leaf-prefix difference +
                    q_s ⊗ q_t window contraction, one CUDA launch per flush
-                   (``csrc/fused_leaf.cu``)
+                   (``csrc/fused_leaf.cu``), on the flat leaf table in place
   tree_query     — the ``executor='kernel'`` RFS flush: per (atom,
                    half-window) canonical time-rank decomposition with three
                    position searches per bucket (``csrc/tree_query.cu``)
   dyn_leaf_query — the ``executor='kernel'`` DRFS quantized tree phase over
                    materialised query vectors (``csrc/dyn_leaf_query.cu``)
   dyn_node_walk  — the ``executor='kernel'`` DRFS exact tree phase: launches
-                   ``csrc/fused_walk.cu`` on the complete tree
+                   ``csrc/fused_walk.cu`` on the complete tree in place
   minplus_matmul — the (min, +) product, one launch per Bellman-Ford round
                    of ``core.shortest_path.minplus_bellman_ford``
                    (``csrc/minplus.cu``, f32 and f64)

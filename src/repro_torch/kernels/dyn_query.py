@@ -12,7 +12,10 @@
   layout ``offs[ℓ] = 2^(hq−ℓ) − 1`` (:func:`tree_offs`), ``hq + 1`` levels.
   It replaces ``repro.kernels.dyn_query.dyn_node_walk_pallas`` and launches
   the same CUDA source as ``fused_walk`` (``csrc/fused_walk.cu``) — there is
-  no second copy of that kernel.
+  no second copy of that kernel. The flush reads ``dyn_node_tables`` in
+  place (``ops.dyn_node_walk_flat``, plain version
+  ``fused_walk.fused_walk_flat_ref``); ``ops.dyn_node_walk`` keeps the
+  grouped JAX contract on the same kernel.
 
 This module holds the plain PyTorch versions (:func:`dyn_leaf_query_ref`,
 :func:`dyn_node_walk_ref`) — what a CPU tensor gets and what the kernels are

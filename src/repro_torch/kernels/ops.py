@@ -7,8 +7,11 @@ card. Each wrapper counts its launches in a plain integer attribute
 (``fused_walk.launches``, ``fused_leaf.launches``, ``tree_query.launches``,
 ``dyn_leaf_query.launches``, ``dyn_node_walk.launches``,
 ``minplus_matmul.launches``, ``flash_attention.launches``), incremented where
-the kernel is launched and nowhere else. ``dyn_node_walk`` launches the same
-compiled source as ``fused_walk`` but counts in its own attribute.
+the kernel is launched and nowhere else. ``csrc/fused_walk.cu`` serves four
+wrappers: ``fused_walk`` (the grouped JAX contract) and ``fused_walk_flat``
+(the flat window table in place) count in ``fused_walk.launches``,
+``dyn_node_walk`` and ``dyn_node_walk_flat`` in ``dyn_node_walk.launches``;
+``fused_leaf`` and ``fused_leaf_flat`` both count in ``fused_leaf.launches``.
 """
 from __future__ import annotations
 
@@ -19,24 +22,77 @@ import torch
 from .dyn_query import dyn_leaf_query_library, dyn_leaf_query_ref, dyn_node_walk_ref, tree_offs
 from .fused_walk import (
     MAX_LEVELS,
+    FlatIndex,
+    fused_leaf_flat_ref,
     fused_leaf_library,
     fused_leaf_ref,
+    fused_walk_flat_ref,
     fused_walk_library,
     fused_walk_ref,
+    leaf_index,
+    walk_index,
 )
 from .flash_attention import HEAD_DIMS, LOG2E, check_seq_len, flash_attention_ref, flash_library
 from .minplus import minplus_library, minplus_matmul_ref
 from .tree_query import tree_query_library, tree_query_ref
 
-__all__ = ["dyn_leaf_query", "dyn_node_walk", "flash_attention", "fused_leaf", "fused_walk",
-           "minplus_matmul", "tree_query"]
+__all__ = ["FlatIndex", "dyn_leaf_query", "dyn_node_walk", "dyn_node_walk_flat",
+           "flash_attention", "fused_leaf", "fused_leaf_flat", "fused_walk", "fused_walk_flat",
+           "leaf_index", "minplus_matmul", "tree_query", "walk_index"]
 
-# the fused_leaf kernel holds the two [W, k_t] temporal vectors in shared
-# memory (csrc/fused_leaf.cu SMEM_MAX)
-LEAF_SMEM_MAX = 48 * 1024
+# the fused_leaf kernel holds the two [W, k_t] temporal vectors and two rows
+# per warp in shared memory (csrc/fused_leaf.cu SMEM_MAX)
+LEAF_SMEM_MAX = 227 * 1024
+# the fused_walk kernel copies an edge's block of the flat table into shared
+# memory when it takes at most this many bytes (walk_staged): on the card the
+# staged form was the faster one for the RFS blocks of npad 32, 64 and 128
+# (20, 40 and 80 KB) and by far the slower one for the 163 KB block of npad
+# 256 (the DRFS tree; PERF.md §6)
+WALK_STAGE_MAX = 96 * 1024
+# dynamic shared memory a fused_walk block may use (csrc/fused_walk.cu SMEM_CAP)
+WALK_SMEM_CAP = 227 * 1024
 # the tree_query kernel copies an edge's block of the flat forest into
 # shared memory when it takes at most this many bytes (tree_staged)
 TREE_STAGE_MAX = 64 * 1024
+
+
+def walk_stage_bytes(npad: int, wc: int) -> int:
+    """Shared memory of the fused_walk kernel's staged edge block: 2·npad − 1
+    nodes of two rows of ``wc`` f64 values."""
+    return (2 * int(npad) - 1) * 2 * int(wc) * 8
+
+
+def walk_stageable(npad: int, wc: int) -> bool:
+    """Whether the fused_walk kernel can stage the edge block at all: npad a
+    power of two, and the block with one warp's row and its 32 atoms' emit
+    rows within WALK_SMEM_CAP (csrc/fused_walk.cu's launcher shrinks the
+    block's threads to 32 before it gives up)."""
+    npad = int(npad)
+    if npad <= 0 or npad & (npad - 1):
+        return False
+    emit_rows = 32 * (2 * npad.bit_length() + 1) * 4
+    return walk_stage_bytes(npad, wc) + int(wc) * 8 + emit_rows <= WALK_SMEM_CAP
+
+
+def walk_staged(npad: int, wc: int) -> bool:
+    """Whether the fused_walk kernel stages an edge's block in shared memory
+    (csrc/fused_walk.cu's ``STAGED`` form) by default: it can, and the block
+    takes at most WALK_STAGE_MAX bytes."""
+    return walk_stageable(npad, wc) and walk_stage_bytes(npad, wc) <= WALK_STAGE_MAX
+
+
+def walk_form(npad: int, wc: int, data_ptr: int, staged=None) -> bool:
+    """The form a fused_walk launch on a table at ``data_ptr`` takes:
+    ``staged`` None picks :func:`walk_staged` when the table is 16-byte
+    aligned (the copy moves 16-byte pieces); a staged form forced on a table
+    that cannot take it raises instead of running the other form."""
+    aligned = int(data_ptr) % 16 == 0
+    if staged is None:
+        return aligned and walk_staged(npad, wc)
+    if staged and not (aligned and walk_stageable(npad, wc)):
+        raise ValueError(f"fused_walk: the staged form needs a 16-byte aligned table and an "
+                         f"edge block that fits shared memory (npad {npad}, row width {wc})")
+    return bool(staged)
 
 
 def tree_staged(npad: int, k4: int) -> bool:
@@ -61,45 +117,102 @@ def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def _walk_launch(kernel, nodeval, r_lo, r_hi, side, qs, offs):
-    """Checks and launch of ``csrc/fused_walk.cu`` for a CUDA ``nodeval``:
-    the shared body of :func:`fused_walk` and :func:`dyn_node_walk` (each
-    counts its own launches)."""
-    if nodeval.device.type != "cuda":
-        raise ValueError(f"{kernel}: unsupported device {nodeval.device}")
-    if nodeval.dim() != 3 or qs.dim() != 3:
-        raise ValueError(f"{kernel}: nodeval must be [G, R2, W*2*k_s] and qs [G, Q, k_s]")
-    G, R2, WC = nodeval.shape
-    Q, ks = int(qs.shape[1]), int(qs.shape[2])
-    if ks == 0 or WC % (2 * ks) or len(offs) > MAX_LEVELS:
+def _check_rows(kernel, table, index):
+    """The one range check of a launch on a flat table, against the row
+    count its index was checked for when the pack was built (no host sync)."""
+    if index.rows > table.shape[0]:
+        raise ValueError(f"{kernel}: the pack reads rows up to {index.rows}, but the table has "
+                         f"{table.shape[0]}: lvl_base/edges out of range for this table")
+
+
+def _walk_launch(kernel, table, lvl_base, edges, r_lo, r_hi, side, qs, out, *, nlev, npad,
+                 blk_rows, staged):
+    """Checks and launch of ``csrc/fused_walk.cu`` on the flat rows
+    ``table [N2, W·2k_s]``: the shared body of every walk wrapper (each
+    counts its own launches). ``out`` is [G, Q, W] or a view of it with
+    other strides."""
+    if table.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {table.device}")
+    if table.dim() != 2 or qs.dim() != 3 or lvl_base.dim() != 2:
+        raise ValueError(f"{kernel}: the table must be [N2, W*2*k_s], qs [G, Q, k_s] and "
+                         "lvl_base [levels, E]")
+    N2, WC = table.shape
+    G, Q, ks = (int(d) for d in qs.shape)
+    if ks == 0 or WC % (2 * ks) or nlev > MAX_LEVELS or lvl_base.shape[0] < nlev:
         raise ValueError(
-            f"{kernel}: row width {WC} is not W*2*k_s for k_s={ks}, "
-            f"or more than {MAX_LEVELS} levels ({len(offs)})"
+            f"{kernel}: row width {WC} is not W*2*k_s for k_s={ks}, or more than "
+            f"{MAX_LEVELS} levels ({nlev}), or lvl_base has fewer than {nlev} rows"
         )
     W = WC // (2 * ks)
-    dev = nodeval.device
-    _check(kernel, "nodeval", nodeval, torch.float64, (G, R2, WC), dev)
+    dev = table.device
+    _check(kernel, "table", table, torch.float64, (N2, WC), dev)
+    _check(kernel, "lvl_base", lvl_base, torch.int64, tuple(lvl_base.shape), dev)
+    _check(kernel, "edges", edges, torch.int64, (G,), dev)
     _check(kernel, "qs", qs, torch.float64, (G, Q, ks), dev)
     for name, t in (("r_lo", r_lo), ("r_hi", r_hi), ("side", side)):
         _check(kernel, name, t, torch.int32, (G, Q), dev)
-    out = torch.empty((G, W, Q), dtype=torch.float64, device=dev)
     if out.numel() == 0:
-        return out, False  # nothing to launch
+        return False  # nothing to launch
     lib = fused_walk_library()
-    c_offs = (ctypes.c_int * max(len(offs), 1))(*offs)
+    so_g, so_q, so_w = out.stride()
     err = lib.fused_walk_f64(
-        nodeval.data_ptr(), r_lo.data_ptr(), r_hi.data_ptr(), side.data_ptr(),
-        qs.data_ptr(), out.data_ptr(), G, R2, Q, W, ks, c_offs, len(offs),
+        table.data_ptr(), N2, lvl_base.data_ptr(), max(int(lvl_base.shape[1]), 1),
+        edges.data_ptr(), r_lo.data_ptr(), r_hi.data_ptr(), side.data_ptr(), qs.data_ptr(),
+        out.data_ptr(), so_g, so_q, so_w, G, Q, W, ks, nlev, npad, blk_rows, int(bool(staged)),
         _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{kernel}: kernel launch failed (cudaError {err})")
-    return out, True
+    return True
+
+
+def _walk_grouped(kernel, nodeval, r_lo, r_hi, side, qs, offs):
+    """The grouped JAX contract on the flat kernel: group g's block is rows
+    [g·R2, (g+1)·R2) of nodeval viewed flat, ``lvl_base[ℓ, g] = g·R2/2 +
+    offs[ℓ]``, rows clamped to the block as the reference clamps them;
+    out [G, W, Q]."""
+    if nodeval.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {nodeval.device}")
+    if nodeval.dim() != 3 or qs.dim() != 3:
+        raise ValueError(f"{kernel}: nodeval must be [G, R2, W*2*k_s] and qs [G, Q, k_s]")
+    G, R2, WC = (int(d) for d in nodeval.shape)
+    Q, ks = int(qs.shape[1]), int(qs.shape[2])
+    if R2 % 2 or R2 == 0 or ks == 0 or WC % (2 * ks):
+        raise ValueError(f"{kernel}: nodeval must hold paired rows (R2={R2} even, > 0) of "
+                         f"W*2*k_s values (row width {WC}, k_s={ks})")
+    _check(kernel, "nodeval", nodeval, torch.float64, (G, R2, WC), nodeval.device)
+    dev = nodeval.device
+    out = torch.empty((G, WC // (2 * ks), Q), dtype=torch.float64, device=dev)
+    lvl_base = (torch.arange(G, device=dev)[None] * (R2 // 2)
+                + torch.tensor(offs, dtype=torch.int64, device=dev).reshape(-1, 1))
+    launched = _walk_launch(kernel, nodeval.reshape(G * R2, WC), lvl_base,
+                            torch.arange(G, device=dev), r_lo, r_hi, side, qs,
+                            out.permute(0, 2, 1), nlev=len(offs), npad=0, blk_rows=R2,
+                            staged=False)
+    return out, launched
+
+
+def _walk_flat(kernel, table, index, r_lo, r_hi, side, qs, staged=None):
+    """A walk on the flat table in place: [G, Q, W], in the form
+    :func:`walk_form` gives; chip_smoke.py forces either form to time both."""
+    _check_rows(kernel, table, index)
+    if table.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {table.device}")
+    npad = int(index.span)
+    G, Q, ks = (int(d) for d in qs.shape)
+    WC = int(table.shape[1]) if table.dim() == 2 else 0
+    W = WC // (2 * ks) if ks else 0
+    staged = walk_form(npad, WC, table.data_ptr(), staged)
+    out = torch.empty((G, Q, W), dtype=torch.float64, device=table.device)
+    launched = _walk_launch(kernel, table, index.lvl_base, index.edges, r_lo, r_hi, side, qs,
+                            out, nlev=npad.bit_length(), npad=npad, blk_rows=0, staged=staged)
+    return out, launched
 
 
 def fused_walk(nodeval, r_lo, r_hi, side, qs, *, offs) -> torch.Tensor:
-    """Fused packed-plan walk: the whole canonical climb + window contraction
-    in one launch (see fused_walk.py): [G, W, Q] float64, halves folded.
+    """Fused packed-plan walk over the grouped layout (the JAX contract):
+    the whole canonical climb + window contraction in one launch (see
+    fused_walk.py): [G, W, Q] float64, halves folded.
 
     ``nodeval [G, R2, W·2k_s]`` float64, ``r_lo/r_hi/side [G, Q]`` int32,
     ``qs [G, Q, k_s]`` float64, all contiguous and on one device; ``offs``
@@ -109,7 +222,7 @@ def fused_walk(nodeval, r_lo, r_hi, side, qs, *, offs) -> torch.Tensor:
     offs = tuple(int(o) for o in offs)
     if nodeval.device.type == "cpu":
         return fused_walk_ref(nodeval, r_lo, r_hi, side, qs, offs=offs)
-    out, launched = _walk_launch("fused_walk", nodeval, r_lo, r_hi, side, qs, offs)
+    out, launched = _walk_grouped("fused_walk", nodeval, r_lo, r_hi, side, qs, offs)
     if launched:
         fused_walk.launches += 1
     return out
@@ -118,10 +231,29 @@ def fused_walk(nodeval, r_lo, r_hi, side, qs, *, offs) -> torch.Tensor:
 fused_walk.launches = 0
 
 
+def fused_walk_flat(table, index: FlatIndex, r_lo, r_hi, side, qs) -> torch.Tensor:
+    """Fused walk on the flat window table in place (the fused executor's
+    flush, see fused_walk.py): [G, Q, W] float64, halves folded.
+
+    ``table [N2, W·2k_s]`` float64 (``packed_node_tables`` / ``dyn_node_tables``
+    viewed as rows), ``index`` from :func:`walk_index` (range-checked when
+    the pack was built; here only its row count against the table's),
+    ``r_lo/r_hi/side [G, Q]`` int32, ``qs [G, Q, k_s]`` float64, all
+    contiguous and on one device. Counts in ``fused_walk.launches``.
+    Launches on the current stream and does not synchronise.
+    """
+    if table.device.type == "cpu":
+        return fused_walk_flat_ref(table, index, r_lo, r_hi, side, qs)
+    out, launched = _walk_flat("fused_walk", table, index, r_lo, r_hi, side, qs)
+    if launched:
+        fused_walk.launches += 1
+    return out
+
+
 def fused_leaf(lcum, leaf_lo, leaf_hi, side, qs, qtl, qtr) -> torch.Tensor:
-    """Fused quantized DRFS tree phase: leaf-prefix difference + q_s ⊗ q_t
-    window contraction in one launch (see fused_walk.py): [G, W, Q] float64,
-    halves folded.
+    """Fused quantized DRFS tree phase over the grouped layout (the JAX
+    contract): leaf-prefix difference + q_s ⊗ q_t window contraction in one
+    launch (see fused_walk.py): [G, W, Q] float64, halves folded.
 
     ``lcum [G, R, W·2K]`` float64 with K = k_s·k_t, ``leaf_lo/leaf_hi/side
     [G, Q]`` int32, ``qs [G, Q, k_s]``, ``qtl/qtr [W, k_t]`` float64, all
@@ -134,37 +266,80 @@ def fused_leaf(lcum, leaf_lo, leaf_hi, side, qs, qtl, qtr) -> torch.Tensor:
         raise ValueError(f"fused_leaf: unsupported device {lcum.device}")
     if lcum.dim() != 3 or qs.dim() != 3 or qtl.dim() != 2:
         raise ValueError("fused_leaf: lcum must be [G, R, W*2*K], qs [G, Q, k_s], qtl [W, k_t]")
-    G, R, WK = lcum.shape
-    Q, ks = int(qs.shape[1]), int(qs.shape[2])
-    W, kt = int(qtl.shape[0]), int(qtl.shape[1])
-    if ks == 0 or kt == 0 or WK != W * 2 * ks * kt or 2 * W * kt * 8 > LEAF_SMEM_MAX:
-        raise ValueError(
-            f"fused_leaf: row width {WK} is not W*2*k_s*k_t for W={W}, k_s={ks}, "
-            f"k_t={kt}, or the [W, k_t] vectors exceed {LEAF_SMEM_MAX} bytes"
-        )
-    dev = lcum.device
-    _check("fused_leaf", "lcum", lcum, torch.float64, (G, R, WK), dev)
-    _check("fused_leaf", "qs", qs, torch.float64, (G, Q, ks), dev)
-    for name, t in (("qtl", qtl), ("qtr", qtr)):
-        _check("fused_leaf", name, t, torch.float64, (W, kt), dev)
-    for name, t in (("leaf_lo", leaf_lo), ("leaf_hi", leaf_hi), ("side", side)):
-        _check("fused_leaf", name, t, torch.int32, (G, Q), dev)
-    out = torch.empty((G, W, Q), dtype=torch.float64, device=dev)
-    if out.numel() == 0:
-        return out  # nothing to launch
-    lib = fused_leaf_library()
-    err = lib.fused_leaf_f64(
-        lcum.data_ptr(), leaf_lo.data_ptr(), leaf_hi.data_ptr(), side.data_ptr(),
-        qs.data_ptr(), qtl.data_ptr(), qtr.data_ptr(), out.data_ptr(),
-        G, R, Q, W, ks, kt, _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"fused_leaf: kernel launch failed (cudaError {err})")
-    fused_leaf.launches += 1
+    G, R, WK = (int(d) for d in lcum.shape)
+    if R == 0:
+        raise ValueError("fused_leaf: lcum has no rows per group (R = 0)")
+    _check("fused_leaf", "lcum", lcum, torch.float64, (G, R, WK), lcum.device)
+    out = torch.empty((G, int(qtl.shape[0]), int(qs.shape[1])), dtype=torch.float64,
+                      device=lcum.device)
+    if _leaf_launch("fused_leaf", lcum.reshape(G * R, WK),
+                              torch.arange(G, device=lcum.device), R, leaf_lo, leaf_hi, side,
+                              qs, qtl, qtr, out.permute(0, 2, 1)):
+        fused_leaf.launches += 1
     return out
 
 
 fused_leaf.launches = 0
+
+
+def fused_leaf_flat(lcum, index: FlatIndex, leaf_lo, leaf_hi, side, qs, qtl, qtr) -> torch.Tensor:
+    """Fused quantized DRFS tree phase on the flat leaf-prefix table in place
+    (the fused executor's flush, see fused_walk.py): [G, Q, W] float64.
+
+    ``lcum [E·(nleaf+1)·2, W·2K]`` float64 (``dyn_window_tables`` viewed as
+    rows), ``index`` from :func:`leaf_index`, the rest as
+    :func:`fused_leaf`. Counts in ``fused_leaf.launches``. Launches on the
+    current stream and does not synchronise.
+    """
+    if lcum.device.type == "cpu":
+        return fused_leaf_flat_ref(lcum, index, leaf_lo, leaf_hi, side, qs, qtl, qtr)
+    _check_rows("fused_leaf", lcum, index)
+    if lcum.device.type != "cuda":
+        raise ValueError(f"fused_leaf: unsupported device {lcum.device}")
+    out = torch.empty((int(qs.shape[0]), int(qs.shape[1]), int(qtl.shape[0])),
+                      dtype=torch.float64, device=lcum.device)
+    if _leaf_launch("fused_leaf", lcum, index.edges, (int(index.span) + 1) * 2, leaf_lo,
+                    leaf_hi, side, qs, qtl, qtr, out):
+        fused_leaf.launches += 1
+    return out
+
+
+def _leaf_launch(kernel, lcum, edges, R, leaf_lo, leaf_hi, side, qs, qtl, qtr, out):
+    """Checks and launch of ``csrc/fused_leaf.cu`` on the flat rows
+    ``lcum [N, W·2K]``, R rows per edge; ``out`` [G, Q, W] or a view of it
+    with other strides. Returns whether it launched."""
+    if lcum.dim() != 2 or qs.dim() != 3 or qtl.dim() != 2:
+        raise ValueError(f"{kernel}: lcum must be [N, W*2*K], qs [G, Q, k_s], qtl [W, k_t]")
+    N, WK = (int(d) for d in lcum.shape)
+    G, Q, ks = (int(d) for d in qs.shape)
+    W, kt = int(qtl.shape[0]), int(qtl.shape[1])
+    smem = (2 * W * kt + 2 * WK) * 8  # the temporal vectors and one warp's two rows
+    if ks == 0 or kt == 0 or WK != W * 2 * ks * kt or smem > LEAF_SMEM_MAX:
+        raise ValueError(
+            f"{kernel}: row width {WK} is not W*2*k_s*k_t for W={W}, k_s={ks}, "
+            f"k_t={kt}, or the [W, k_t] vectors and two rows exceed {LEAF_SMEM_MAX} bytes"
+        )
+    dev = lcum.device
+    _check(kernel, "lcum", lcum, torch.float64, (N, WK), dev)
+    _check(kernel, "edges", edges, torch.int64, (G,), dev)
+    _check(kernel, "qs", qs, torch.float64, (G, Q, ks), dev)
+    for name, t in (("qtl", qtl), ("qtr", qtr)):
+        _check(kernel, name, t, torch.float64, (W, kt), dev)
+    for name, t in (("leaf_lo", leaf_lo), ("leaf_hi", leaf_hi), ("side", side)):
+        _check(kernel, name, t, torch.int32, (G, Q), dev)
+    if out.numel() == 0:
+        return False  # nothing to launch
+    lib = fused_leaf_library()
+    so_g, so_q, so_w = out.stride()
+    err = lib.fused_leaf_f64(
+        lcum.data_ptr(), N, edges.data_ptr(), R, leaf_lo.data_ptr(), leaf_hi.data_ptr(),
+        side.data_ptr(), qs.data_ptr(), qtl.data_ptr(), qtr.data_ptr(), out.data_ptr(),
+        so_g, so_q, so_w, G, Q, W, ks, kt, _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed (cudaError {err})")
+    return True
 
 
 def tree_query(pos_flat, cum_flat, base, r_lo, r_hi, pos_hi, pos_lo1, lo1_right, pos_lo2, qs,
@@ -280,14 +455,27 @@ def dyn_node_walk(nodeval, r_lo, r_hi, side, qs, *, hq) -> torch.Tensor:
     """
     if nodeval.device.type == "cpu":
         return dyn_node_walk_ref(nodeval, r_lo, r_hi, side, qs, hq=int(hq))
-    out, launched = _walk_launch("dyn_node_walk", nodeval, r_lo, r_hi, side, qs,
-                                 tree_offs(int(hq)))
+    out, launched = _walk_grouped("dyn_node_walk", nodeval, r_lo, r_hi, side, qs,
+                                  tree_offs(int(hq)))
     if launched:
         dyn_node_walk.launches += 1
     return out
 
 
 dyn_node_walk.launches = 0
+
+
+def dyn_node_walk_flat(table, index: FlatIndex, r_lo, r_hi, side, qs) -> torch.Tensor:
+    """Exact-mode DRFS tree phase of the kernel executor on the flat
+    ``dyn_node_tables`` in place: :func:`fused_walk_flat` with ``index`` from
+    ``walk_index(dyn_node_base(E, hq), edges, 2**hq)``, counted in
+    ``dyn_node_walk.launches``. [G, Q, W] float64."""
+    if table.device.type == "cpu":
+        return fused_walk_flat_ref(table, index, r_lo, r_hi, side, qs)
+    out, launched = _walk_flat("dyn_node_walk", table, index, r_lo, r_hi, side, qs)
+    if launched:
+        dyn_node_walk.launches += 1
+    return out
 
 
 def minplus_matmul(a, b, *, out=None) -> torch.Tensor:
