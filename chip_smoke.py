@@ -5,9 +5,11 @@
 
 Builds the hand-written kernels from the sources in this checkout (one
 ``nvcc`` per source, all started together; each kernel's registers and
-spills from ``ptxas -v`` on a ``[build]`` line, and the count of ``HGMMA``
+spills from ``ptxas -v`` on a ``[build]`` line; the count of ``HGMMA``
 instructions — wgmma — in the SASS of every bf16 ``flash_attention``
-instantiation, which must not be 0), holds each against its plain PyTorch
+instantiation, which must not be 0; the adds, minima, compares and selects
+in the SASS of every ``minplus`` instantiation, none of which may spill),
+holds each against its plain PyTorch
 version on the card, then drives the port's paths at full width over the
 Table-3 berkeley replica:
 
@@ -25,14 +27,17 @@ Table-3 berkeley replica:
 * ``[kernel]`` the per-bucket-search tier, ``executor='kernel'``: static RFS
   through ``tree_query`` (after ``[main]``'s model is freed; held against
   ``[main]``'s answer), then the streaming index (first 90 %, one insert of
-  5 %) in both modes through ``dyn_leaf_query`` (quantized) and
-  ``dyn_node_walk`` (exact), each answer held against the ``fused``
-  executor at the same snapshot and, in exact mode, the SPS oracle;
+  5 %) in both modes through ``dyn_leaf_query_flat`` (quantized:
+  ``fused_leaf.cu`` on the leaf table in place, counted as
+  ``dyn_leaf_query``) and ``dyn_node_walk_flat`` (exact), each answer held
+  against the ``fused`` executor at the same snapshot (quantized: bitwise)
+  and, in exact mode, the SPS oracle;
 * ``[minplus]`` device shortest paths: ``minplus_bellman_ford`` from every
   vertex of the berkeley network (dense f64 adjacency, radius b_s = 800) for
   as many rounds as the deepest bounded-Dijkstra tree has hops — one
   ``minplus_matmul`` launch per round — held against scipy's bounded
-  Dijkstra (``endpoint_distance_rows``);
+  Dijkstra (``endpoint_distance_rows``), with the kernel's grid: blocks,
+  blocks per SM (``minplus_occupancy``) and waves;
 * ``[lm]`` LM serving of qwen2.5-3b at full width with seeded weights:
   bf16 prefill of 4 × 2 048 tokens with ``attn_impl='kernel'`` (one
   ``flash_attention`` launch per layer) and 32 greedy decode steps; then in
@@ -87,6 +92,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_FLOPS = 34e12
 PEAK_BF16_TC_FLOPS = 989e12  # dense bf16 tensor-core peak: the yardstick of attention
 PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores, where the f32 flash kernel computes
+# An add, a compare or a min is ONE lane-operation, where the FLOP rates above
+# count a fused multiply-add as two: 64 f64 (128 f32) lane-operations per SM
+# and clock, 132 SMs x 64 x 1.98 GHz = 16.7e12 f64 per second — half the rate.
+PEAK_F64_LANE_OPS = PEAK_F64_FLOPS / 2
+PEAK_F32_LANE_OPS = PEAK_F32_FLOPS / 2
+# the SASS opcodes [build] counts in each minplus instantiation
+MINPLUS_SASS = ("DADD", "DMNMX", "DSETP", "FADD", "FMNMX", "FSETP", "FSEL", "SEL", "LOP3",
+                "MOV", "IMAD", "LDS", "LDGSTS", "BAR")
 
 KERNEL_TOL = 1e-13  # f64, kernel vs its plain version; only association and FMA differ
 KERNELS = ("fused_walk", "fused_leaf", "tree_query", "dyn_leaf_query", "dyn_node_walk",
@@ -178,6 +191,7 @@ def plain_version(name):
                 fused_leaf_flat=fused_walk.fused_leaf_flat_ref,
                 tree_query=tree_query.tree_query_ref,
                 dyn_leaf_query=dyn_query.dyn_leaf_query_ref,
+                dyn_leaf_query_flat=fused_walk.fused_leaf_flat_ref,
                 dyn_node_walk=dyn_query.dyn_node_walk_ref,
                 minplus_matmul=minplus.minplus_matmul_ref,
                 flash_attention=flash_attention.flash_attention_ref)[name]
@@ -631,33 +645,15 @@ def tree_query_bound(args, kw):
                 bytes_qvec_form=old_bytes)
 
 
-def dyn_leaf_query_bound(args):
-    """Least time the card could take for this call, from this input: the
-    larger of bytes/bandwidth (each distinct prefix row a slot with a
-    non-empty leaf range needs, the two query rows of every such (slot,
-    window), per-slot state and the output, each once) and operations/peak
-    f64 (per live slot, window and prefix value: difference, product, sum)."""
-    tab, lo, hi, side, qv_l, qv_r = args
-    G, R, WK = tab.shape
-    W, Q, K = qv_l.shape[1], qv_l.shape[2], qv_l.shape[3]
-    live = hi > lo
-    g = torch.arange(G, device=tab.device)[:, None] * R
-    rows = torch.cat([(g + hi * 2 + side)[live], (g + lo * 2 + side)[live]])
-    distinct = int(torch.unique(rows).numel())
-    n_live = int(live.sum())
-    nbytes = distinct * WK * 8 + n_live * W * 2 * K * 8 + G * Q * 12 + G * W * Q * 8
-    flops = n_live * WK * 3
-    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS
-    return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
-                bytes=nbytes, flops=flops, live_slots=n_live, rows_distinct=distinct)
-
-
 def phase_kernel_kernels(device):
     """The three kernels of executor='kernel' against their plain versions
     on seeded sweeps: tree_query at npad 8/32/512 with ragged Q, W in {1, 5}
     (2 or 10 half-windows), one group of all-+inf padding and the 4·k_s·k_t
-    = 484 query width of the gaussian kernels; dyn_leaf_query over the
-    reference's sweep, K = 121 (gaussian) and the main path's shape;
+    = 484 query width of the gaussian kernels; dyn_leaf_query (the
+    reference's grouped contract, materialised query vectors) and
+    dyn_leaf_query_flat (the flush's call: fused_leaf.cu on the same rows
+    viewed flat, one edge a group) over the reference's sweep, K = 121
+    (gaussian) and the main path's shape;
     dyn_node_walk at hq 2/3/4 and 8. Returns the worst (abs, rel) error per
     kernel."""
     from repro_torch.kernels import ops
@@ -693,6 +689,9 @@ def phase_kernel_kernels(device):
         qv = [torch.as_tensor(rng.normal(size=(G, W, Q, ks * kt)), device=device) for _ in range(2)]
         check("dyn_leaf_query", f"nleaf{nleaf}:G{G}:Q{Q}:W{W}:K{ks * kt}",
               (tab, lo, hi, side, *qv))
+        index = ops.leaf_index(torch.arange(G, device=device), nleaf)
+        check("dyn_leaf_query_flat", f"nleaf{nleaf}:G{G}:Q{Q}:W{W}:ks{ks}:kt{kt}",
+              (tab.reshape(G * tab.shape[1], -1), index, lo, hi, side, qs, qtl, qtr))
     for hq, G, Q, W, ks in [(2, 3, 7, 1, 2), (3, 3, 33, 2, 3), (4, 3, 65, 2, 2),
                             (8, 40 if small else 2000, 512, 5, 2)]:
         args, _ = layout_case(f"tree{hq}", G, Q, W, ks, device)
@@ -1106,6 +1105,8 @@ def phase_drfs(args, device, card, *, executor="fused", versus="packed", inserts
         m._fe, m._counter_cursor = own_fe, cursor
         err = float(np.abs(F - F_o).max()) / float(np.abs(F_o).max())
         require(err <= PACKED_TOL, f"{step}: {executor} vs {versus} {err}")
+        if (executor, versus) == ("kernel", "fused"):  # the same kernels on the same tables
+            require(err == 0.0, f"{step}: kernel vs fused executor not bitwise equal: {err}")
         say(tag, step=step, mode="exact" if exact else "quantized",
             **{f"{executor}_vs_{versus}": err, f"{versus}_s": round(time.perf_counter() - t1, 4)})
         return err
@@ -1175,15 +1176,15 @@ def phase_drfs(args, device, card, *, executor="fused", versus="packed", inserts
 
 # the ops wrapper each DRFS flush calls, by the kernel (launch count) it runs
 DRFS_CALLS = dict(fused_leaf="fused_leaf_flat", fused_walk="fused_walk_flat",
-                  dyn_leaf_query="dyn_leaf_query", dyn_node_walk="dyn_node_walk_flat")
+                  dyn_leaf_query="dyn_leaf_query_flat", dyn_node_walk="dyn_node_walk_flat")
 
 
 def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes"):
     """Both DRFS kernels of the executor at the shapes the path gave them:
     every atom block of the last epoch's plan, in both modes, with the
-    arguments the flush builds (the window table in place; for
-    dyn_leaf_query its grouped copy), against the plain version; the largest
-    block of each kernel is timed (the walk in both forms)."""
+    arguments the flush builds (the window table in place), against the
+    plain version; the largest block of each kernel is timed (the walk in
+    both forms), with L2 flushed."""
     from repro_torch.core.rfs import dyn_kernel_call
     from repro_torch.kernels import ops
 
@@ -1223,7 +1224,7 @@ def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes
             (fa, fr), timing = walk_forms(name, kargs, device)
             worst_abs, worst_rel = max(worst_abs, fa), max(worst_rel, fr)
         else:
-            bound = fused_leaf_bound(kargs) if name == "fused_leaf" else dyn_leaf_query_bound(kargs)
+            bound = fused_leaf_bound(kargs)  # both executors run fused_leaf.cu here
             if device != "cpu":
                 fn, ref = getattr(ops, got_name), plain_version(got_name)
                 timing["ms"] = time_ms(lambda: fn(*kargs, **kw), flush=flush)
@@ -1252,27 +1253,42 @@ def minplus_case(M, K, N, dtype, device, seed):
 
 def minplus_bound(M, K, N, itemsize):
     """Least time of one (min, +) product: the larger of bytes/bandwidth (a,
-    b read once, out written once) and operations/peak f64 (an add and a min
-    per (i, j, k), counted against the f64 FLOP rate — lenient, since that
-    rate counts an FMA as two and neither operation is one)."""
+    b read once, out written once) and operations/lane rate (an add and a
+    min per (i, j, k), each one lane-operation of the f64 or f32 pipe).
+    ``bound_ms_fma_rate`` is the count PR 14-16 used — the same operations
+    against the FLOP rate, which counts an FMA as two and so halves the
+    floor —, kept for reading old numbers only."""
     nbytes = (M * K + K * N + M * N) * itemsize
     ops_ = 2 * M * N * K
-    t_b, t_f = nbytes / PEAK_BYTES_PER_S, ops_ / PEAK_F64_FLOPS
+    rate = PEAK_F64_LANE_OPS if itemsize == 8 else PEAK_F32_LANE_OPS
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, ops_ / rate
+    old = max(t_b, ops_ / (2 * rate)) * 1e3
     return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
-                bytes=nbytes, ops=ops_)
+                bytes=nbytes, ops=ops_, bound_ms_fma_rate=old)
 
 
 def phase_minplus_kernels(device):
     """minplus_matmul vs its plain version, bitwise (torch.equal), float32
-    and float64, at shapes that are no tile multiples (the kernel's tile is
-    64 x 64 x 16) and at the [minplus] path's berkeley shape."""
+    and float64: one tile (``minplus.TILE``: 80 x 64, BK 8) and a tile ±1
+    in M and N, K below BK, ragged K, M and N, in both of the kernel's
+    staging forms (16-byte copies where K and N allow, one copy per element
+    elsewhere; each form must be met in each type), and the [minplus]
+    path's berkeley shape."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.minplus import TILE, minplus_vec
 
     big = 1576 if device != "cpu" else 100  # the rehearsal keeps the CPU small
+    tm, tn, tk = TILE
     n = 0
     for dtype in (torch.float32, torch.float64):
-        for M, K, N in [(1, 1, 1), (65, 33, 17), (129, 257, 63), (big, big, big)]:
+        forms = set()
+        for M, K, N in [(1, 1, 1), (65, 33, 17), (129, 257, 63), (tm - 1, tk - 1, tn + 1),
+                        (tm, tk, tn), (tm + 1, tk + 1, tn - 1), (tm - 1, 4, tn + 4),
+                        (tm + 1, 6, 2 * tn + 2), (2 * tm - 1, 20, 2 * tn - 4),
+                        (2 * tm + 1, 16, 2 * tn + 1), (big, big, big)]:
             a, b = minplus_case(M, K, N, dtype, device, M * 7 + N)
+            vec = minplus_vec(a, b)
+            forms.add(vec)
             got = ops.minplus_matmul(a, b)
             if got.is_cuda:
                 torch.cuda.synchronize()
@@ -1280,9 +1296,10 @@ def phase_minplus_kernels(device):
             require(got.dtype == dtype and got.shape == want.shape, "minplus_matmul shape/dtype")
             require(torch.equal(got, want), f"minplus_matmul {M}x{K}x{N} {dtype}: not bitwise "
                     f"equal to its plain version")
-            say("minplus-kernels", case=f"{M}x{K}x{N}:{str(dtype)[6:]}", bitwise_equal=True,
-                inf_outputs=int(torch.isinf(want).sum()))
+            say("minplus-kernels", case=f"{M}x{K}x{N}:{str(dtype)[6:]}", vec=vec,
+                bitwise_equal=True, inf_outputs=int(torch.isinf(want).sum()))
             n += 1
+        require(forms == {True, False}, f"the {dtype} sweep misses a staging form: {forms}")
     return n
 
 
@@ -1317,6 +1334,8 @@ def phase_minplus(args, device, card):
     from repro_torch.core import shortest_path as sp
     from repro_torch.data.spatial import make_dataset
     from repro_torch.kernels import ops
+    from repro_torch.kernels.minplus import TILE as MINPLUS_TILE
+    from repro_torch.kernels.minplus import minplus_occupancy, minplus_vec
 
     net, _, _ = make_dataset("berkeley", scale=args.scale, seed=args.seed)
     V = net.n_vertices
@@ -1357,7 +1376,14 @@ def phase_minplus(args, device, card):
     shape = dict(M=V, K=V, N=V, dtype="float64")
     bound = minplus_bound(V, V, V, 8)
     timing = dict(ms=None, plain_ms=None)
+    tm, tn, _ = MINPLUS_TILE
+    waves = dict(blocks=-(-V // tm) * -(-V // tn), vec=minplus_vec(D, adj))
     if device != "cpu":
+        occ = minplus_occupancy(torch.float64, waves["vec"], torch.cuda.current_device())
+        require((occ["tile_m"], occ["tile_n"], occ["tile_k"]) == MINPLUS_TILE,
+                f"minplus.TILE {MINPLUS_TILE} is not the compiled tile: {occ}")
+        waves.update(blocks_per_sm=occ["blocks_per_sm"], sms=occ["sms"],
+                     waves=waves["blocks"] / (occ["blocks_per_sm"] * occ["sms"]))
         buf = torch.empty_like(D)
         timing["ms"] = time_ms(lambda: ops.minplus_matmul(D, adj, out=buf))
         timing["plain_ms"] = time_ms(lambda: plain_version("minplus_matmul")(D, adj, out=buf),
@@ -1366,8 +1392,8 @@ def phase_minplus(args, device, card):
         rounds=rounds, launches=launches, entries_within_radius=int(within.sum()),
         vs_dijkstra_rel=rel, max_abs_err=float(err.max()), call_s=round(call_s, 4),
         scipy_host_s=round(scipy_s, 4), round_kernel_ms=timing["ms"],
-        plain_ms=timing["plain_ms"], **bound)
-    return launches, float(err.max()), rel, shape, bound, timing
+        plain_ms=timing["plain_ms"], **bound, **waves)
+    return launches, float(err.max()), rel, shape, bound, timing, waves
 
 
 # ----------------------------------------------------------- LM serving path
@@ -1829,9 +1855,11 @@ def ptxas_report(log):
     return out
 
 
-def sass_counts(lib_path, opcode):
-    """How many ``opcode`` instructions ``cuobjdump -sass`` lists in each
-    kernel function of a built library."""
+def sass_counts(lib_path, opcodes):
+    """How many instructions of each opcode in ``opcodes`` (the mnemonic
+    before any ``.`` modifier, predicated or not) ``cuobjdump -sass`` lists
+    in each kernel function of a built library: {function: {opcode: n}}."""
+    import re
     from pathlib import Path
 
     from repro_torch.kernels._build import find_nvcc
@@ -1843,9 +1871,11 @@ def sass_counts(lib_path, opcode):
     for line in text.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ", 1)[1].strip()
-            out[fn] = 0
-        elif fn and opcode in line:
-            out[fn] += 1
+            out[fn] = dict.fromkeys(opcodes, 0)
+            continue
+        hit = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if fn and hit and hit.group(1) in out[fn]:
+            out[fn][hit.group(1)] += 1
     return out
 
 
@@ -1874,11 +1904,21 @@ def build_kernels():
     for name in builders:
         for fn, rep in ptxas_report(build_log(name)).items():
             say("build", source=name, kernel=fn, **rep)
-    hgmma = {fn: n for fn, n in sass_counts(libs["flash_attention"]._name, "HGMMA").items()
+    hgmma = {fn: n["HGMMA"] for fn, n in sass_counts(libs["flash_attention"]._name,
+                                                     ("HGMMA",)).items()
              if "flash_bf16_kernel" in fn}
     say("build", source="flash_attention", sass_hgmma=json.dumps(hgmma))
     require(len(hgmma) == 5 and all(hgmma.values()),
             f"the bf16 flash_attention kernels do not run wgmma: {hgmma}")
+    # the (min, +) inner instruction: an add, and a min (DMNMX / FMNMX) or a
+    # compare and two selects; no instantiation may spill
+    mp = ptxas_report(build_log("minplus"))
+    require(len(mp) == 4 and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                                 for r in mp.values()),
+            f"minplus_kernel spills or is missing an instantiation: {mp}")
+    for fn, counts in sass_counts(libs["minplus"]._name, MINPLUS_SASS).items():
+        if "minplus_kernel" in fn:
+            say("build", source="minplus", kernel=fn, sass=json.dumps(counts))
 
 
 def free(device):
@@ -1965,7 +2005,8 @@ def main():
     free(device)
     say("kernel", path="drfs", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
-    mp_launches, mp_abs, mp_rel, mp_shape, mp_bound, mp_timing = phase_minplus(args, device, card)
+    mp_launches, mp_abs, mp_rel, mp_shape, mp_bound, mp_timing, mp_waves = phase_minplus(
+        args, device, card)
     free(device)
     say("minplus", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
@@ -2001,6 +2042,8 @@ def main():
     qa, qr, qshape, qbound, qtiming = kdshapes["dyn_leaf_query"]
     na, nr, nshape, nbound, ntiming = kdshapes["dyn_node_walk"]
     kw_ = {k: kworst[k] for k in ("tree_query", "dyn_leaf_query", "dyn_node_walk")}
+    kw_["dyn_leaf_query"] = tuple(max(x, y) for x, y in zip(kw_["dyn_leaf_query"],
+                                                           kworst["dyn_leaf_query_flat"]))
     fwa, fwr = flat_worst["fused_walk_flat"]
     fla, flr = flat_worst["fused_leaf_flat"]
     kernels = [
@@ -2019,7 +2062,7 @@ def main():
               main_path=dict(scale=args.scale, cold_s=tq_secs["cold_s"], warm_s=tq_secs["warm_s"])),
         entry("dyn_leaf_query", "drfs-kernel-quantized", kdlaunches["dyn_leaf_query"],
               max(kw_["dyn_leaf_query"][0], qa), max(kw_["dyn_leaf_query"][1], qr), qshape,
-              qbound, qtiming, "src/repro/kernels/dyn_query.py:59",
+              qbound, qtiming, "src/repro/kernels/dyn_query.py:59", source="fused_leaf",
               main_path=dict(scale=args.scale, warm_s=kdsecs["quantized-warm"])),
         entry("dyn_node_walk", "drfs-kernel-exact", kdlaunches["dyn_node_walk"],
               max(kw_["dyn_node_walk"][0], na), max(kw_["dyn_node_walk"][1], nr), nshape,
@@ -2027,7 +2070,8 @@ def main():
               main_path=dict(scale=args.scale, warm_s=kdsecs["exact-warm"])),
         entry("minplus_matmul", "shortest-path", mp_launches, mp_abs, mp_rel, mp_shape, mp_bound,
               mp_timing, "src/repro/kernels/minplus.py:36", source="minplus",
-              bitwise_cases=n_minplus_cases, main_path=dict(scale=args.scale)),
+              bitwise_cases=n_minplus_cases, bound_ms_fma_rate=mp_bound["bound_ms_fma_rate"],
+              grid=mp_waves, main_path=dict(scale=args.scale)),
         entry("flash_attention", "lm-prefill", lm_launches, fl_abs, fl_rel, fl_shape, fl_bound,
               fl_timing, "src/repro/kernels/flash_attention.py:72",
               main_path=dict(arch="qwen2.5-3b", **lm_secs, **lm_checks)),

@@ -40,12 +40,12 @@ forest's time-major tables (``repro_torch.kernels.tree_query``).
 ``FlatDynamicEngine`` does the same for the streaming DRFS index
 (``drfs.DynamicRangeForest``): device packs per snapshot epoch, window tables
 per (ts tuple, structure epoch, mode), and per atom block either the plain
-torch flush (``packed``) or ONE kernel launch for the tree phase (``fused``:
-``fused_leaf`` in quantized mode, ``fused_walk`` over the complete tree in
-exact mode, both on the window table in place; ``kernel``: ``dyn_leaf_query``
-over materialised query vectors and a grouped copy of the leaf table,
-``dyn_node_walk`` in place) plus the masked boundary-leaf and pending scans
-in plain torch.
+torch flush (``packed``) or ONE kernel launch for the tree phase on the
+window table in place (``fused``: ``fused_leaf`` in quantized mode,
+``fused_walk`` over the complete tree in exact mode; ``kernel``:
+``dyn_leaf_query_flat`` and ``dyn_node_walk_flat``, the same two kernels
+counted under the kernel tier's names) plus the masked boundary-leaf and
+pending scans in plain torch.
 """
 from __future__ import annotations
 
@@ -1008,62 +1008,37 @@ def _dyn_plain_flush(forest, fa, wb, tables, heat, *, n_levels: int, hq: int,
     _scatter_add(heat, fa.lixel, (vals[0::2] + vals[1::2]).T)  # fold window halves
 
 
-def _dyn_group(tab, edges, *, hq: int, E: int):
-    """Per-edge grouped leaf-prefix rows [G, (nleaf+1)·2, W·2K] from the flat
-    quantized window table (one plain gather, no kernel): the input of
-    ``dyn_leaf_query``, the one DRFS kernel that still takes the grouped
-    layout. Depends only on (window tables, plan edges) — both stable across
-    warm flushes — so the engine caches the result beside the window
-    tables."""
-    R = (1 << hq) * 2 + 2
-    return tab.reshape(E, R, -1).index_select(0, edges)
-
-
 def dyn_kernel_call(forest, tab, entry, wb, *, hq: int, exact: bool, executor: str, index=None):
     """The one kernel launch of a DRFS flush's tree phase: ``(name, args,
-    kwargs)`` for ``ops.<name>``. ``tab`` is the block's window table: the
-    flat rows, read in place through ``index`` (a ``FlatIndex``), for
-    ``fused`` — exact mode ``fused_walk_flat`` over the complete tree,
-    quantized mode ``fused_leaf_flat`` with q_s ⊗ q_t built in-kernel — and
-    for ``kernel`` exact mode, ``dyn_node_walk_flat`` on the same tree. For
-    ``kernel`` quantized mode it is the grouped copy (:func:`_dyn_group`,
-    ``index`` None) that ``dyn_leaf_query`` reads with the materialised
-    per-half query vectors ``qv_l/qv_r [G, W, Qp, k_s·k_t]`` (masked
-    q_s ⊗ q_t of the left / right temporal vectors, s-major). Leaf ranges
-    are resolved from the grouped slots' position bounds (padding slots come
-    out empty)."""
+    kwargs)`` for ``ops.<name>``. ``tab`` is the block's window table as
+    flat rows, read in place through ``index`` (a ``FlatIndex``): exact
+    mode walks the complete tree (``fused_walk_flat``; ``dyn_node_walk_flat``
+    for ``kernel``), quantized mode differences two leaf-prefix rows per
+    atom with q_s ⊗ q_t built in-kernel (``fused_leaf_flat``;
+    ``dyn_leaf_query_flat`` for ``kernel``). Leaf ranges are resolved from
+    the grouped slots' position bounds (padding slots come out empty)."""
     G, Qp = entry["side"].shape
     leaf_lo, leaf_hi = _dyn_leaf_range(forest, entry["gfa"], hq)
     leaf_hi = torch.maximum(leaf_hi, leaf_lo)
     ranges = (leaf_lo.to(torch.int32).reshape(G, Qp), leaf_hi.to(torch.int32).reshape(G, Qp),
               entry["side"])
     qs = entry["qs"]
+    kernel = executor == "kernel"
     if exact:
-        name = "dyn_node_walk_flat" if executor == "kernel" else "fused_walk_flat"
-        return name, (tab, index, *ranges, qs), {}
+        return ("dyn_node_walk_flat" if kernel else "fused_walk_flat"), (tab, index, *ranges, qs), {}
     qtl = wb.qt[0::2].contiguous()
     qtr = wb.qt[1::2].contiguous()
-    if executor == "fused":
-        return "fused_leaf_flat", (tab, index, *ranges, qs, qtl, qtr), {}
-    W, k_t = qtl.shape
-    k_s = qs.shape[-1]
-
-    def qv(qt):
-        return (qs[:, None, :, :, None] * qt[None, :, None, None, :]).reshape(G, W, Qp, k_s * k_t)
-
-    return "dyn_leaf_query", (tab, *ranges, qv(qtl), qv(qtr)), {}
+    name = "dyn_leaf_query_flat" if kernel else "fused_leaf_flat"
+    return name, (tab, index, *ranges, qs, qtl, qtr), {}
 
 
 def _dyn_flush(forest, tab, index, entry, wb, heat, *, hq: int, exact: bool, executor: str):
-    """ONE kernel launch for the block's tree phase, scattered onto heat
-    [L, W] in place — only the real atoms' slots (``entry["rows"]``). The
-    in-place kernels write [G, Qp, W]; ``dyn_leaf_query`` keeps the grouped
-    contract's [G, W, Qp]."""
+    """ONE kernel launch for the block's tree phase ([G, Qp, W]), scattered
+    onto heat [L, W] in place — only the real atoms' slots
+    (``entry["rows"]``)."""
     name, args, kwargs = dyn_kernel_call(forest, tab, entry, wb, hq=hq, exact=exact,
                                          executor=executor, index=index)
     out = getattr(ops, name)(*args, **kwargs)
-    if name == "dyn_leaf_query":
-        out = out.transpose(1, 2)
     flat = out.reshape(-1, heat.shape[1])
     _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
 
@@ -1110,9 +1085,9 @@ class FlatDynamicEngine(_DeviceEngine):
     block with ONE kernel launch on the window table in place —
     ``fused_leaf`` in quantized mode, ``fused_walk`` over the complete tree
     in exact mode — and runs only the boundary-leaf and pending scans in
-    plain torch; ``kernel`` does the same with ``dyn_leaf_query``
-    (materialised query vectors, over a grouped copy of the leaf table) and
-    ``dyn_node_walk`` (in place). Both the quantized-H₀
+    plain torch; ``kernel`` does the same through ``dyn_leaf_query_flat``
+    and ``dyn_node_walk_flat`` (the same kernels, counted as the kernel
+    tier's). Both the quantized-H₀
     mode (partial boundary leaves dropped, paper §5.2) and the exact-leaf
     mode run on the device; scan work is accounted into the forest's
     counters host-side (same units as the NumPy path).
@@ -1135,9 +1110,6 @@ class FlatDynamicEngine(_DeviceEngine):
         # plan.key -> device atom packs (epoch-independent: the atoms and the
         # grouped kernel layout derive from the plan's host blocks only)
         self._pack_cache = PlanCache(2)
-        # (table key, plan.key, block) -> grouped leaf-prefix rows
-        # (dyn_leaf_query, the kernel executor's quantized mode, only)
-        self._group_cache = PlanCache(8)
         # hq -> [hq+1, E] complete-tree node bases of the exact-mode walk
         self._tree_base = {}
         snap = df.snapshot()
@@ -1211,9 +1183,8 @@ class FlatDynamicEngine(_DeviceEngine):
 
     @property
     def device_bytes(self) -> int:
-        """Sealed + pending packs + cached window tables, tree node bases,
-        atom packs and grouped leaf tables — one accounting helper with the
-        static engine."""
+        """Sealed + pending packs + cached window tables, tree node bases
+        and atom packs — one accounting helper with the static engine."""
         return _device_nbytes(
             [
                 list(self._sealed_packs.values()),
@@ -1221,7 +1192,6 @@ class FlatDynamicEngine(_DeviceEngine):
                 list(self._tab_cache.values()),
                 list(self._tree_base.values()),
                 list(self._pack_cache.values()),
-                list(self._group_cache.values()),
             ]
         )
 
@@ -1349,33 +1319,27 @@ class FlatDynamicEngine(_DeviceEngine):
         self._pack_cache.put(plan.key, packs)
         return packs
 
-    def tree_table(self, tables, entry, *, hq: int, exact: bool, gkey=None):
+    def tree_table(self, tables, entry, *, hq: int, exact: bool):
         """``(tab, index)`` for :func:`dyn_kernel_call`: the block's window
-        table as flat rows with its ``FlatIndex`` (built and range-checked
-        once per block and (hq, mode), cached on the entry; exact mode reads
-        the complete tree through ``dyn_node_base(E, hq)``, cached per hq),
-        or for the kernel executor's quantized mode the grouped copy, cached
-        under ``gkey`` when given."""
+        table as flat rows (a view, no copy) with its ``FlatIndex``, built
+        and range-checked once per block and (hq, mode) and cached on the
+        entry — exact mode reads the complete tree through
+        ``dyn_node_base(E, hq)`` (cached per hq), quantized mode the leaf
+        table through ``leaf_index(edges, 2^hq)``. Every executor reads the
+        same flat tables."""
         (tab,) = tables
         E, hq = self.df.net.n_edges, int(hq)
-        if exact or self.executor == "fused":
-            index = entry["index"].get((hq, bool(exact)))
-            if index is None:
-                if exact:
-                    base = self._tree_base.get(hq)
-                    if base is None:
-                        base = self._tree_base[hq] = dyn_node_base(E, hq, self.device)
-                    index = ops.walk_index(base, entry["edges"], 1 << hq)
-                else:
-                    index = ops.leaf_index(entry["edges"], 1 << hq)
-                entry["index"][(hq, bool(exact))] = index
-            return tab.reshape(tab.shape[0], -1), index
-        grouped = self._group_cache.get(gkey) if gkey is not None else None
-        if grouped is None:
-            grouped = _dyn_group(tab, entry["edges"], hq=hq, E=E)
-            if gkey is not None:
-                self._group_cache.put(gkey, grouped)
-        return grouped, None
+        index = entry["index"].get((hq, bool(exact)))
+        if index is None:
+            if exact:
+                base = self._tree_base.get(hq)
+                if base is None:
+                    base = self._tree_base[hq] = dyn_node_base(E, hq, self.device)
+                index = ops.walk_index(base, entry["edges"], 1 << hq)
+            else:
+                index = ops.leaf_index(entry["edges"], 1 << hq)
+            entry["index"][(hq, bool(exact))] = index
+        return tab.reshape(tab.shape[0], -1), index
 
     def flush_plan(self, heat, plan, wb, ts_key, *, h0=None, exact_leaf=False,
                    snapshot=None, **_):
@@ -1402,7 +1366,6 @@ class FlatDynamicEngine(_DeviceEngine):
         W = heat.shape[1]
         tables = self.window_tables(wb, ts_key, snap, sealed, hq, exact)
         forest = self._forest(sealed, pend)
-        tab_key = (ts_key, snap.revision, snap.depth, int(hq), exact)
         K = snap.ctx.K
         k_s = snap.ctx.k_s
         # exact mode walks node-value rows [W, 2k_s]; quantized mode
@@ -1410,7 +1373,7 @@ class FlatDynamicEngine(_DeviceEngine):
         row_bytes = W * 2 * k_s * 8 if exact else W * 2 * K * 8
         scan_kw = dict(n_levels=sealed.n_levels, hq=int(hq), scan_steps=int(scan_steps),
                        pend_steps=int(pend.pend_steps), exact=exact)
-        for bi, entry in enumerate(self._atom_packs(plan)):
+        for entry in self._atom_packs(plan):
             atoms = entry["atoms"]
             # work accounting (same units as the NumPy scans: (atom, event)
             # pairs examined, per half-window for partials / window pending)
@@ -1424,8 +1387,7 @@ class FlatDynamicEngine(_DeviceEngine):
                 _dyn_plain_flush(forest, entry["fa"], wb, tables, heat, **scan_kw)
                 continue
             # tree phase: ONE kernel launch; scans stay in plain torch
-            tab, index = self.tree_table(tables, entry, hq=int(hq), exact=exact,
-                                         gkey=(tab_key, plan.key, bi))
+            tab, index = self.tree_table(tables, entry, hq=int(hq), exact=exact)
             _dyn_flush(forest, tab, index, entry, wb, heat, hq=int(hq), exact=exact,
                        executor=self.executor)
             if self.executor == "fused":

@@ -3,7 +3,11 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/dyn_query.py::dyn_leaf_query_pallas
-// (body _leaf_kernel). Same contract: tab [G, R, W*2*K] per-edge leaf-prefix
+// (body _leaf_kernel) under the reference's grouped contract, for the tests
+// and chip_smoke.py's sweep of that contract (ops.dyn_leaf_query). The
+// kernel executor's flush computes the same function on the flat leaf table
+// in place through fused_leaf.cu (ops.dyn_leaf_query_flat), which builds the
+// query vectors itself. Same contract: tab [G, R, W*2*K] per-edge leaf-prefix
 // rows (R = (nleaf+1)*2, row = leaf*2 + side, each row packing
 // [K left-half | K right-half] for every window), leaf_lo/leaf_hi/side
 // [G, Q] int32, qv_l/qv_r [G, W, Q, K]; out [G, W, Q] with

@@ -3,7 +3,10 @@
 // Hopper (sm_90a), reading the flat leaf-prefix table in place.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_walk.py::fused_leaf_pallas
-// (body _fused_leaf_kernel). Inputs: lcum [n_rows, W*2*K] leaf-prefix rows,
+// (body _fused_leaf_kernel), and under the kernel executor
+// src/repro/kernels/dyn_query.py::dyn_leaf_query_pallas, whose materialised
+// query vectors qv = q_s (x) q_t are this kernel's own, s-major
+// (ops.dyn_leaf_query_flat counts those launches). Inputs: lcum [n_rows, W*2*K] leaf-prefix rows,
 // R = (nleaf+1)*2 rows per edge (row = leaf*2 + side within the edge's
 // block, each row packing [K left-half | K right-half] for every window),
 // edges [G] int64, leaf_lo/leaf_hi/side [G, Q] int32, qs [G, Q, ks],

@@ -3,10 +3,17 @@
 * ``dyn_leaf_query`` — quantized mode over the leaf-prefix layout: per atom
   the difference of two per-edge leaf-prefix rows
   ``tab[hi·2+side] − tab[lo·2+side]``, contracted per window with the
-  materialised per-half query vectors ``qv_l/qv_r [G, W, Q, K]`` (q_s ⊗ q_t,
-  s-major) and folded: ``Σ_k qv_l·Δ[k] + Σ_k qv_r·Δ[K+k]``. The kernel is
-  ``csrc/dyn_leaf_query.cu``; it replaces the TPU kernel
-  ``repro.kernels.dyn_query.dyn_leaf_query_pallas`` with the same contract.
+  per-half query vectors ``qv_l/qv_r`` (q_s ⊗ q_t, s-major) and folded:
+  ``Σ_k qv_l·Δ[k] + Σ_k qv_r·Δ[K+k]``. It replaces the TPU kernel
+  ``repro.kernels.dyn_query.dyn_leaf_query_pallas``. With ``qv = q_s ⊗ q_t``
+  that is ``fused_leaf``'s function in its association, so the flush reads
+  the flat leaf table in place through ``csrc/fused_leaf.cu``
+  (``ops.dyn_leaf_query_flat``, plain version
+  ``fused_walk.fused_leaf_flat_ref``): no grouped copy of the table and no
+  materialised query vectors. ``ops.dyn_leaf_query`` keeps the reference's
+  grouped contract (``tab [G, R, W·2K]``, ``qv_l/qv_r [G, W, Q, K]``) on
+  ``csrc/dyn_leaf_query.cu``; only the tests and ``chip_smoke.py``'s sweep
+  of that contract call it.
 * ``dyn_node_walk`` — exact mode over the complete-tree node values: the
   canonical ≤2-nodes-per-level climb of ``fused_walk`` with the fixed level
   layout ``offs[ℓ] = 2^(hq−ℓ) − 1`` (:func:`tree_offs`), ``hq + 1`` levels.
@@ -17,11 +24,12 @@
   ``fused_walk.fused_walk_flat_ref``); ``ops.dyn_node_walk`` keeps the
   grouped JAX contract on the same kernel.
 
-This module holds the plain PyTorch versions (:func:`dyn_leaf_query_ref`,
-:func:`dyn_node_walk_ref`) — what a CPU tensor gets and what the kernels are
-compared with on the card — and the ``ctypes`` binding of
-``csrc/dyn_leaf_query.cu``. The launching wrappers are
-:func:`repro_torch.kernels.ops.dyn_leaf_query` and ``ops.dyn_node_walk``.
+This module holds the plain PyTorch versions of the grouped contracts
+(:func:`dyn_leaf_query_ref`, :func:`dyn_node_walk_ref`) — what a CPU tensor
+gets and what the kernels are compared with on the card — and the
+``ctypes`` binding of ``csrc/dyn_leaf_query.cu``. The launching wrappers are
+:func:`repro_torch.kernels.ops.dyn_leaf_query`, ``ops.dyn_leaf_query_flat``,
+``ops.dyn_node_walk`` and ``ops.dyn_node_walk_flat``.
 """
 from __future__ import annotations
 

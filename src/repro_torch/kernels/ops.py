@@ -11,7 +11,11 @@ the kernel is launched and nowhere else. ``csrc/fused_walk.cu`` serves four
 wrappers: ``fused_walk`` (the grouped JAX contract) and ``fused_walk_flat``
 (the flat window table in place) count in ``fused_walk.launches``,
 ``dyn_node_walk`` and ``dyn_node_walk_flat`` in ``dyn_node_walk.launches``;
-``fused_leaf`` and ``fused_leaf_flat`` both count in ``fused_leaf.launches``.
+``csrc/fused_leaf.cu`` serves three: ``fused_leaf`` and ``fused_leaf_flat``
+count in ``fused_leaf.launches``, ``dyn_leaf_query_flat`` (the kernel
+executor's quantized flush) in ``dyn_leaf_query.launches``.
+``dyn_leaf_query`` keeps the reference's grouped contract with materialised
+query vectors on ``csrc/dyn_leaf_query.cu``.
 """
 from __future__ import annotations
 
@@ -33,12 +37,12 @@ from .fused_walk import (
     walk_index,
 )
 from .flash_attention import HEAD_DIMS, LOG2E, check_seq_len, flash_attention_ref, flash_library
-from .minplus import minplus_library, minplus_matmul_ref
+from .minplus import minplus_library, minplus_matmul_ref, minplus_vec
 from .tree_query import tree_query_library, tree_query_ref
 
-__all__ = ["FlatIndex", "dyn_leaf_query", "dyn_node_walk", "dyn_node_walk_flat",
-           "flash_attention", "fused_leaf", "fused_leaf_flat", "fused_walk", "fused_walk_flat",
-           "leaf_index", "minplus_matmul", "tree_query", "walk_index"]
+__all__ = ["FlatIndex", "dyn_leaf_query", "dyn_leaf_query_flat", "dyn_node_walk",
+           "dyn_node_walk_flat", "flash_attention", "fused_leaf", "fused_leaf_flat", "fused_walk",
+           "fused_walk_flat", "leaf_index", "minplus_matmul", "tree_query", "walk_index"]
 
 # the fused_leaf kernel holds the two [W, k_t] temporal vectors and two rows
 # per warp in shared memory (csrc/fused_leaf.cu SMEM_MAX)
@@ -282,6 +286,18 @@ def fused_leaf(lcum, leaf_lo, leaf_hi, side, qs, qtl, qtr) -> torch.Tensor:
 fused_leaf.launches = 0
 
 
+def _leaf_flat(kernel, lcum, index, leaf_lo, leaf_hi, side, qs, qtl, qtr):
+    """A leaf phase on the flat leaf-prefix table in place: [G, Q, W]."""
+    _check_rows(kernel, lcum, index)
+    if lcum.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {lcum.device}")
+    out = torch.empty((int(qs.shape[0]), int(qs.shape[1]), int(qtl.shape[0])),
+                      dtype=torch.float64, device=lcum.device)
+    launched = _leaf_launch(kernel, lcum, index.edges, (int(index.span) + 1) * 2, leaf_lo,
+                            leaf_hi, side, qs, qtl, qtr, out)
+    return out, launched
+
+
 def fused_leaf_flat(lcum, index: FlatIndex, leaf_lo, leaf_hi, side, qs, qtl, qtr) -> torch.Tensor:
     """Fused quantized DRFS tree phase on the flat leaf-prefix table in place
     (the fused executor's flush, see fused_walk.py): [G, Q, W] float64.
@@ -293,13 +309,8 @@ def fused_leaf_flat(lcum, index: FlatIndex, leaf_lo, leaf_hi, side, qs, qtl, qtr
     """
     if lcum.device.type == "cpu":
         return fused_leaf_flat_ref(lcum, index, leaf_lo, leaf_hi, side, qs, qtl, qtr)
-    _check_rows("fused_leaf", lcum, index)
-    if lcum.device.type != "cuda":
-        raise ValueError(f"fused_leaf: unsupported device {lcum.device}")
-    out = torch.empty((int(qs.shape[0]), int(qs.shape[1]), int(qtl.shape[0])),
-                      dtype=torch.float64, device=lcum.device)
-    if _leaf_launch("fused_leaf", lcum, index.edges, (int(index.span) + 1) * 2, leaf_lo,
-                    leaf_hi, side, qs, qtl, qtr, out):
+    out, launched = _leaf_flat("fused_leaf", lcum, index, leaf_lo, leaf_hi, side, qs, qtl, qtr)
+    if launched:
         fused_leaf.launches += 1
     return out
 
@@ -447,6 +458,24 @@ def dyn_leaf_query(tab, leaf_lo, leaf_hi, side, qv_l, qv_r) -> torch.Tensor:
 dyn_leaf_query.launches = 0
 
 
+def dyn_leaf_query_flat(lcum, index: FlatIndex, leaf_lo, leaf_hi, side, qs, qtl,
+                        qtr) -> torch.Tensor:
+    """Quantized DRFS tree phase of the kernel executor on the flat
+    leaf-prefix table in place: the function of :func:`dyn_leaf_query` with
+    its query vectors ``qv_l/qv_r = q_s ⊗ qtl / q_s ⊗ qtr`` (s-major) built
+    in the kernel, not materialised. The inputs of :func:`fused_leaf_flat`;
+    launches ``csrc/fused_leaf.cu`` and counts in
+    ``dyn_leaf_query.launches``. [G, Q, W] float64.
+    """
+    if lcum.device.type == "cpu":
+        return fused_leaf_flat_ref(lcum, index, leaf_lo, leaf_hi, side, qs, qtl, qtr)
+    out, launched = _leaf_flat("dyn_leaf_query", lcum, index, leaf_lo, leaf_hi, side, qs, qtl,
+                               qtr)
+    if launched:
+        dyn_leaf_query.launches += 1
+    return out
+
+
 def dyn_node_walk(nodeval, r_lo, r_hi, side, qs, *, hq) -> torch.Tensor:
     """Exact-mode DRFS tree phase over the complete tree of height ``hq``
     (see dyn_query.py): [G, W, Q] float64, halves folded. The inputs of
@@ -510,8 +539,8 @@ def minplus_matmul(a, b, *, out=None) -> torch.Tensor:
         return out.fill_(float("inf"))  # the minimum of nothing
     lib = minplus_library()
     fn = lib.minplus_f64 if a.dtype == torch.float64 else lib.minplus_f32
-    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, _device_index(dev),
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, int(minplus_vec(a, b)),
+             _device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"minplus_matmul: kernel launch failed (cudaError {err})")
     minplus_matmul.launches += 1

@@ -154,3 +154,42 @@ def test_bellman_ford_bounded_rounds():
 def test_bellman_ford_takes_tensors():
     with pytest.raises(TypeError):
         sp.minplus_bellman_ford(np.zeros((2, 2)), np.zeros((1, 2)), 1)
+
+
+def test_minplus_kernel_source_agrees_with_the_wrapper():
+    """``minplus.TILE`` is the tile the source compiles by default (TM rows
+    for each of TY = 8 threads, 8 columns for each of TX = 8, BK), the source names
+    the TPU kernel it replaces and exports the entry points the binding
+    declares, and no knob changes the default build."""
+    import re
+
+    text = (Path(minplus.__file__).parent / "csrc" / "minplus.cu").read_text()
+    tm = int(re.search(r"#define MINPLUS_TM (\d+)", text).group(1))
+    bk = int(re.search(r"#define MINPLUS_BK (\d+)", text).group(1))
+    ty, tx = (int(v) for v in re.search(r"constexpr int TY = (\d+), TX = (\d+);", text).groups())
+    tn = int(re.search(r"constexpr int TN = (\d+);", text).group(1))
+    assert minplus.TILE == (ty * tm, tx * tn, bk)
+    assert "minplus_matmul_pallas" in text
+    for name in ("minplus_f32", "minplus_f64", "minplus_occupancy"):
+        assert f'extern "C" int {name}(' in text
+    # each knob is a default under #ifndef: a plain build is the kernel above
+    for knob in re.findall(r"#define (MINPLUS_\w+) ", text):
+        assert f"#ifndef {knob}\n#define {knob} " in text
+
+
+@pytest.mark.parametrize("dtype,K,N,offset,vec", [
+    (torch.float64, 1576, 1576, 0, True),   # the berkeley product
+    (torch.float64, 6, 130, 0, True),       # K below BK, multiples of 2 doubles
+    (torch.float64, 7, 130, 0, False),      # odd K: rows of a 8 bytes off 16
+    (torch.float64, 6, 129, 0, False),      # odd N: rows of b likewise
+    (torch.float64, 6, 130, 1, False),      # a misaligned base
+    (torch.float32, 8, 64, 0, True),
+    (torch.float32, 6, 64, 0, False),       # K not a multiple of 4 floats
+    (torch.float32, 8, 62, 0, False),
+])
+def test_minplus_vec_rule(dtype, K, N, offset, vec):
+    """The kernel stages with 16-byte copies only where every copy of a row
+    of a or b is 16-byte aligned and wholly in or out of range."""
+    a = torch.zeros(3 * K + offset, dtype=dtype)[offset:].reshape(3, K)
+    b = torch.zeros((K, N), dtype=dtype)
+    assert minplus.minplus_vec(a, b) is vec

@@ -15,7 +15,7 @@ a ``FlatIndex``: walk level ℓ of an atom on edge e reads row
   the addends differs).
 
 The executors that now launch them — ``fused`` for RFS and both DRFS modes,
-``kernel`` for DRFS exact — stay within 1e-12 of ``executor='packed'`` and of
+``kernel`` for both DRFS modes — stay within 1e-12 of ``executor='packed'`` and of
 the reference's ``engine='numpy'``, duplicate window centres bitwise, and no
 grouped copy is cached; the kernel gets the cached window table itself (a
 view: the quantized leaf table is built contiguous), and ``device_bytes``
@@ -335,7 +335,7 @@ def test_drfs_in_place_matches_packed_and_reference(worlds, ks, kt, executor, ex
     assert _rel(F, got["packed"]) <= 1e-12 and _rel(F, want) <= 1e-12
     assert np.array_equal(F[1], F[4])
     # the in-place paths keep no grouped copy; each block's index is built once
-    assert len(m._fe._group_cache) == 0
+    assert not hasattr(m._fe, "_group_cache")
     for entry in m._fe._atom_packs(m._host_plan(m.snapshot())):
         assert list(entry["index"]) == [(5, exact)]
 
@@ -374,16 +374,23 @@ def test_drfs_kernels_get_the_cached_window_table_in_place(worlds, exact):
     assert index.rows <= tab.shape[0]
 
 
-def test_drfs_grouped_copy_only_for_dyn_leaf_query(worlds):
-    """The kernel executor's quantized mode (dyn_leaf_query, the grouped
-    contract) is the one path that still caches a grouped copy."""
+@pytest.mark.parametrize("executor", ["fused", "kernel"])
+def test_drfs_keeps_no_grouped_copy(worlds, executor):
+    """Neither kernel executor keeps a grouped copy of a window table in
+    either mode: the kernel executor's quantized mode (dyn_leaf_query_flat)
+    reads the leaf table in place as the fused one does, and both hold the
+    same device bytes."""
     (net, ev), _ = worlds
-    m = TNKDE(net, Events(*(a[:N_BASE] for a in ev)), solution="drfs", engine="torch",
-              executor="kernel", device="cpu", drfs_depth=5, **KW)
-    m.drfs_exact_leaf = True
-    m.query(TS5)
-    assert len(m._fe._group_cache) == 0
-    m.drfs_exact_leaf = False
-    m.query(TS5)
-    blocks = m._host_plan(m.snapshot()).n_blocks
-    assert len(m._fe._group_cache) == min(blocks, 8)
+    kw = dict(solution="drfs", engine="torch", device="cpu", drfs_depth=5, **KW)
+    models = [TNKDE(net, Events(*(a[:N_BASE] for a in ev)), executor=ex, **kw)
+              for ex in (executor, "fused")]
+    for exact in (True, False):
+        for m in models:
+            m.drfs_exact_leaf = exact
+            m.query(TS5)
+    m = models[0]
+    assert not hasattr(m._fe, "_group_cache")
+    assert m._fe.device_bytes == models[1]._fe.device_bytes
+    snap = m.snapshot()
+    for entry in m._fe._atom_packs(m._host_plan(snap)):
+        assert sorted(entry["index"]) == [(5, False), (5, True)]
