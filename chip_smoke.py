@@ -1269,7 +1269,7 @@ def minplus_bound(M, K, N, itemsize):
 
 def phase_minplus_kernels(device):
     """minplus_matmul vs its plain version, bitwise (torch.equal), float32
-    and float64: one tile (``minplus.TILE``: 80 x 64, BK 8) and a tile ±1
+    and float64: one tile (``minplus.TILE``: 80 x 64, BK 16) and a tile ±1
     in M and N, K below BK, ragged K, M and N, in both of the kernel's
     staging forms (16-byte copies where K and N allow, one copy per element
     elsewhere; each form must be met in each type), and the [minplus]
@@ -2041,9 +2041,12 @@ def main():
     ta, tr, tshape, tbound, ttiming = tq_shapes
     qa, qr, qshape, qbound, qtiming = kdshapes["dyn_leaf_query"]
     na, nr, nshape, nbound, ntiming = kdshapes["dyn_node_walk"]
-    kw_ = {k: kworst[k] for k in ("tree_query", "dyn_leaf_query", "dyn_node_walk")}
-    kw_["dyn_leaf_query"] = tuple(max(x, y) for x, y in zip(kw_["dyn_leaf_query"],
-                                                           kworst["dyn_leaf_query_flat"]))
+    # the flush's call (dyn_leaf_query_flat) is B4's row; the sweep of the
+    # reference's grouped contract (csrc/dyn_leaf_query.cu, on no path) is
+    # reported under its own key
+    kw_ = {k: kworst[k] for k in ("tree_query", "dyn_node_walk")}
+    kw_["dyn_leaf_query"] = kworst["dyn_leaf_query_flat"]
+    ga, gr = kworst["dyn_leaf_query"]
     fwa, fwr = flat_worst["fused_walk_flat"]
     fla, flr = flat_worst["fused_leaf_flat"]
     kernels = [
@@ -2063,6 +2066,8 @@ def main():
         entry("dyn_leaf_query", "drfs-kernel-quantized", kdlaunches["dyn_leaf_query"],
               max(kw_["dyn_leaf_query"][0], qa), max(kw_["dyn_leaf_query"][1], qr), qshape,
               qbound, qtiming, "src/repro/kernels/dyn_query.py:59", source="fused_leaf",
+              grouped_contract_sweep=dict(source="src/repro_torch/kernels/csrc/dyn_leaf_query.cu",
+                                          max_abs_err=ga, max_rel_err=gr),
               main_path=dict(scale=args.scale, warm_s=kdsecs["quantized-warm"])),
         entry("dyn_node_walk", "drfs-kernel-exact", kdlaunches["dyn_node_walk"],
               max(kw_["dyn_node_walk"][0], na), max(kw_["dyn_node_walk"][1], nr), nshape,

@@ -44,8 +44,6 @@
 //     arithmetic of the one before, with one barrier a step. The copies'
 //     addresses are recomputed at every step (fresh_tid), not kept in
 //     registers beside the minima.
-//   tools/minplus_variants.py compares these choices with their neighbours
-//   on the card (PERF.md §6).
 // Ragged edges: cp.async would fill zeros, never +inf, and a zero stands
 // for a false path, so nothing out of range is ever read as a value. A K
 // step past K copies nothing and the inner loop stops at the valid depth;
@@ -57,40 +55,18 @@
 
 namespace {
 
-// Compile-time knobs that tools/minplus_variants.py overrides with -D to
-// compare forms on the card; the defaults are the kernel the port runs.
-// MINPLUS_TM: rows of running minima a thread keeps (the tile is 8·TM x 64);
-// MINPLUS_MIN_BLOCKS: blocks per SM the registers must allow (4: eight
-// warps, two on each scheduler, so up to 255 registers a thread; 5 or more
-// puts three warps on a scheduler and caps a thread at 168);
-// MINPLUS_KK_UNROLL: how far the loop over a full K step is unrolled;
-// MINPLUS_BK, MINPLUS_STAGES: the depth of a K step and of the ring.
-#ifndef MINPLUS_TM
-#define MINPLUS_TM 10
-#endif
-#ifndef MINPLUS_MIN_BLOCKS
-#define MINPLUS_MIN_BLOCKS 4
-#endif
-#ifndef MINPLUS_KK_UNROLL
-#define MINPLUS_KK_UNROLL 1
-#endif
-#ifndef MINPLUS_BK
-#define MINPLUS_BK 16
-#endif
-#ifndef MINPLUS_STAGES
-#define MINPLUS_STAGES 2
-#endif
-
-constexpr int TY = 8, TX = 8;       // threads down and across a block
-constexpr int TM = MINPLUS_TM;      // rows of minima a thread keeps, TY apart
-constexpr int TN = 8;               // columns of minima a thread keeps
-constexpr int BM = TY * TM;         // 80
-constexpr int BN = TX * TN;         // 64
-constexpr int BK = MINPLUS_BK;      // depth of a K step
-constexpr int STAGES = MINPLUS_STAGES;
-constexpr int THREADS = TY * TX;    // 64
-constexpr int MIN_BLOCKS = MINPLUS_MIN_BLOCKS;
-constexpr int KK_UNROLL = MINPLUS_KK_UNROLL;
+constexpr int TY = 8, TX = 8;  // threads down and across a block
+constexpr int TM = 10;         // rows of minima a thread keeps, TY apart
+constexpr int TN = 8;          // columns of minima a thread keeps
+constexpr int BM = TY * TM;    // 80
+constexpr int BN = TX * TN;    // 64
+constexpr int BK = 16;         // depth of a K step
+constexpr int STAGES = 2;      // buffers in the cp.async ring
+constexpr int THREADS = TY * TX;  // 64
+// blocks per SM the registers must allow: 4 is eight warps, two on each
+// scheduler, so up to 255 registers a thread (5 or more puts three warps on
+// a scheduler and caps a thread at 168)
+constexpr int MIN_BLOCKS = 4;
 // row stride of a's tile in shared memory: BK values and 16 bytes of padding
 template <typename T>
 constexpr int AS = BK + 16 / (int)sizeof(T);
@@ -258,7 +234,7 @@ minplus_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__
     const T* bs = Bs[kt % STAGES];
     const int kv = min(BK, K - kt * BK);
     if (kv == BK) {
-#pragma unroll KK_UNROLL
+#pragma unroll 1
       for (int kk = 0; kk < BK; ++kk) step<T>(as, bs, kk, tx, ty, acc);
     } else {  // the last, partial step: only the valid depth
 #pragma unroll 1

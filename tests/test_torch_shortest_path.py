@@ -157,24 +157,23 @@ def test_bellman_ford_takes_tensors():
 
 
 def test_minplus_kernel_source_agrees_with_the_wrapper():
-    """``minplus.TILE`` is the tile the source compiles by default (TM rows
-    for each of TY = 8 threads, 8 columns for each of TX = 8, BK), the source names
-    the TPU kernel it replaces and exports the entry points the binding
-    declares, and no knob changes the default build."""
+    """``minplus.TILE`` is the tile the source compiles (TM rows for each of
+    TY = 8 threads, TN columns for each of TX = 8, BK), the source names the
+    TPU kernel it replaces and exports the entry points the binding
+    declares, and no preprocessor knob can change the build."""
     import re
 
     text = (Path(minplus.__file__).parent / "csrc" / "minplus.cu").read_text()
-    tm = int(re.search(r"#define MINPLUS_TM (\d+)", text).group(1))
-    bk = int(re.search(r"#define MINPLUS_BK (\d+)", text).group(1))
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
     ty, tx = (int(v) for v in re.search(r"constexpr int TY = (\d+), TX = (\d+);", text).groups())
-    tn = int(re.search(r"constexpr int TN = (\d+);", text).group(1))
-    assert minplus.TILE == (ty * tm, tx * tn, bk)
+    assert minplus.TILE == (ty * const("TM"), tx * const("TN"), const("BK"))
     assert "minplus_matmul_pallas" in text
     for name in ("minplus_f32", "minplus_f64", "minplus_occupancy"):
         assert f'extern "C" int {name}(' in text
-    # each knob is a default under #ifndef: a plain build is the kernel above
-    for knob in re.findall(r"#define (MINPLUS_\w+) ", text):
-        assert f"#ifndef {knob}\n#define {knob} " in text
+    assert not re.search(r"#\s*(ifndef|ifdef|if)\b", text)
 
 
 @pytest.mark.parametrize("dtype,K,N,offset,vec", [

@@ -15,8 +15,10 @@ a ``FlatIndex``: walk level ℓ of an atom on edge e reads row
   the addends differs).
 
 The executors that now launch them — ``fused`` for RFS and both DRFS modes,
-``kernel`` for both DRFS modes — stay within 1e-12 of ``executor='packed'`` and of
-the reference's ``engine='numpy'``, duplicate window centres bitwise, and no
+``kernel`` for exact DRFS (its quantized mode is held in
+``tests/test_torch_leaf_inplace.py``) — stay within 1e-12 of
+``executor='packed'`` and of the reference's ``engine='numpy'``, duplicate
+window centres bitwise, and no
 grouped copy is cached; the kernel gets the cached window table itself (a
 view: the quantized leaf table is built contiguous), and ``device_bytes``
 counts a tensor that a pack's index shares once. The wrappers take the plain
