@@ -32,6 +32,13 @@ Table-3 berkeley replica:
   ``dyn_leaf_query``) and ``dyn_node_walk_flat`` (exact), each answer held
   against the ``fused`` executor at the same snapshot (quantized: bitwise)
   and, in exact mode, the SPS oracle;
+* ``[main-codec]`` ``[main]``'s query with the window table stored by a table
+  codec, float32 then bfloat16 (``FlatForestEngine.from_host_tables(...,
+  codec=)`` over ``[main]``'s index): the f32 / bf16 instantiation of
+  ``fused_walk`` only, no fallback, within ``CODEC_TOL`` of ``[main]``'s f64
+  answer, warm ``bytes_moved`` ≤ ``BYTES_GATE`` × the f64 packed executor's;
+  ``[drfs-codec]`` the same requirements on ``[drfs]``'s base epoch, f32 in
+  both modes and bf16 in exact mode, on the fused and kernel executors;
 * ``[minplus]`` device shortest paths: ``minplus_bellman_ford`` from every
   vertex of the berkeley network (dense f64 adjacency, radius b_s = 800) for
   as many rounds as the deepest bounded-Dijkstra tree has hops — one
@@ -50,14 +57,14 @@ its plain version and times the largest (the in-place walk in both of its
 forms, edge block staged in shared memory and read through L1/L2, timed in
 turns: ``ms_staged``, ``ms_unstaged``; ``ms`` is the form ``ops.walk_staged``
 keeps). ``[flat-kernels]`` sweeps the in-place walk and leaf kernels over
-seeded flat tables first.
+seeded flat tables first, in every table dtype each is instantiated for.
 
 Any failed check raises (non-zero exit). Without a CUDA device it exits
 non-zero and prints no result.
 
 Output, in order: the card's name and power limit as ``nvidia-smi`` gives
 them; one line per phase and step (with its time); one JSON line
-``{"kernels": [...]}`` with one entry per (kernel, path): launches on that
+``{"kernels": [...]}`` with one entry per (kernel, path, table dtype): launches on that
 path, error against the plain version, time, the plain version's time and
 the roofline bound at the largest block of that path, and for
 ``flash_attention`` the time of ``scaled_dot_product_attention`` on the same
@@ -105,6 +112,13 @@ KERNEL_TOL = 1e-13  # f64, kernel vs its plain version; only association and FMA
 KERNELS = ("fused_walk", "fused_leaf", "tree_query", "dyn_leaf_query", "dyn_node_walk",
            "minplus_matmul", "flash_attention")
 PACKED_TOL = 1e-12  # fused vs packed executor, relative to max|F|
+# a table codec's answer vs the f64 answer, relative to max|F|: the narrow
+# tables store each value rounded to float32 (~6e-8 of it) or bfloat16 (~4e-3);
+# the arithmetic on them stays float64. The reference's own codec answers
+# read up to 5.3e-7 (f32) and 3.4e-3 (bf16) of max|F| against its f64 ones.
+CODEC_TOL = {"f32": 2e-6, "bf16": 1e-2}
+CODEC_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+BYTES_GATE = 0.55  # codec warm bytes_moved vs the f64 packed executor's (the reference's gate)
 SPS_TOL = 1e-10  # index vs index-free oracle, relative to max|F|
 SPS_EDGES = 32  # most query edges in the SPS sample
 SPS_LIXELS = 96  # the sample stops once it holds this many lixels (>= 64 checked)
@@ -214,16 +228,28 @@ def compare(name, args, fn=None, **kw):
 
 
 def reset_launches():
+    """Every wrapper's launch count, and its per-table-dtype counts, to 0."""
     from repro_torch.kernels import ops
 
     for name in KERNELS:
-        getattr(ops, name).launches = 0
+        fn = getattr(ops, name)
+        fn.launches = 0
+        if hasattr(fn, "launches_by_dtype"):
+            fn.launches_by_dtype = dict.fromkeys(ops.TABLE_DTYPES, 0)
 
 
 def read_launches():
     from repro_torch.kernels import ops
 
     return {name: getattr(ops, name).launches for name in KERNELS}
+
+
+def read_launches_by_dtype():
+    """{kernel: {table dtype: launches}} of the wrappers that count them."""
+    from repro_torch.kernels import ops
+
+    return {name: dict(getattr(ops, name).launches_by_dtype) for name in KERNELS
+            if hasattr(getattr(ops, name), "launches_by_dtype")}
 
 
 def time_samples(fn, *, reps=10, flush=None, calls=1):
@@ -279,7 +305,7 @@ def walk_work(index, r_lo, r_hi, side):
 def fused_walk_bound(args):
     """Least time the card could take for this in-place walk, from this
     input: the larger of bytes/bandwidth (each distinct flat row the climb
-    needs; r_lo/r_hi of every slot, which say whether it is live; side and
+    needs, at the table's itemsize; r_lo/r_hi of every slot, which say whether it is live; side and
     the coefficients of the live slots only, since a padding slot's answer
     is 0 whatever they hold; each group's lvl_base column and edge, read
     once; the output written once) and operations/peak f64 (one add per
@@ -291,8 +317,8 @@ def fused_walk_bound(args):
     nlev = int(index.span).bit_length()
     emitted, distinct = walk_work(index, r_lo, r_hi, side)
     n_live = int((r_lo < r_hi).sum())
-    nbytes = (distinct * WC * 8 + G * Q * 8 + n_live * (ks * 8 + 4) + G * W * Q * 8
-              + G * (nlev + 1) * 8)
+    nbytes = (distinct * WC * table.element_size() + G * Q * 8 + n_live * (ks * 8 + 4)
+              + G * W * Q * 8 + G * (nlev + 1) * 8)
     flops = emitted * WC + n_live * W * 3 * ks
     t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS
     return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
@@ -309,8 +335,9 @@ def walk_forms(kernel, kargs, device):
     from repro_torch.kernels import ops
     from repro_torch.kernels.fused_walk import fused_walk_flat_ref
 
+    isz = kargs[0].element_size()
     forms = {"unstaged": False}
-    if ops.walk_stageable(kargs[1].span, kargs[0].shape[1]):
+    if ops.walk_stageable(kargs[1].span, kargs[0].shape[1], isz):
         forms["staged"] = True
     worst = (0.0, 0.0)
     for form, st in forms.items():
@@ -321,7 +348,7 @@ def walk_forms(kernel, kargs, device):
         a, r = compare("fused_walk_flat", kargs, fn=fn)
         require(r <= KERNEL_TOL, f"{kernel} {form} vs plain: {r}")
         worst = max(worst[0], a), max(worst[1], r)
-    kept = "staged" if ops.walk_staged(kargs[1].span, kargs[0].shape[1]) else "unstaged"
+    kept = "staged" if ops.walk_staged(kargs[1].span, kargs[0].shape[1], isz) else "unstaged"
     timing = dict(ms=None, plain_ms=None, kept=kept, **{f"ms_{f}": None for f in forms})
     if device != "cpu":
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)  # 256 MB > L2
@@ -375,8 +402,8 @@ def leaf_case(nleaf, G, Q, W, ks, kt, device):
 
 def fused_leaf_bound(args):
     """Least time the card could take for this in-place leaf phase, from
-    this input: the larger of bytes/bandwidth (each distinct flat prefix row
-    that a slot whose two rows differ needs — equal rows difference to
+    this input: the larger of bytes/bandwidth (each distinct flat prefix row,
+    at the table's itemsize, that a slot whose two rows differ needs — equal rows difference to
     exactly 0 —; lo/hi of every slot, which say whether it is live; side and
     q_s of the live slots only; each group's edge, the two temporal tables
     and the output, each once) and operations/peak f64 (per live slot,
@@ -393,8 +420,8 @@ def fused_leaf_bound(args):
     live = i_hi != i_lo
     distinct = int(torch.unique(torch.cat([i_hi[live], i_lo[live]])).numel())
     n_live = int(live.sum())
-    nbytes = (distinct * WK * 8 + G * Q * 8 + n_live * (ks * 8 + 4) + 2 * W * kt * 8
-              + G * W * Q * 8 + G * 8)
+    nbytes = (distinct * WK * lcum.element_size() + G * Q * 8 + n_live * (ks * 8 + 4)
+              + 2 * W * kt * 8 + G * W * Q * 8 + G * 8)
     flops = n_live * WK * 4
     t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F64_FLOPS
     return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
@@ -422,12 +449,13 @@ def phase_leaf_kernels(device):
     return worst_abs, worst_rel
 
 
-def flat_walk_case(layout, E, G, Q, W, ks, device):
+def flat_walk_case(layout, E, G, Q, W, ks, device, dtype=torch.float64):
     """Seeded inputs for the in-place walk: a level-major flat table of E
     edges of one npad ('rfs<npad>': the packed forest's node order, level ℓ
     of every edge before level ℓ+1; 'tree<hq>': the complete tree's,
-    torch_engine.dyn_node_base), G groups on edges drawn with repeats, every
-    fifth slot padding (empty interval, qs = 0)."""
+    torch_engine.dyn_node_base), stored as ``dtype`` (a table codec's fold
+    dtype), G groups on edges drawn with repeats, every fifth slot padding
+    (empty interval, qs = 0)."""
     from repro_torch.core.torch_engine import dyn_node_base
     from repro_torch.kernels import ops
 
@@ -451,14 +479,15 @@ def flat_walk_case(layout, E, G, Q, W, ks, device):
     qs[:, ::5] = 0.0
     t = lambda x, dt: torch.as_tensor(x, device=device).to(dt).contiguous()  # noqa: E731
     index = ops.walk_index(t(lvl_base, torch.int64), t(edges, torch.int64), npad)
-    return (t(table, torch.float64), index, t(r_lo, torch.int32), t(r_hi, torch.int32),
+    return (t(table, dtype), index, t(r_lo, torch.int32), t(r_hi, torch.int32),
             t(side, torch.int32), t(qs, torch.float64))
 
 
-def flat_leaf_case(nleaf, E, G, Q, W, ks, kt, device):
+def flat_leaf_case(nleaf, E, G, Q, W, ks, kt, device, dtype=torch.float64):
     """Seeded inputs for the in-place leaf phase: dyn_window_tables' layout
-    (per edge (nleaf+1)·2 prefix rows) for E edges, G groups on edges drawn
-    with repeats, every fifth slot an empty leaf range."""
+    (per edge (nleaf+1)·2 prefix rows) for E edges, stored as ``dtype`` (a
+    table codec's moment dtype), G groups on edges drawn with repeats, every
+    fifth slot an empty leaf range."""
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(nleaf * 1000 + E * 10 + Q)
@@ -472,56 +501,68 @@ def flat_leaf_case(nleaf, E, G, Q, W, ks, kt, device):
     qs = rng.normal(size=(G, Q, ks))
     qtl, qtr = rng.normal(size=(W, kt)), rng.normal(size=(W, kt))
     t = lambda x, dt: torch.as_tensor(x, device=device).to(dt).contiguous()  # noqa: E731
-    return (t(lcum, torch.float64), ops.leaf_index(t(edges, torch.int64), nleaf),
+    return (t(lcum, dtype), ops.leaf_index(t(edges, torch.int64), nleaf),
             t(lo, torch.int32), t(hi, torch.int32), t(side, torch.int32), t(qs, torch.float64),
             t(qtl, torch.float64), t(qtr, torch.float64))
 
 
 def phase_flat_kernels(device):
-    """The in-place kernels against their plain versions: fused_walk_flat on
-    the RFS layouts npad 4-512 and the trees hq 2-8, in both forms (staged
-    where the edge block fits a block's shared memory, and through L1/L2;
-    ragged Q, W > 8 windows, the gaussian k_s), and fused_leaf_flat over
-    nleaf 4-256 (K = 121 included). Returns the worst (abs, rel) per
-    kernel."""
+    """The in-place kernels against their plain versions, for every table
+    dtype each is instantiated for: fused_walk_flat (float64, float32,
+    bfloat16) on the RFS layouts npad 4-512 and the trees hq 2-8, in both
+    forms (staged where the edge block fits a block's shared memory, and
+    through L1/L2; ragged Q, W > 8 windows, the gaussian k_s; bfloat16 nodes
+    of 8 bytes, which the staged copy moves in 8-byte pieces), and
+    fused_leaf_flat (float64, float32) over nleaf 4-256 (K = 121 included).
+    Both sides compute in float64 from the same stored values. Returns the
+    worst (abs, rel) per (kernel, table dtype)."""
     from repro_torch.kernels import ops
 
     small = device == "cpu"  # the rehearsal keeps the CPU small
     worst = {}
 
-    def check(name, case, args, fn=None):
+    def check(name, dtype, case, args, fn=None):
         abs_err, rel = compare(name, args, fn=fn)
-        say("flat-kernels", kernel=name, case=case, max_abs_err=abs_err, max_rel_err=rel)
-        require(rel <= KERNEL_TOL, f"{name} disagrees with its plain version: {rel}")
-        a, r = worst.get(name, (0.0, 0.0))
-        worst[name] = (max(a, abs_err), max(r, rel))
+        dt = str(dtype).removeprefix("torch.")
+        say("flat-kernels", kernel=name, table_dtype=dt, case=case, max_abs_err=abs_err,
+            max_rel_err=rel)
+        require(rel <= KERNEL_TOL, f"{name} {dt} disagrees with its plain version: {rel}")
+        a, r = worst.get((name, dt), (0.0, 0.0))
+        worst[name, dt] = (max(a, abs_err), max(r, rel))
 
-    forms = set()
-    for layout, E, G, Q, W, ks in [
+    walk_cases = [
         ("rfs4", 5, 3, 7, 1, 2), ("rfs8", 5, 4, 33, 2, 3), ("rfs16", 6, 5, 65, 3, 2),
         ("rfs32", 40, 60 if small else 1600, 512, 5, 2), ("rfs64", 5, 5, 130, 9, 11),
         ("rfs512", 6, 8 if small else 64, 1000, 5, 2),
         ("tree2", 5, 3, 7, 1, 2), ("tree3", 5, 4, 33, 2, 3), ("tree4", 6, 5, 65, 2, 2),
         ("tree8", 40, 20 if small else 400, 512, 5, 2),
-    ]:
-        args = flat_walk_case(layout, E, G, Q, W, ks, device)
-        case = f"{layout}:E{E}:G{G}:Q{Q}:W{W}:ks{ks}"
-        check("fused_walk_flat", case, args)
-        if device == "cpu":
-            continue
-        for st in (False, True):
-            if st and not ops.walk_stageable(args[1].span, args[0].shape[1]):
+    ]
+    # bfloat16 nodes of W·2k_s = 2 or 6 values: 8 (mod 16) bytes
+    odd_bf16 = [("rfs16", 5, 4, 33, 1, 1), ("rfs64", 5, 4, 65, 3, 1), ("tree4", 5, 4, 33, 1, 1)]
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        forms = set()
+        for layout, E, G, Q, W, ks in walk_cases + (odd_bf16 if dtype == torch.bfloat16 else []):
+            args = flat_walk_case(layout, E, G, Q, W, ks, device, dtype)
+            case = f"{layout}:E{E}:G{G}:Q{Q}:W{W}:ks{ks}"
+            check("fused_walk_flat", dtype, case, args)
+            if device == "cpu":
                 continue
-            forms.add(st)
-            check("fused_walk_flat", f"{case}:{'staged' if st else 'unstaged'}", args,
-                  fn=lambda *x, st=st: ops._walk_flat("fused_walk", *x, staged=st)[0])
-    require(device == "cpu" or forms == {True, False}, "the in-place walk sweep misses a form")
-    for nleaf, E, G, Q, W, ks, kt in [
-        (4, 5, 3, 7, 1, 2, 1), (8, 5, 4, 33, 3, 2, 2), (16, 6, 5, 65, 2, 3, 1),
-        (32, 5, 5, 130, 9, 11, 11), (256, 40, 40 if small else 4000, 512, 5, 2, 2),
-    ]:
-        check("fused_leaf_flat", f"nleaf{nleaf}:E{E}:G{G}:Q{Q}:W{W}:ks{ks}:kt{kt}",
-              flat_leaf_case(nleaf, E, G, Q, W, ks, kt, device))
+            for st in (False, True):
+                if st and not ops.walk_stageable(args[1].span, args[0].shape[1],
+                                                 args[0].element_size()):
+                    continue
+                forms.add(st)
+                check("fused_walk_flat", dtype, f"{case}:{'staged' if st else 'unstaged'}", args,
+                      fn=lambda *x, st=st: ops._walk_flat("fused_walk", *x, staged=st)[0])
+        require(device == "cpu" or forms == {True, False},
+                f"the in-place walk sweep misses a form for {dtype}")
+    for dtype in (torch.float64, torch.float32):
+        for nleaf, E, G, Q, W, ks, kt in [
+            (4, 5, 3, 7, 1, 2, 1), (8, 5, 4, 33, 3, 2, 2), (16, 6, 5, 65, 2, 3, 1),
+            (32, 5, 5, 130, 9, 11, 11), (256, 40, 40 if small else 4000, 512, 5, 2, 2),
+        ]:
+            check("fused_leaf_flat", dtype, f"nleaf{nleaf}:E{E}:G{G}:Q{Q}:W{W}:ks{ks}:kt{kt}",
+                  flat_leaf_case(nleaf, E, G, Q, W, ks, kt, device, dtype))
     return worst
 
 
@@ -814,17 +855,19 @@ def phase_main(args, device, card):
 
     # ---- vs the plain-torch packed executor on the same device and tables
     fused_fe = m._fe
-    m._fe = FlatForestEngine.from_host_tables(
-        m.index, build_packed_host_tables(m.index), executor="packed", device=device)
+    host = build_packed_host_tables(m.index)  # [main-codec] builds its engines on it too
+    m._fe = FlatForestEngine.from_host_tables(m.index, host, executor="packed", device=device)
     m._counter_cursor = {}
     t1 = time.perf_counter()
     F_packed = m.query(ts)
     sync()
     packed_cold_s = time.perf_counter() - t1
+    b0 = m._fe.counters["bytes_moved"]
     t1 = time.perf_counter()
     m.query(ts)
     sync()
     packed_warm_s = time.perf_counter() - t1
+    packed_warm_bytes = m._fe.counters["bytes_moved"] - b0
     m._fe = fused_fe
     m._counter_cursor = {}
     if args.profile:
@@ -841,14 +884,17 @@ def phase_main(args, device, card):
     require(err_sps <= SPS_TOL, f"rfs vs sps: {err_sps}")
     say("main", card=card, fused_vs_packed=err_packed, rfs_vs_sps=err_sps, sps_lixels=len(ids),
         sps_s=round(sps_s, 3), packed_cold_s=round(packed_cold_s, 4),
-        packed_warm_s=round(packed_warm_s, 4))
-    return m, ts, F, launches, dict(cold_s=cold_s, warm_s=warm_s)
+        packed_warm_s=round(packed_warm_s, 4), packed_warm_bytes_moved=packed_warm_bytes)
+    return m, ts, F, launches, dict(cold_s=cold_s, warm_s=warm_s, host=host,
+                                    packed_warm_bytes=packed_warm_bytes)
 
 
-def phase_main_shapes(m, ts, device, card):
+def phase_main_shapes(m, ts, device, card, *, form_npads=(64, 128), tag="main-shapes"):
     """The kernel at the shapes the main path gave it, on the window table in
-    place: every atom pack of the plan is compared with the plain version;
-    the largest is timed in both forms (walk_forms)."""
+    place (in the engine's table codec): every atom pack of the plan is
+    compared with the plain version; the largest is timed in both forms
+    (walk_forms), and so is the largest pack of each npad in
+    ``form_npads``."""
     from repro_torch.kernels import ops
 
     fe = m._fe
@@ -870,27 +916,107 @@ def phase_main_shapes(m, ts, device, card):
     kargs = biggest
     G, Q = kargs[2].shape
     npad = int(kargs[1].span)
+    isz = table.element_size()
     shape = dict(G=G, npad=npad, rows=table.shape[0], Q=Q, W=len(ts), k_s=kargs[5].shape[2],
-                 staged=ops.walk_staged(npad, table.shape[1]))
+                 table_dtype=str(table.dtype).removeprefix("torch."),
+                 staged=ops.walk_staged(npad, table.shape[1], isz))
     bound = fused_walk_bound(kargs)
     (fa, fr), timing = walk_forms("fused_walk", kargs, device)
     worst_abs, worst_rel = max(worst_abs, fa), max(worst_rel, fr)
-    say("main-shapes", card=card, packs=len(packs), max_abs_err=worst_abs, max_rel_err=worst_rel,
+    say(tag, card=card, packs=len(packs), max_abs_err=worst_abs, max_rel_err=worst_rel,
         walk_and_compare_all_packs_s=round(t_kernel, 4), timed_shape=json.dumps(shape),
         **timing, **{k: v for k, v in bound.items() if k not in ("bound_ms", "bound_by")})
-    # the two forms at the other RFS block sizes below the tree's 163 KB:
-    # npad 64 (~40 KB) and npad 128 (~80 KB), both staged by default
-    for npad in (64, 128):
+    # the two forms at other RFS block sizes: for f64 npad 64 (~40 KB) and
+    # 128 (~80 KB), both staged by default; for the narrow tables the npads
+    # whose blocks a narrow table brings under WALK_STAGE_MAX bytes, which
+    # walk_staged leaves unstaged (it counts the block's f64 bytes)
+    for npad in form_npads:
         sized = [e for e in packs if int(e["index"].span) == npad]
         if not sized:
             continue
         e = max(sized, key=lambda e: e["r_lo"].numel())
         kargs = (table, e["index"], e["r_lo"], e["r_hi"], e["side"], e["qs"])
         _, t = walk_forms("fused_walk", kargs, device)
-        say("main-shapes", card=card, forms_at_npad=npad, G=kargs[2].shape[0], Q=kargs[2].shape[1],
-            stage_bytes=ops.walk_stage_bytes(npad, table.shape[1]), **t,
+        say(tag, card=card, forms_at_npad=npad, G=kargs[2].shape[0], Q=kargs[2].shape[1],
+            stage_bytes=ops.walk_stage_bytes(npad, table.shape[1], isz), **t,
             bound_ms=fused_walk_bound(kargs)["bound_ms"])
     return worst_abs, worst_rel, shape, bound, timing
+
+
+# -------------------------------------------------- table codec, static RFS
+def table_bytes(t):
+    return int(t.numel()) * t.element_size()
+
+
+def phase_main_codec(m, ts, F64, main, device, card):
+    """``[main]``'s query with the window tables stored by a table codec:
+    for 'f32' and then 'bf16', a fused engine over ``[main]``'s index and
+    host tables (``FlatForestEngine.from_host_tables(..., codec=)``) swapped
+    into the model, a cold and a warm query with the launch counts set to 0
+    just before and read just after. Requires no fallback, the narrow dtype
+    in the cached window table, launches of that dtype's instantiation only
+    (one per pack per query), the answer within CODEC_TOL of ``[main]``'s f64
+    one, warm ``bytes_moved`` ≤ BYTES_GATE × the f64 packed executor's; then
+    every pack against the plain version and the largest timed
+    (``[main-codec-shapes]``). Returns per codec the launches, seconds and
+    the shapes' (abs, rel, shape, bound, timing)."""
+    from repro_torch.core.rfs import FlatForestEngine
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    fused_fe, out = m._fe, {}
+    fmax = float(np.abs(F64).max())
+    # npads whose edge block a narrow table brings under WALK_STAGE_MAX bytes
+    form_npads = dict(f32=(256,), bf16=(256, 512))
+    for codec, dtype in CODEC_DTYPES.items():
+        dt = str(dtype).removeprefix("torch.")
+        fe = FlatForestEngine.from_host_tables(m.index, main["host"], executor="fused",
+                                               device=device, codec=codec)
+        require(fe.codec.name == codec and fe.codec.fallback_reason is None,
+                f"[main-codec] {codec} fell back: {fe.codec.fallback_reason}")
+        m._fe, m._counter_cursor = fe, {}
+        # ---- the path: counts set to 0 here, read right after the warm query
+        reset_launches()
+        t1 = time.perf_counter()
+        F_cold = m.query(ts)
+        sync()
+        cold_s = time.perf_counter() - t1
+        b0 = fe.counters["bytes_moved"]
+        t1 = time.perf_counter()
+        F = m.query(ts)
+        sync()
+        warm_s = time.perf_counter() - t1
+        counts, by_dtype = read_launches(), read_launches_by_dtype()
+        warm_bytes = fe.counters["bytes_moved"] - b0
+        launches = counts.pop("fused_walk")
+        n_packs = len(fe._pack_cache.get(((m.epoch, m.ls), "fused")))
+        require(not any(counts.values()), f"[main-codec] launched another kernel: {counts}")
+        if device != "cpu":
+            require(by_dtype["fused_walk"][dt] == launches == 2 * n_packs,
+                    f"[main-codec] {codec}: fused_walk launches {by_dtype['fused_walk']} "
+                    f"for {n_packs} packs")
+        tab = fe._tab_cache.get((tuple(ts), "fused", codec))
+        require(tab is not None and tab.dtype == dtype, f"[main-codec] window table is not {dt}")
+        require(np.array_equal(F, F_cold), f"[main-codec] {codec}: warm query differs from cold")
+        require(np.array_equal(F[1], F[4]), f"[main-codec] {codec}: duplicate centres differ")
+        err = float(np.abs(F - F64).max()) / fmax
+        require(0.0 < err <= CODEC_TOL[codec], f"[main-codec] {codec} vs f64: {err}")
+        ratio = warm_bytes / main["packed_warm_bytes"]
+        require(0.0 < ratio <= BYTES_GATE, f"[main-codec] {codec} warm bytes_moved ratio {ratio}")
+        say("main-codec", card=card, codec=codec, table_dtype=dt, launches=launches,
+            codec_vs_f64=err, tol=CODEC_TOL[codec], warm_bytes_moved=warm_bytes,
+            bytes_vs_packed_f64=ratio, window_table_bytes=table_bytes(tab),
+            device_bytes=fe.device_bytes, cold_s=round(cold_s, 4), warm_s=round(warm_s, 4))
+        shapes = phase_main_shapes(m, ts, device, card, form_npads=form_npads[codec],
+                                   tag="main-codec-shapes")
+        out[codec] = dict(launches=launches, secs=dict(cold_s=cold_s, warm_s=warm_s),
+                          shapes=shapes, err=err)
+        m._fe, m._counter_cursor = fused_fe, {}
+        del fe, tab
+        free(device)
+    return out
 
 
 # ------------------------------------------------ kernel tier, static RFS
@@ -1179,12 +1305,14 @@ DRFS_CALLS = dict(fused_leaf="fused_leaf_flat", fused_walk="fused_walk_flat",
                   dyn_leaf_query="dyn_leaf_query_flat", dyn_node_walk="dyn_node_walk_flat")
 
 
-def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes"):
+def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes",
+                      modes=(False, True)):
     """Both DRFS kernels of the executor at the shapes the path gave them:
-    every atom block of the last epoch's plan, in both modes, with the
-    arguments the flush builds (the window table in place), against the
-    plain version; the largest block of each kernel is timed (the walk in
-    both forms), with L2 flushed."""
+    every atom block of the last epoch's plan, in each of ``modes`` (exact
+    or not), with the arguments the flush builds (the window table in place,
+    in the engine's table codec), against the plain version; the largest
+    block of each kernel is timed (the walk in both forms), with L2
+    flushed."""
     from repro_torch.core.rfs import dyn_kernel_call
     from repro_torch.kernels import ops
 
@@ -1200,6 +1328,8 @@ def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes
         flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)  # 256 MB > L2
     result = {}
     for exact, name in enumerate(DRFS_KERNELS[executor]):
+        if bool(exact) not in modes:
+            continue
         tables = fe.window_tables(wb, tuple(ts), snap, sealed, hq, bool(exact))
         worst_abs = worst_rel = 0.0
         biggest, big_n = None, -1
@@ -1216,8 +1346,9 @@ def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes
                 biggest, big_n = (got_name, kargs, kw, tuple(entry["side"].shape)), n
             del tab, kargs
         got_name, kargs, kw, (G, Q) = biggest
-        shape = dict(G=G, Q=Q, table=list(kargs[0].shape), W=len(ts), k_s=int(m.ctx.k_s),
-                     k_t=int(m.ctx.k_t), hq=hq)
+        shape = dict(G=G, Q=Q, table=list(kargs[0].shape),
+                     table_dtype=str(kargs[0].dtype).removeprefix("torch."), W=len(ts),
+                     k_s=int(m.ctx.k_s), k_t=int(m.ctx.k_t), hq=hq)
         timing = dict(ms=None, plain_ms=None)
         if exact:
             bound = fused_walk_bound(kargs)
@@ -1235,6 +1366,117 @@ def phase_drfs_shapes(m, ts, device, card, *, executor="fused", tag="drfs-shapes
         result[name] = (worst_abs, worst_rel, shape, bound, timing)
         del biggest, kargs, tables
     return result
+
+
+# --------------------------------------------------- table codec, DRFS
+def phase_drfs_codec(args, device, card):
+    """The streaming index at ``[drfs]``'s configuration (the first 90 % of
+    the events, ``drfs_depth=8``, ``auto_seal=False``, the same horizon),
+    base epoch only, no inserts: the f64 fused answers in both modes, then
+    for each executor ('fused', 'kernel') an engine with ``codec='f32'``
+    (quantized and exact) and one with ``'bf16'`` (exact: the bf16 preset's
+    leaf moments are float32, as under 'f32') swapped into the model, a cold
+    and a warm query per mode with the launch counts set to 0 just before
+    and read just after. The requirements of ``[main-codec]``, against the
+    f64 answers at the same snapshot; the warm ``bytes_moved`` against the
+    f64 engine's, which counts the same gathers at the same row bytes as
+    the f64 packed executor. Then every block against the plain version and
+    the largest timed (``[drfs-codec-shapes]``). Returns {(kernel, table
+    dtype): dict(launches, secs, err, shapes)}."""
+    from repro_torch.core import TNKDE
+    from repro_torch.core.events import Events
+    from repro_torch.core.rfs import FlatDynamicEngine
+    from repro_torch.data.spatial import make_dataset
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    net, ev, _ = make_dataset("berkeley", scale=args.scale, seed=args.seed)
+    sel = np.argsort(ev.time, kind="stable")[: int(0.9 * ev.n)]
+    t_min = float(ev.time.min())
+    span = float(ev.time.max()) - t_min
+    ts = [t_min + f * span for f in DRFS_FRACS]
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    m = TNKDE(net, Events(ev.edge_id[sel], ev.pos[sel], ev.time[sel]), g=50.0, b_s=800.0,
+              b_t=0.2 * span, solution="drfs", engine="torch", executor="fused", drfs_depth=8,
+              auto_seal=False, horizon_s=0.9 * span, device=device)
+    f64_fe = m._fe
+    F64, bytes64 = {}, {}
+    for exact in (False, True):
+        m.drfs_exact_leaf = exact
+        F64[exact] = m.query(ts)
+        b0 = f64_fe.counters["bytes_moved"]
+        require(np.array_equal(m.query(ts), F64[exact]), "[drfs-codec] f64: warm != cold")
+        bytes64[exact] = f64_fe.counters["bytes_moved"] - b0
+    snap = m.snapshot()
+    hq = snap.depth
+    n_blocks = m._host_plan(snap).n_blocks
+    say("drfs-codec", card=card, base_events=len(sel), epoch=list(m.epoch), blocks=n_blocks,
+        f64_device_bytes=f64_fe.device_bytes, setup_s=round(time.perf_counter() - t0, 3))
+    out = {}
+    for executor in ("fused", "kernel"):
+        for codec, modes in (("f32", (False, True)), ("bf16", (True,))):
+            fe = FlatDynamicEngine(m.index, executor=executor, device=device, codec=codec)
+            require(fe.codec.name == codec and fe.codec.fallback_reason is None,
+                    f"[drfs-codec] {codec} fell back: {fe.codec.fallback_reason}")
+            m._fe, m._counter_cursor = fe, {}
+            for exact in modes:
+                m.drfs_exact_leaf = exact
+                kern = DRFS_KERNELS[executor][int(exact)]
+                dtype = CODEC_DTYPES[codec] if exact else torch.float32  # the moment dtype
+                dt = str(dtype).removeprefix("torch.")
+                mode = "exact" if exact else "quantized"
+                # ---- the path: counts set to 0 here, read right after the warm query
+                reset_launches()
+                t1 = time.perf_counter()
+                F_cold = m.query(ts)
+                sync()
+                cold_s = time.perf_counter() - t1
+                b0 = fe.counters["bytes_moved"]
+                t1 = time.perf_counter()
+                F = m.query(ts)
+                sync()
+                warm_s = time.perf_counter() - t1
+                counts, by_dtype = read_launches(), read_launches_by_dtype()
+                warm_bytes = fe.counters["bytes_moved"] - b0
+                launches = counts.pop(kern)
+                require(not any(counts.values()), f"[drfs-codec] launched another kernel: {counts}")
+                if device != "cpu":
+                    require(by_dtype[kern][dt] == launches == 2 * n_blocks,
+                            f"[drfs-codec] {executor} {codec} {mode}: {kern} launches "
+                            f"{by_dtype[kern]} for {n_blocks} blocks")
+                (tab,) = fe._tab_cache[(tuple(ts), snap.revision, snap.depth, hq, exact, codec)]
+                require(tab.dtype == dtype, f"[drfs-codec] {mode} window table is {tab.dtype}")
+                require(np.array_equal(F, F_cold), f"[drfs-codec] {codec} {mode}: warm != cold")
+                require(np.array_equal(F[1], F[4]), f"[drfs-codec] {codec} {mode}: duplicate "
+                        "window centres differ")
+                err = float(np.abs(F - F64[exact]).max()) / float(np.abs(F64[exact]).max())
+                require(0.0 < err <= CODEC_TOL[codec], f"[drfs-codec] {codec} {mode} vs f64: {err}")
+                ratio = warm_bytes / bytes64[exact]
+                require(0.0 < ratio <= BYTES_GATE,
+                        f"[drfs-codec] {codec} {mode} warm bytes_moved ratio {ratio}")
+                say("drfs-codec", card=card, executor=executor, codec=codec, mode=mode,
+                    table_dtype=dt, kernel=kern, launches=launches, codec_vs_f64=err,
+                    tol=CODEC_TOL[codec], warm_bytes_moved=warm_bytes, bytes_vs_f64=ratio,
+                    window_table_bytes=table_bytes(tab), device_bytes=fe.device_bytes,
+                    cold_s=round(cold_s, 4), warm_s=round(warm_s, 4))
+                out[kern, dt] = dict(launches=launches, err=err, codec=codec,
+                                     secs=dict(cold_s=cold_s, warm_s=warm_s))
+                del tab
+            shapes = phase_drfs_shapes(m, ts, device, card, executor=executor,
+                                       tag="drfs-codec-shapes", modes=modes)
+            for kern, res in shapes.items():
+                out[kern, res[2]["table_dtype"]]["shapes"] = res
+            m._fe, m._counter_cursor = f64_fe, {}
+            del fe
+            free(device)
+    peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
+    say("drfs-codec", card=card, max_memory_allocated=peak,
+        seconds=round(time.perf_counter() - t0, 1))
+    return out
 
 
 def minplus_case(M, K, N, dtype, device, seed):
@@ -1978,9 +2220,12 @@ def main():
     t1 = time.perf_counter()
     m, ts, F_main, launches, secs = phase_main(args, device, card)
     abs2, rel2, shape, bound, timing = phase_main_shapes(m, ts, device, card)
-    del m
-    free(device)
     say("main", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
+    main_codec = phase_main_codec(m, ts, F_main, secs, device, card)
+    del m, secs["host"]
+    free(device)
+    say("main-codec", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
     km, tq_launches, tq_secs = phase_rfs_kernel(args, device, card, ts, F_main)
     tq_shapes = phase_rfs_kernel_shapes(km, ts, device, card)
@@ -2005,6 +2250,10 @@ def main():
     free(device)
     say("kernel", path="drfs", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
+    drfs_codec = phase_drfs_codec(args, device, card)
+    free(device)
+    say("drfs-codec", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
     mp_launches, mp_abs, mp_rel, mp_shape, mp_bound, mp_timing, mp_waves = phase_minplus(
         args, device, card)
     free(device)
@@ -2021,12 +2270,17 @@ def main():
         require(tq_launches > 0, "the rfs kernel path never launched tree_query")
         require(mp_launches > 0, "the shortest-path path never launched minplus_matmul")
         require(lm_launches > 0, "the lm prefill path never launched flash_attention")
+        require(all(r["launches"] > 0 for r in main_codec.values()),
+                "a [main-codec] path never launched its fused_walk instantiation")
+        require(all(r["launches"] > 0 for r in drfs_codec.values()),
+                "a [drfs-codec] path never launched its kernel instantiation")
 
-    def entry(name, path, n, err_abs, err_rel, shp, bnd, tm, replaces, source=None, **extra):
+    def entry(name, path, n, err_abs, err_rel, shp, bnd, tm, replaces, source=None,
+              table_dtype="float64", **extra):
         # the walk's two forms, timed in turns at the same shape (walk_forms)
         forms = {k: tm[k] for k in ("kept", "ms_staged", "ms_unstaged") if k in tm}
         return dict(
-            name=name, route="cuda", path=path,
+            name=name, route="cuda", path=path, table_dtype=table_dtype,
             source=f"src/repro_torch/kernels/csrc/{source or name}.cu", replaces=replaces,
             launches=n, max_abs_err=err_abs, max_rel_err=err_rel,
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
@@ -2047,8 +2301,8 @@ def main():
     kw_ = {k: kworst[k] for k in ("tree_query", "dyn_node_walk")}
     kw_["dyn_leaf_query"] = kworst["dyn_leaf_query_flat"]
     ga, gr = kworst["dyn_leaf_query"]
-    fwa, fwr = flat_worst["fused_walk_flat"]
-    fla, flr = flat_worst["fused_leaf_flat"]
+    fwa, fwr = flat_worst["fused_walk_flat", "float64"]
+    fla, flr = flat_worst["fused_leaf_flat", "float64"]
     kernels = [
         entry("fused_walk", "rfs", launches, max(abs1, abs2, fwa), max(rel1, rel2, fwr), shape,
               bound, timing, "src/repro/kernels/fused_walk.py:86",
@@ -2081,6 +2335,36 @@ def main():
               fl_timing, "src/repro/kernels/flash_attention.py:72",
               main_path=dict(arch="qwen2.5-3b", **lm_secs, **lm_checks)),
     ]
+    # one entry per (kernel, path, table dtype) a table codec ran: the error
+    # is the worst of the path's blocks and of the in-place sweep of that dtype
+    for codec, dtype in CODEC_DTYPES.items():
+        dt = str(dtype).removeprefix("torch.")
+        r = main_codec[codec]
+        ca, cr, cshape, cbound, ctiming = r["shapes"]
+        sa, sr = flat_worst["fused_walk_flat", dt]
+        kernels.append(entry("fused_walk", f"rfs-codec-{codec}", r["launches"], max(ca, sa),
+                             max(cr, sr), cshape, cbound, ctiming,
+                             "src/repro/kernels/fused_walk.py:86", table_dtype=dt,
+                             main_path=dict(scale=args.scale, codec=codec, codec_vs_f64=r["err"],
+                                            **r["secs"])))
+    drfs_paths = dict(fused_walk=("drfs-exact", "src/repro/kernels/fused_walk.py:86", None,
+                                  "fused_walk_flat"),
+                      fused_leaf=("drfs-quantized", "src/repro/kernels/fused_walk.py:177", None,
+                                  "fused_leaf_flat"),
+                      dyn_node_walk=("drfs-kernel-exact", "src/repro/kernels/dyn_query.py:148",
+                                     "fused_walk", "fused_walk_flat"),
+                      dyn_leaf_query=("drfs-kernel-quantized", "src/repro/kernels/dyn_query.py:59",
+                                      "fused_leaf", "fused_leaf_flat"))
+    for (kern, dt), r in drfs_codec.items():  # bf16 runs exact mode only
+        path, replaces, source, sweep = drfs_paths[kern]
+        codec = r["codec"]
+        ca, cr, cshape, cbound, ctiming = r["shapes"]
+        sa, sr = flat_worst[sweep, dt]
+        kernels.append(entry(kern, f"{path}-codec-{codec}", r["launches"], max(ca, sa),
+                             max(cr, sr), cshape, cbound, ctiming, replaces, source=source,
+                             table_dtype=dt,
+                             main_path=dict(scale=args.scale, codec=codec,
+                                            codec_vs_f64=r["err"], **r["secs"])))
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.cpu_rehearsal:

@@ -73,6 +73,7 @@ from .torch_engine import (
     FlatAtoms,
     FlatDynamicForest,
     FlatForest,
+    TableCodec,
     WindowBatch,
     _dyn_leaf_range,
     dyn_node_base,
@@ -742,10 +743,17 @@ class FlatForestEngine(_DeviceEngine):
     heatmap (float64 — exactness is part of the paper's claim), transferred
     once per query. ``device`` defaults to ``'cuda'``; with no card the
     constructor raises (pass ``device='cpu'`` for the plain-torch path).
+
+    ``codec`` (:class:`torch_engine.TableCodec`) sets the storage dtype of
+    the packed and fused executors' node-value window tables, validated
+    once against the host prefix moments (a failed round trip falls back to
+    f64 in place: ``codec.fallback_reason``). The ``kernel`` executor reads
+    the raw f64 forest, as the reference's pallas tier does: its codec is
+    the identity whatever was asked.
     """
 
     def __init__(self, rf: RangeForest, *, executor: str = "packed",
-                 device="cuda", host_tables: dict = None):
+                 device="cuda", host_tables: dict = None, codec="auto"):
         self._init_device(device)
         if executor in ("auto", None):
             executor = "packed"
@@ -753,6 +761,7 @@ class FlatForestEngine(_DeviceEngine):
             raise ValueError(f"unknown rfs executor {executor!r}")
         self.rf = rf
         self.executor = executor
+        self.codec = TableCodec("f64" if executor == "kernel" else codec)
         self.max_levels = max(rf.max_levels, 1)
         npmax = max(int(rf.n_pad.max(initial=1)), 1)
         nemax = max(int(np.diff(rf.ee.ptr).max(initial=1)), 1)
@@ -764,17 +773,20 @@ class FlatForestEngine(_DeviceEngine):
             self._flat = self._flat_forest()
         else:
             host = build_packed_host_tables(rf) if host_tables is None else host_tables
+            # build-time round trip of the f64 prefix moments: a codec that
+            # cannot hold this forest degrades to f64 in place
+            self.codec.validate(host["pm_cum"])
             pf, meta = packed_forest_from_numpy(host, self.device)
             self._packed = dict(pf=pf, **meta)
 
     @classmethod
     def from_host_tables(cls, rf: RangeForest, host: dict, *,
-                         executor: str = "packed", device="cuda"):
+                         executor: str = "packed", device="cuda", codec="auto"):
         """Engine over index state built elsewhere: ``host`` is the dict
         ``build_packed_host_tables`` returns (this package's or the
         reference's); ``rf`` supplies the block sizes and the context. The
         ``kernel`` executor reads ``rf``'s time-major tables instead."""
-        return cls(rf, executor=executor, device=device, host_tables=host)
+        return cls(rf, executor=executor, device=device, host_tables=host, codec=codec)
 
     def _flat_forest(self) -> FlatForest:
         """The RangeForest's time-major tables on the device (the ``kernel``
@@ -923,10 +935,11 @@ class FlatForestEngine(_DeviceEngine):
 
         packed / fused: q_t-folded paired node values (the plan's core hoist
         — every time search and every per-node prefix gather happens HERE,
-        at node count scale, never per atom). kernel: the [3, W, E]
-        time-rank boundary table shared by every flush of the query.
+        at node count scale, never per atom), stored in the codec's fold
+        dtype. kernel: the [3, W, E] time-rank boundary table shared by
+        every flush of the query.
         """
-        key = (ts_key, self.executor)
+        key = (ts_key, self.executor, self.codec.name)
         hit = self._tab_cache.get(key)
         if hit is not None:
             return hit
@@ -941,11 +954,13 @@ class FlatForestEngine(_DeviceEngine):
         tabs = packed_node_tables(
             pk["pf"], wb, pk["node_starts"],
             steps_per_level=pk["steps_per_level"], k_t=int(self.rf.ctx.k_t),
+            out_dtype=self.codec.fold_dtype,
         )
         nn = max(pk["n_nodes"], 1)
         self.counters["rank_searches"] += 3 * W * nn
         self.counters["moment_gathers"] += 3 * W * nn
-        # fold gathers read paired raw-Φ prefix rows from the f64 tables
+        # fold gathers read paired raw-Φ prefix rows from the f64 host-layout
+        # tables (the codec shrinks only the derived window tables)
         self.counters["bytes_moved"] += 3 * W * nn * N_COMBOS * K * 8
         self._tab_cache.put(key, tabs)
         return tabs
@@ -965,8 +980,9 @@ class FlatForestEngine(_DeviceEngine):
         packs = self._atom_packs(plan)
         W = len(ts_key)
         k_s = self.rf.ctx.k_s
-        # the per-atom walk gathers q_t-folded node-value rows [W, 2k_s] f64
-        row_bytes = W * 2 * k_s * 8
+        # the per-atom walk gathers q_t-folded node-value rows [W, 2k_s] in
+        # the codec's fold dtype — the bytes-per-gather knob
+        row_bytes = W * 2 * k_s * self.codec.fold_itemsize
         pk = self._packed
         for entry in packs:
             c, m = entry["max_levels"], entry["m"]
@@ -1091,10 +1107,17 @@ class FlatDynamicEngine(_DeviceEngine):
     mode (partial boundary leaves dropped, paper §5.2) and the exact-leaf
     mode run on the device; scan work is accounted into the forest's
     counters host-side (same units as the NumPy path).
+
+    ``codec`` (:class:`torch_engine.TableCodec`) sets the storage dtype of
+    the window tables of every executor — the fold dtype for exact mode's
+    node values, the moment dtype for quantized mode's delta-encoded leaf
+    prefix — validated once, against the first sealed epoch's prefix
+    moments (a failed round trip falls back to f64 in place:
+    ``codec.fallback_reason``).
     """
 
     def __init__(self, df, *, max_snapshots: int = 2, executor: str = "packed",
-                 device="cuda"):
+                 device="cuda", codec="auto"):
         self._init_device(device)
         if executor in ("auto", None):
             executor = "packed"
@@ -1102,10 +1125,12 @@ class FlatDynamicEngine(_DeviceEngine):
             raise ValueError(f"unknown drfs executor {executor!r}")
         self.df = df
         self.executor = executor
+        self.codec = TableCodec(codec)
+        self._codec_checked = False
         self.max_snapshots = max(int(max_snapshots), 1)
         self._sealed_packs = OrderedDict()  # (revision, depth) -> _SealedPack
         self._pend_packs = OrderedDict()  # pend_revision -> _PendPack
-        # (ts_key, revision, depth, hq, exact) -> window tables
+        # (ts_key, revision, depth, hq, exact, codec) -> window tables
         self._tab_cache = OrderedDict()
         # plan.key -> device atom packs (epoch-independent: the atoms and the
         # grouped kernel layout derive from the plan's host blocks only)
@@ -1139,6 +1164,11 @@ class FlatDynamicEngine(_DeviceEngine):
             cum_lvl[d * Np : d * Np + N] = cum
             ptr_parts.append(nptr)
             max_occ[d] = int(np.diff(nptr).max(initial=0))
+        if not self._codec_checked:
+            # build-time round trip of the f64 prefix moments: a codec that
+            # cannot hold this forest degrades to f64 in place
+            self.codec.validate(cum_lvl)
+            self._codec_checked = True
         pack = _SealedPack()
         pack.tables = dict(
             time_lvl=self._f64(time_lvl),
@@ -1250,10 +1280,11 @@ class FlatDynamicEngine(_DeviceEngine):
         every WARM QUERY over the same centers — costs O(1) table gathers
         per atom. Quantized mode: leaf prefix tables
         (:func:`torch_engine.dyn_window_tables`); exact mode: node-value
-        tables (:func:`torch_engine.dyn_node_tables`). They depend only on
-        the sealed structure, never on the pending buffers.
+        tables (:func:`torch_engine.dyn_node_tables`), stored in the codec's
+        moment resp. fold dtype. They depend only on the sealed structure,
+        never on the pending buffers.
         """
-        key = (ts_key, snap.revision, snap.depth, int(hq), bool(exact))
+        key = (ts_key, snap.revision, snap.depth, int(hq), bool(exact), self.codec.name)
         hit = self._tab_cache.get(key)
         if hit is not None:
             self._tab_cache.move_to_end(key)
@@ -1269,11 +1300,12 @@ class FlatDynamicEngine(_DeviceEngine):
         if exact:
             spl = tuple(steps(o) for o in sealed.max_occ[: hq + 1])
             tabs = (dyn_node_tables(forest, wb, n_levels=sealed.n_levels, hq=int(hq),
-                                    steps_per_level=spl),)
+                                    steps_per_level=spl, out_dtype=self.codec.fold_dtype),)
             nn = E * ((1 << (hq + 1)) - 1)
         else:
             tabs = (dyn_window_tables(forest, wb, n_levels=sealed.n_levels, hq=int(hq),
-                                      search_steps=steps(sealed.max_occ[hq])),)
+                                      search_steps=steps(sealed.max_occ[hq]),
+                                      out_dtype=self.codec.moment_dtype),)
             nn = E * (1 << hq)
         self.counters["rank_searches"] += 3 * W * nn
         self.counters["moment_gathers"] += 3 * W * nn
@@ -1368,9 +1400,10 @@ class FlatDynamicEngine(_DeviceEngine):
         forest = self._forest(sealed, pend)
         K = snap.ctx.K
         k_s = snap.ctx.k_s
-        # exact mode walks node-value rows [W, 2k_s]; quantized mode
-        # differences two leaf-prefix rows [W, 2K] per atom
-        row_bytes = W * 2 * k_s * 8 if exact else W * 2 * K * 8
+        # exact mode walks codec-sized node-value rows [W, 2k_s]; quantized
+        # mode differences two codec-sized leaf-prefix rows [W, 2K] per atom
+        row_bytes = (W * 2 * k_s * self.codec.fold_itemsize if exact
+                     else W * 2 * K * self.codec.moment_itemsize)
         scan_kw = dict(n_levels=sealed.n_levels, hq=int(hq), scan_steps=int(scan_steps),
                        pend_steps=int(pend.pend_steps), exact=exact)
         for entry in self._atom_packs(plan):

@@ -5,6 +5,7 @@ pruning, Lixel Sharing classification, atom planning, and the solutions this
 package serves so far:
 
   solution='sps'   index-free direct evaluation              (§3.2 baseline)
+  solution='ada'   aggregate distance augmentation (SOTA)    (§3.2, per-window index)
   solution='rfs'   range forest (static, exact)              (§4)
   solution='drfs'  dynamic range forest (streaming, ~exact)  (§5)
 
@@ -24,7 +25,7 @@ a level (``extend``) and answers against pinned snapshots
                   ``'cuda'``; with no card the constructor raises — pass
                   ``device='cpu'`` for the plain-torch path on the host).
   engine='numpy'  the host reference path (one eval_atoms pass per window)
-  engine='auto'   'torch' for rfs/drfs, 'numpy' for sps. A device engine
+  engine='auto'   'torch' for rfs/drfs, 'numpy' for sps/ada. A device engine
                   that cannot be built raises; there is no fallback.
 
 ``executor`` picks the device executor over the packed query plan:
@@ -40,6 +41,15 @@ Every query reuses the plan cached for its (epoch, LS) pair — warm queries
 skip planning entirely — and window-side tables cached by the ts tuple
 (DESIGN.md §7).
 
+``table_codec`` picks the storage dtype of the device window tables
+(``torch_engine.TableCodec``): 'auto'/'f64' (exact tier), 'f32' or 'bf16'
+(float32 / bfloat16 node values; DRFS quantized mode stores float32
+delta-encoded leaf prefixes under both). The tables are validated at build
+and fall back to f64 in place when they cannot hold the index
+(``table_codec_used.fallback_reason``); the arithmetic stays float64. RFS
+``executor='kernel'`` reads the raw f64 forest, so the codec does not reach
+it; ``engine='numpy'`` ignores it.
+
 What the reference package (``repro.core.tnkde``) serves and this one does
 not yet raises ``NotImplementedError`` naming its ROADMAP.md queue item —
 never a silent different path.
@@ -52,6 +62,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from .ada import AggregateDistanceIndex
 from .aggregation import build_event_moments
 from .drfs import DynamicRangeForest
 from .events import (
@@ -74,11 +85,6 @@ __all__ = ["TNKDE", "PendingQuery", "QueryStats"]
 
 # arguments and methods of the reference that later slices of the port bring
 _LATER = {
-    "ada": "solution='ada' (per-window linear index): ROADMAP.md Queue A3",
-    "table_codec": (
-        "table_codec other than 'auto'/'f64' (TableCodec, and for DRFS the "
-        "delta-encoded leaf prefix of dyn_window_tables of Queue A4): ROADMAP.md Queue A3"
-    ),
     "mesh": "mesh= (sharded forest): ROADMAP.md Queue A8",
     "search": "executor='search' (legacy executor): ROADMAP.md Queue A5",
     "cascade": "executor='cascade' (legacy executor): ROADMAP.md Queue A5",
@@ -145,9 +151,7 @@ class TNKDE:
         atom_flush: int = 400_000,
         device="cuda",
     ):
-        if solution == "ada":
-            raise NotImplementedError(_LATER[solution])
-        if solution not in ("sps", "rfs", "drfs"):
+        if solution not in ("sps", "ada", "rfs", "drfs"):
             raise ValueError(f"unknown solution {solution!r}")
         if engine not in ("auto", "numpy", "torch"):
             raise ValueError(f"unknown engine {engine!r} (this package: 'auto', 'numpy', 'torch')")
@@ -162,14 +166,12 @@ class TNKDE:
             raise NotImplementedError(_LATER[executor])
         if executor not in ("auto", "packed", "fused", "kernel"):
             raise ValueError(f"unknown executor {executor!r}")
-        if table_codec in ("f32", "bf16"):
-            raise NotImplementedError(_LATER["table_codec"])
-        if table_codec not in ("auto", "f64"):
+        if table_codec not in ("auto", "f64", "f32", "bf16"):
             raise ValueError(f"unknown table_codec {table_codec!r}")
         if mesh is not None:
             raise NotImplementedError(_LATER["mesh"])
         if lixel_sharing and solution == "sps":
-            raise ValueError("lixel sharing needs an aggregation index (rfs/drfs)")
+            raise ValueError("lixel sharing needs an aggregation index (ada/rfs/drfs)")
         if horizon_s is not None:
             if solution != "drfs":
                 raise ValueError("horizon_s= (sliding time horizon) requires solution='drfs'")
@@ -203,8 +205,11 @@ class TNKDE:
             self.index = DynamicRangeForest(
                 net, self.ee, self.ctx, phi, depth=drfs_depth, auto_seal=auto_seal
             )
+        elif solution == "ada":
+            self.index = AggregateDistanceIndex(net, self.ee, self.ctx)
         self._engine_req = engine
         self._executor_req = executor
+        self.table_codec = table_codec
         self._build_engine()
         # cumulative consumption cursors over the index/engine work counters
         # (see _consume_counters)
@@ -233,7 +238,8 @@ class TNKDE:
             from .rfs import FlatDynamicEngine, FlatForestEngine
 
             cls = FlatForestEngine if self.solution == "rfs" else FlatDynamicEngine
-            self._fe = cls(self.index, executor=self._executor_req, device=self.device)
+            self._fe = cls(self.index, executor=self._executor_req, device=self.device,
+                           codec=self.table_codec)
             self.engine = "torch"
         self._plan_cache = PlanCache(2)
 
@@ -250,6 +256,16 @@ class TNKDE:
         if self._fe is None:
             return "numpy"
         return f"{self.engine}/{self._fe.executor}"
+
+    @property
+    def table_codec_used(self):
+        """The ``torch_engine.TableCodec`` the device engine's window tables
+        are stored in: its ``name`` ('f64', 'f32', 'bf16') and, where the
+        narrow codec asked for could not hold the index and fell back to f64
+        at build, its ``fallback_reason``. RFS ``executor='kernel'`` reads the
+        raw forest: 'f64' whatever was asked. None on the host path
+        (``engine='numpy'``, sps, ada), which keeps f64 host tables."""
+        return None if self._fe is None else self._fe.codec
 
     @property
     def epoch(self):

@@ -40,7 +40,11 @@ Differences from the reference that matter to a reader:
 * contractions over the small feature axes are unrolled multiply-adds, not
   ``einsum``/``matmul``: elementwise kernels do the same arithmetic for
   every output element, so duplicate window centers come out bitwise
-  identical on the GPU as well.
+  identical on the GPU as well;
+* a :class:`TableCodec` narrows only what the window tables *store*
+  (float32 / bfloat16 rows); every executor widens each gathered row to
+  float64 before it adds anything, where the reference computes in the
+  table's dtype.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ __all__ = [
     "FlatDynamicForest",
     "FlatForest",
     "PackedForest",
+    "TableCodec",
     "WindowBatch",
     "dyn_node_base",
     "dyn_node_tables",
@@ -71,6 +76,102 @@ __all__ = [
 # [3, W, chunk, 4, K] prefix gather (the level-0 fold of a full-size forest
 # would otherwise materialise several GB at once)
 FOLD_CHUNK = 1 << 18
+
+# fold   = dtype of the q_t-folded node-value tables (nodeval rows)
+# moment = dtype of the leaf-prefix moment tables (quantized DRFS lcum)
+# rtol   = build-time round-trip tolerance vs the f64 host tables; a table
+#          whose cast loses more than this falls back to f64
+_CODEC_PRESETS = {
+    "f64": dict(fold=None, moment=None, rtol=0.0),
+    "f32": dict(fold=torch.float32, moment=torch.float32, rtol=1e-5),
+    "bf16": dict(fold=torch.bfloat16, moment=torch.float32, rtol=2e-2),
+}
+
+
+class TableCodec:
+    """Storage dtype of the window tables the executors gather from (the
+    reference's ``jax_engine.TableCodec``, DESIGN.md §12).
+
+    * **fold tables** (q_t-folded node values: :func:`packed_node_tables`,
+      :func:`dyn_node_tables`) are stored in ``fold_dtype``; the fold itself
+      runs in f64 and only the finished values are cast;
+    * **moment prefixes** (quantized DRFS leaf runs, :func:`dyn_window_tables`)
+      are *delta-encoded*: the per-leaf window values are quantized to
+      ``moment_dtype`` first, the prefix is summed in f64 over the quantized
+      deltas, and the finished table is cast — a prefix difference recovers
+      the quantized per-leaf value instead of cancelling two large prefixes.
+
+    The reference's ``pack_index`` (int32 metadata under the narrow presets,
+    called nowhere there) has no counterpart: the port's window-table
+    metadata is int32 where its readers take int32 whatever the codec.
+    The ``f64`` preset (``'auto'``) is the identity: the tables of the
+    uncompressed layout, bit for bit. The narrow presets are validated at
+    build (:meth:`validate`) against the f64 host moments; a codec whose
+    round trip fails falls back to f64 in place and says why in
+    ``fallback_reason``. What the port computes from the stored values is
+    float64 in every executor (each gathered row is widened when it is
+    loaded), where the reference computes in the table's dtype.
+    """
+
+    __slots__ = ("name", "fold_dtype", "moment_dtype", "rtol", "fallback_reason")
+
+    def __init__(self, name="auto"):
+        if isinstance(name, TableCodec):
+            name = name.name
+        name = "f64" if name in ("auto", None) else str(name)
+        if name not in _CODEC_PRESETS:
+            raise ValueError(
+                f"unknown table codec {name!r}; pick from {sorted(_CODEC_PRESETS)} or 'auto'"
+            )
+        p = _CODEC_PRESETS[name]
+        self.name = name
+        self.fold_dtype = p["fold"]
+        self.moment_dtype = p["moment"]
+        self.rtol = p["rtol"]
+        self.fallback_reason = None
+
+    @property
+    def is_identity(self) -> bool:
+        return self.fold_dtype is None and self.moment_dtype is None
+
+    @property
+    def fold_itemsize(self) -> int:
+        return 8 if self.fold_dtype is None else self.fold_dtype.itemsize
+
+    @property
+    def moment_itemsize(self) -> int:
+        return 8 if self.moment_dtype is None else self.moment_dtype.itemsize
+
+    def validate(self, host_moments) -> bool:
+        """Build-time round-trip check of a moment table against f64.
+
+        Casts the f64 host prefix moments through the narrowest storage
+        dtype this codec uses and measures the relative round-trip error at
+        the table's own scale. On failure (overflow to inf, or an error above
+        the preset's tolerance) the codec degrades IN PLACE to the identity
+        f64 layout and records ``fallback_reason``.
+        """
+        if self.is_identity:
+            return True
+        host = torch.from_numpy(np.ascontiguousarray(host_moments, dtype=np.float64))
+        narrow = self.fold_dtype or self.moment_dtype
+        rt = host.to(narrow).to(torch.float64)
+        scale = (float(host.abs().max()) if host.numel() else 0.0) or 1.0
+        err = (float((rt - host).abs().max()) if host.numel() else 0.0) / scale
+        name = str(narrow).removeprefix("torch.")
+        if not bool(torch.isfinite(rt).all()):
+            self.fallback_reason = f"{name} overflow in moment table"
+        elif err > self.rtol:
+            self.fallback_reason = f"round-trip error {err:.3e} > rtol {self.rtol:.1e} for {name}"
+        else:
+            return True
+        self.name = "f64"
+        self.fold_dtype = self.moment_dtype = None
+        self.rtol = 0.0
+        return False
+
+    def __repr__(self):
+        return f"TableCodec({self.name!r})"
 
 
 class FlatForest(NamedTuple):
@@ -282,14 +383,15 @@ def packed_root_ranks(pf: PackedForest, atoms: FlatAtoms, *, search_steps: int):
 
 
 def _fold_node_level(time_tab, cum_tab, s_lo, s_hi, t_b, right_b, qtl, qtr,
-                     steps: int, k_t: int):
+                     steps: int, k_t: int, out_dtype=None):
     """One level's q_t-folded paired node values: [NL·2, W, 2k_s].
 
     Per (boundary, window, node) binary search in the node's time-sorted run
     [s_lo, s_hi), raw-Φ prefix difference (node-local rounding), combo slice
     per side/half, q_t contraction, and the paired [k_s left | k_s right] row
     packing with W inside the row — exactly the layout :func:`packed_walk`
-    and the fused kernel consume.
+    and the fused kernel consume. All of it in f64; ``out_dtype`` (the
+    codec's fold dtype) casts only the finished values.
     """
     NL = s_lo.shape[0]
     W = qtl.shape[0]
@@ -315,7 +417,8 @@ def _fold_node_level(time_tab, cum_tab, s_lo, s_hi, t_b, right_b, qtl, qtr,
         vl = vl + left[..., t] * qtl[:, None, None, None, t]
         vr = vr + right[..., t] * qtr[:, None, None, None, t]
     vv = torch.cat([vl, vr], dim=-1)  # [W, NL, 2, 2k_s]
-    return vv.permute(1, 2, 0, 3).reshape(NL * 2, W, 2 * k_s)
+    out = vv.permute(1, 2, 0, 3).reshape(NL * 2, W, 2 * k_s)
+    return out if out_dtype is None else out.to(out_dtype)
 
 
 def packed_node_tables(
@@ -325,6 +428,7 @@ def packed_node_tables(
     *,
     steps_per_level: tuple,
     k_t: int,
+    out_dtype=None,
 ):
     """q_t-folded paired window values of EVERY position-rank node: [R·2, W, C].
 
@@ -337,7 +441,9 @@ def packed_node_tables(
     with the W axis inside the row: one walk gather moves every window's
     value for a node at once. Node ids follow ``pf.node_base`` level-major.
     Levels are folded ``FOLD_CHUNK`` nodes at a time (same values, bounded
-    transient memory).
+    transient memory). The fold runs in f64; ``out_dtype`` (the codec's fold
+    dtype) casts each chunk before the concatenation, so the whole f64 table
+    is never held beside its narrow copy.
     """
     t_b, right_b = _dyn_boundaries(wb)
     qtl, qtr = wb.qt[0::2], wb.qt[1::2]
@@ -348,7 +454,7 @@ def packed_node_tables(
             parts.append(
                 _fold_node_level(
                     pf.pm_time, pf.pm_cum, s_lo, s_lo + (1 << lev), t_b, right_b,
-                    qtl, qtr, int(steps_per_level[lev]), k_t,
+                    qtl, qtr, int(steps_per_level[lev]), k_t, out_dtype,
                 )
             )
     return torch.cat(parts, dim=0)
@@ -359,11 +465,13 @@ def packed_walk(nodeval, node_base_lvl, eid, side, r_lo, r_hi, *, max_levels: in
 
     ``node_base_lvl`` [Lmax, E] maps walk levels to flat node bases. State
     is [M] ints — no window axis — and each level pays exactly ONE paired
-    gather ([2, M] node rows, every window riding inside the row).
+    gather ([2, M] node rows, every window riding inside the row). The
+    gathered rows are widened to f64 before they are added (a narrow codec
+    table), never the table.
     """
     M = eid.shape[0]
     R2, W, C = nodeval.shape
-    acc = torch.zeros((M, W, C), dtype=nodeval.dtype, device=nodeval.device)
+    acc = torch.zeros((M, W, C), dtype=torch.float64, device=nodeval.device)
     l = r_lo.to(torch.int64)
     r = r_hi.to(torch.int64)
     side = side.to(torch.int64)
@@ -378,7 +486,7 @@ def packed_walk(nodeval, node_base_lvl, eid, side, r_lo, r_hi, *, max_levels: in
         on = torch.stack([emit_l, emit_r])  # [2, M]
         idx = (nb[None] + torch.stack([b_l, b_r])) * 2 + side[None]
         idx = torch.where(on, idx, 0).clamp(0, R2 - 1)
-        rows = nodeval[idx]  # [2, M, W, C] — one paired gather per level
+        rows = nodeval[idx].to(torch.float64)  # [2, M, W, C] — one paired gather per level
         rows = torch.where(on[..., None, None], rows, 0.0)
         acc = acc + (rows[0] + rows[1])
         l, r = l >> 1, r >> 1
@@ -456,7 +564,7 @@ def _dyn_level_runs(forest: FlatDynamicForest, d: int, Np: int):
 
 
 def dyn_window_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: int,
-                      hq: int, search_steps: int):
+                      hq: int, search_steps: int, out_dtype=None):
     """Per-(window, leaf-node) aggregates, prefix-summed along each edge.
 
     The key hoist of the dynamic engine (DESIGN.md §5): the time boundaries
@@ -473,6 +581,11 @@ def dyn_window_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: i
     differences two prefixes, the association of the NumPy path. Leaves are
     resolved ``FOLD_CHUNK`` at a time (same values, bounded transient
     memory).
+
+    ``out_dtype`` (the codec's moment dtype) stores the table delta-encoded:
+    each per-leaf value is quantized to ``out_dtype`` first, the prefix is
+    summed in f64 over the quantized deltas, and the finished table is cast,
+    so a prefix difference recovers the quantized per-leaf value.
     """
     W = wb.t_lo.shape[0] // 2
     K = forest.cum_lvl.shape[-1]
@@ -493,19 +606,25 @@ def dyn_window_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: i
         # per-leaf window moments, paired per side: [.., side] = [K left | K right]
         left = (p[1] - p[0])[..., 0::2, :]  # [W, n, 2, K] combos (ψ·left)
         right = (p[2] - p[1])[..., 1::2, :]  # combos (ψ·right)
-        parts.append(torch.cat([left, right], dim=-1))  # [W, n, 2, 2K]
-    # per-edge inclusive leaf prefix with a leading zero row, laid out
+        lv = torch.cat([left, right], dim=-1)  # [W, n, 2, 2K]
+        if out_dtype is not None:  # delta encoding: quantize the per-leaf values
+            lv = lv.to(out_dtype).to(torch.float64)
+        parts.append(lv)
+    # per-edge inclusive leaf prefix (f64) with a leading zero row, laid out
     # row-major [E·(nleaf+1)·2, W, 2K] for one-stacked-gather addressing —
     # contiguous, so a flush reads the rows in place: the permute alone is a
     # strided view, and every reshape of it to [rows, W·2K] would copy the
-    # whole table again
+    # whole table again. One copy does the permute and the storage cast.
     cum = torch.cat(parts, dim=1).reshape(W, E, nleaf, 2, 2 * K).cumsum(dim=2)
     cum = torch.cat([torch.zeros_like(cum[:, :, :1]), cum], dim=2)
-    return cum.permute(1, 2, 3, 0, 4).contiguous().reshape(E * (nleaf + 1) * 2, W, 2 * K)
+    out = torch.empty((E, nleaf + 1, 2, W, 2 * K), dtype=out_dtype or torch.float64,
+                      device=cum.device)
+    out.copy_(cum.permute(1, 2, 3, 0, 4))
+    return out.reshape(E * (nleaf + 1) * 2, W, 2 * K)
 
 
 def dyn_node_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: int,
-                    hq: int, steps_per_level: tuple):
+                    hq: int, steps_per_level: tuple, out_dtype=None):
     """q_t-contracted window moments of EVERY tree node up to depth hq.
 
     The exact-mode companion of :func:`dyn_window_tables`: each node's time
@@ -517,6 +636,8 @@ def dyn_node_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: int
     Returns the packed node-value layout :func:`packed_walk` and the fused
     kernel consume: nodeval [TN·2, W, 2k_s] with TN = E·(2^{hq+1}−1); node
     (d, e, i) lives at flat row (E·(2^d−1) + e·2^d + i)·2 + side.
+    ``out_dtype`` (the codec's fold dtype) casts each folded chunk, as in
+    :func:`packed_node_tables`.
     """
     Np = forest.time_lvl.shape[0] // n_levels
     k_t = wb.qt.shape[1]
@@ -530,7 +651,7 @@ def dyn_node_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: int
                 _fold_node_level(
                     forest.time_lvl, forest.cum_lvl, s_lo[c0 : c0 + FOLD_CHUNK],
                     s_hi[c0 : c0 + FOLD_CHUNK], t_b, right_b, qtl, qtr,
-                    int(steps_per_level[d]), k_t,
+                    int(steps_per_level[d]), k_t, out_dtype,
                 )
             )
     return torch.cat(parts, dim=0)
@@ -598,7 +719,8 @@ def eval_atoms_dyn(forest: FlatDynamicForest, atoms: FlatAtoms, wb: WindowBatch,
     elif tree:
         (lcum,) = tables
         base = eid * ((nleaf + 1) * 2) + side
-        rows = lcum[base[None] + torch.stack([leaf_hi, leaf_lo]) * 2]  # [2, M, W, 2K]
+        # [2, M, W, 2K], widened before the difference (a narrow codec table)
+        rows = lcum[base[None] + torch.stack([leaf_hi, leaf_lo]) * 2].to(torch.float64)
         tv = (rows[0] - rows[1]).permute(1, 0, 2)  # [W, M, 2K]
         mom_l = mom_l + tv[..., :K]  # paired halves
         mom_r = mom_r + tv[..., K:]

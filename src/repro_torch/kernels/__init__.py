@@ -2,11 +2,13 @@
 
   fused_walk     — the packed-plan canonical climb + window contraction, one
                    CUDA launch per flush (``csrc/fused_walk.cu``) reading the
-                   flat window table in place; serves the static RFS forest
+                   flat window table in place (float64, float32 or bfloat16,
+                   the table codec's fold dtype); serves the static RFS forest
                    and the DRFS exact-mode complete tree
   fused_leaf     — the DRFS quantized tree phase: leaf-prefix difference +
                    q_s ⊗ q_t window contraction, one CUDA launch per flush
                    (``csrc/fused_leaf.cu``), on the flat leaf table in place
+                   (float64 or float32)
   tree_query     — the ``executor='kernel'`` RFS flush: per (atom,
                    half-window) canonical time-rank decomposition with three
                    position searches per bucket (``csrc/tree_query.cu``)

@@ -1,6 +1,10 @@
 // fused_leaf — the quantized DRFS tree phase in one launch: leaf-prefix
-// difference plus the q_s (x) q_t window contraction, float64, for NVIDIA
-// Hopper (sm_90a), reading the flat leaf-prefix table in place.
+// difference plus the q_s (x) q_t window contraction, for NVIDIA Hopper
+// (sm_90a), reading the flat leaf-prefix table in place. The table is stored
+// as T in {double, float} (the table codec's moment dtype: entries
+// fused_leaf_f64, fused_leaf_f32; the bfloat16 preset stores its moments as
+// float); both prefix values are widened to double before the difference,
+// and all arithmetic, qs, qtl/qtr and the output are double.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_walk.py::fused_leaf_pallas
 // (body _fused_leaf_kernel), and under the kernel executor
@@ -23,7 +27,7 @@
 //     where the compiler contracts a multiply-add.
 //
 // What bounds it on this card: bytes. Per atom it reads two rows of W*2*K
-// doubles by computed index and writes W doubles; 4 flops per value read.
+// values of T by computed index and writes W doubles; 4 flops per value read.
 // The Pallas body selects the two rows with a [TQ, R] +-1 one-hot matrix
 // times the whole edge block, because the TPU has a matrix unit and no
 // cheap gather; here the two rows are simply loaded.
@@ -53,7 +57,7 @@ constexpr int MAX_THREADS = 256;
 constexpr int SMEM_MAX = 227 * 1024;
 
 struct LeafArgs {
-  const double* lcum;
+  const void* lcum;  // [n_rows, W*2*K] of T
   long long n_rows;
   const long long* edges;
   const int* leaf_lo;
@@ -67,7 +71,8 @@ struct LeafArgs {
   int R, Q, W, ks, kt;
 };
 
-__global__ void __launch_bounds__(MAX_THREADS) fused_leaf_f64_kernel(LeafArgs a) {
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS) fused_leaf_kernel(LeafArgs a) {
   extern __shared__ double smem[];  // [qtl (W*kt) | qtr (W*kt) | two rows per warp]
   __shared__ int s_q[MAX_THREADS], s_hi[MAX_THREADS], s_lo[MAX_THREADS];
   __shared__ int s_wcount[MAX_THREADS / 32];
@@ -76,6 +81,7 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_leaf_f64_kernel(LeafArgs a)
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
   const int g = blockIdx.x;
   const int K = a.ks * a.kt, wk = a.W * 2 * K;
+  const T* __restrict__ lcum = static_cast<const T*>(a.lcum);
   const int nq_t = a.W * a.kt;
   double* sql = smem;
   double* sqr = smem + nq_t;
@@ -134,8 +140,8 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_leaf_f64_kernel(LeafArgs a)
     const double qlb = lane < a.ks ? qvb[lane] : 0.0;
     double* srow_b = srow + (long long)nwarps * wk;
     for (int c = lane; c < wk; c += 32) {
-      const double ha = a.lcum[rha * wk + c], la = a.lcum[rla * wk + c];
-      const double hb = a.lcum[rhb * wk + c], lb = a.lcum[rlb * wk + c];
+      const double ha = lcum[rha * wk + c], la = lcum[rla * wk + c];  // widened
+      const double hb = lcum[rhb * wk + c], lb = lcum[rlb * wk + c];
       srow[c] = ha - la;
       srow_b[c] = hb - lb;
     }
@@ -168,18 +174,11 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_leaf_f64_kernel(LeafArgs a)
   }
 }
 
-}  // namespace
-
-// Plain C interface (loaded with ctypes). All pointers are device pointers.
-// Launches on `stream`, does not synchronise, allocates nothing; returns the
-// cudaError_t of the launch (0 = ok), -1 for arguments the kernel does not
-// take (the two [W, k_t] vectors and one warp's two rows must fit SMEM_MAX;
-// the threads per block shrink until the block's shared memory fits).
-extern "C" int fused_leaf_f64(const double* lcum, long long n_rows, const long long* edges,
-                              int R, const int* leaf_lo, const int* leaf_hi, const int* side,
-                              const double* qs, const double* qtl, const double* qtr,
-                              double* out, long long so_g, long long so_q, long long so_w, int G,
-                              int Q, int W, int ks, int kt, int device, void* stream) {
+template <typename T>
+int fused_leaf(const T* lcum, long long n_rows, const long long* edges, int R,
+               const int* leaf_lo, const int* leaf_hi, const int* side, const double* qs,
+               const double* qtl, const double* qtr, double* out, long long so_g, long long so_q,
+               long long so_w, int G, int Q, int W, int ks, int kt, int device, void* stream) {
   if (G <= 0 || Q <= 0 || W <= 0) return 0;  // empty output: nothing to do
   if (R <= 0 || ks <= 0 || kt <= 0 || n_rows <= 0) return -1;
   const long long wk = (long long)W * 2 * ks * kt;
@@ -191,7 +190,7 @@ extern "C" int fused_leaf_f64(const double* lcum, long long n_rows, const long l
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fused_leaf_f64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(fused_leaf_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
@@ -200,6 +199,32 @@ extern "C" int fused_leaf_f64(const double* lcum, long long n_rows, const long l
   LeafArgs a{lcum, n_rows, edges, leaf_lo, leaf_hi, side, qs, qtl, qtr, out,
              so_g, so_q, so_w, (int)R, Q, W, ks, kt};
   const dim3 grid((unsigned)G, (unsigned)chunks);
-  fused_leaf_f64_kernel<<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(a);
+  fused_leaf_kernel<T><<<grid, threads, (size_t)smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes), one entry per table type with the
+// same arguments. All pointers are device pointers. Launches on `stream`,
+// does not synchronise, allocates nothing; returns the cudaError_t of the
+// launch (0 = ok), -1 for arguments the kernel does not take (the two
+// [W, k_t] vectors and one warp's two rows must fit SMEM_MAX; the threads
+// per block shrink until the block's shared memory fits).
+extern "C" int fused_leaf_f64(const double* lcum, long long n_rows, const long long* edges,
+                              int R, const int* leaf_lo, const int* leaf_hi, const int* side,
+                              const double* qs, const double* qtl, const double* qtr,
+                              double* out, long long so_g, long long so_q, long long so_w, int G,
+                              int Q, int W, int ks, int kt, int device, void* stream) {
+  return fused_leaf(lcum, n_rows, edges, R, leaf_lo, leaf_hi, side, qs, qtl, qtr, out, so_g, so_q,
+                    so_w, G, Q, W, ks, kt, device, stream);
+}
+
+extern "C" int fused_leaf_f32(const float* lcum, long long n_rows, const long long* edges,
+                              int R, const int* leaf_lo, const int* leaf_hi, const int* side,
+                              const double* qs, const double* qtl, const double* qtr,
+                              double* out, long long so_g, long long so_q, long long so_w, int G,
+                              int Q, int W, int ks, int kt, int device, void* stream) {
+  return fused_leaf(lcum, n_rows, edges, R, leaf_lo, leaf_hi, side, qs, qtl, qtr, out, so_g, so_q,
+                    so_w, G, Q, W, ks, kt, device, stream);
 }

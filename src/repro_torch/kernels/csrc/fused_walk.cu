@@ -1,6 +1,10 @@
 // fused_walk — the packed-plan canonical climb + window contraction in one
-// launch, float64, for NVIDIA Hopper (sm_90a), reading the flat window table
-// in place.
+// launch, for NVIDIA Hopper (sm_90a), reading the flat window table in place.
+// The table is stored as T in {double, float, __nv_bfloat16} (the table
+// codec's fold dtype: entries fused_walk_f64, fused_walk_f32,
+// fused_walk_bf16); every loaded value is widened to double in registers,
+// and the sums, the per-warp row in shared memory, qs and the output are
+// double — float64 arithmetic on the stored values, for every T.
 //
 // Replaces the TPU kernels src/repro/kernels/fused_walk.py::fused_walk_pallas
 // (body _fused_walk_kernel) and src/repro/kernels/dyn_query.py::
@@ -24,7 +28,7 @@
 // multiply-add.
 //
 // What bounds it on this card: bytes. Per atom the climb reads at most
-// 2*nlev rows of wc*8 bytes, all of one edge (the rows of an edge are shared
+// 2*nlev rows of wc*sizeof(T) bytes, all of one edge (the rows of an edge are shared
 // by all of its atoms), plus ks*8 + 12 bytes of coefficients and rank state,
 // and writes W*8 bytes; one add per loaded value. In the main path's packs
 // most slots are padding (r_lo == r_hi), so the output and the rank state
@@ -58,12 +62,17 @@
 //
 // STAGED: the edge's block — level lev's npad >> lev nodes at lvl_base[lev,
 // e], each level a contiguous segment of the table — is copied once into
-// shared memory with cp.async (levels stacked, level lev at node offset
+// shared memory as T with cp.async (levels stacked, level lev at node offset
 // 2*npad - 2*(npad >> lev)) while the chunk's slots are scanned, and
 // every emitted row is then read from shared memory. It needs a power-of-two
-// npad, nlev = bit_length(npad) and ranks within [0, npad]. Otherwise rows
-// are read through L1/L2. Row indices are 32-bit (n_rows < 2^31), offsets
-// 64-bit.
+// npad, nlev = bit_length(npad), ranks within [0, npad] and a 16-byte
+// aligned table. A node (two rows of wc values of T) is a multiple of 16
+// bytes for double and float (wc = W*2*ks is even) and of 8 bytes for
+// bfloat16: where it is not a multiple of 16 (W*ks odd) the copy moves
+// 8-byte pieces. A narrow T holds 2x (float) or 4x (bfloat16) the nodes in
+// the same shared memory. Otherwise rows are read through L1/L2. Row
+// indices are 32-bit (n_rows < 2^31), offsets 64-bit.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -73,7 +82,7 @@ constexpr int MAX_THREADS = 256;
 constexpr int SMEM_CAP = 227 * 1024;  // dynamic shared memory a block may use
 
 struct WalkArgs {
-  const double* table;
+  const void* table;  // [n_rows, wc] of T
   long long n_rows;
   const long long* lvl_base;
   long long n_edges;  // lvl_base's row stride
@@ -92,14 +101,31 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ double widen(double x) { return x; }
+__device__ __forceinline__ double widen(float x) { return static_cast<double>(x); }
+__device__ __forceinline__ double widen(__nv_bfloat16 x) {
+  return static_cast<double>(__bfloat162float(x));
+}
+
+// bytes of the staged edge block (2*npad - 1 nodes of two rows of wc values
+// of T), rounded up to 16 so that the double rows after it stay aligned
+__host__ __device__ __forceinline__ long long stage_bytes(int npad, int wc, int itemsize) {
+  return (2LL * (2LL * npad - 1) * wc * itemsize + 15) / 16 * 16;
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int LC, bool STAGED>
-__global__ void __launch_bounds__(MAX_THREADS) fused_walk_f64_kernel(WalkArgs a) {
-  // dynamic: [staged block | per-warp rows (wc doubles) | rows of the live atoms' emits]
-  extern __shared__ __align__(16) double smem[];
+template <typename T, int LC, bool STAGED>
+__global__ void __launch_bounds__(MAX_THREADS) fused_walk_kernel(WalkArgs a) {
+  // dynamic: [staged block (T) | per-warp rows (wc doubles) | rows of the live atoms' emits]
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ long long s_base[MAX_LEVELS];
   __shared__ int s_q[MAX_THREADS];
   __shared__ int s_wcount[MAX_THREADS / 32];
@@ -123,17 +149,26 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_walk_f64_kernel(WalkArgs a)
 
   const int npad = a.npad;
   const int staged_rows = STAGED ? 2 * (2 * npad - 1) : 0;
-  double* srow = smem + (long long)staged_rows * wc + (long long)warp * wc;
+  const long long sbytes = STAGED ? stage_bytes(npad, wc, sizeof(T)) : 0;
+  const T* table = static_cast<const T*>(a.table);
+  double* srow = reinterpret_cast<double*>(smem + sbytes) + (long long)warp * wc;
   // row indices of each live atom's emits, 2*nlev + 1 ints apart (odd: the
   // writes of neighbouring threads fall in different banks)
   const int rs = 2 * nlev + 1;
-  int* s_rows = reinterpret_cast<int*>(smem + (long long)staged_rows * wc + (long long)nwarps * wc);
+  int* s_rows = reinterpret_cast<int*>(smem + sbytes + (long long)nwarps * wc * sizeof(double));
   if (STAGED) {  // copy the edge block in, level by level; waited for below
+    const long long node_bytes = 2LL * wc * sizeof(T);
     for (int lev = 0; lev < nlev; ++lev) {
-      const double* src = a.table + s_base[lev] * 2 * wc;
-      double* dst = smem + (long long)(2 * npad - 2 * (npad >> lev)) * 2 * wc;
-      const int n16 = (npad >> lev) * wc;  // 16-byte pieces: 2 rows of wc doubles, halved
-      for (int i = tid; i < n16; i += nthreads) cp_async16(dst + 2 * i, src + 2 * i);
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(table + s_base[lev] * 2 * wc);
+      unsigned char* dst = smem + (long long)(2 * npad - 2 * (npad >> lev)) * node_bytes;
+      const long long nbytes = (long long)(npad >> lev) * node_bytes;
+      if (node_bytes % 16 == 0) {
+        for (long long i = 16LL * tid; i < nbytes; i += 16LL * nthreads)
+          cp_async16(dst + i, src + i);
+      } else {  // a bfloat16 node of 8 (mod 16) bytes
+        for (long long i = 8LL * tid; i < nbytes; i += 8LL * nthreads) cp_async8(dst + i, src + i);
+      }
     }
   }
   long long row_lo = 0, row_hi = a.n_rows - 1;
@@ -141,7 +176,7 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_walk_f64_kernel(WalkArgs a)
     row_lo = e * a.blk_rows;
     row_hi = row_lo + a.blk_rows - 1;
   }
-  const double* __restrict__ src = STAGED ? smem : a.table;
+  const T* __restrict__ src = STAGED ? reinterpret_cast<const T*>(smem) : table;
   double* __restrict__ out = a.out + g * a.so_g + q0 * a.so_q;
 
   // ---- scan: zero-fill the chunk's outputs, compact the live slots
@@ -202,7 +237,7 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_walk_f64_kernel(WalkArgs a)
 #pragma unroll
         for (int i = 0; i < 2 * LC; ++i) {
           const int row = i0 + i < ne ? rows[i0 + i] : -1;
-          v[i] = (row >= 0 && c < wc) ? src[(long long)row * wc + c] : 0.0;
+          v[i] = (row >= 0 && c < wc) ? widen(src[(long long)row * wc + c]) : 0.0;
         }
 #pragma unroll
         for (int i = 0; i < 2 * LC; ++i) acc += v[i];
@@ -224,43 +259,31 @@ __global__ void __launch_bounds__(MAX_THREADS) fused_walk_f64_kernel(WalkArgs a)
   }
 }
 
-template <int LC>
-cudaError_t launch(const WalkArgs& a, dim3 grid, int threads, size_t smem, bool staged,
-                   cudaStream_t stream) {
-  if (staged) {
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(fused_walk_f64_kernel<LC, true>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
-      if (err != cudaSuccess) return err;
-    }
-    fused_walk_f64_kernel<LC, true><<<grid, threads, smem, stream>>>(a);
-  } else {
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(fused_walk_f64_kernel<LC, false>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             (int)smem);
-      if (err != cudaSuccess) return err;
-    }
-    fused_walk_f64_kernel<LC, false><<<grid, threads, smem, stream>>>(a);
+template <typename T, int LC, bool STAGED>
+cudaError_t launch_form(const WalkArgs& a, dim3 grid, int threads, size_t smem,
+                        cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(fused_walk_kernel<T, LC, STAGED>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
   }
+  fused_walk_kernel<T, LC, STAGED><<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace
+template <typename T, int LC>
+cudaError_t launch(const WalkArgs& a, dim3 grid, int threads, size_t smem, bool staged,
+                   cudaStream_t stream) {
+  return staged ? launch_form<T, LC, true>(a, grid, threads, smem, stream)
+                : launch_form<T, LC, false>(a, grid, threads, smem, stream);
+}
 
-// Plain C interface (loaded with ctypes). All pointers are device pointers.
-// Launches on `stream`, does not synchronise, allocates nothing; returns the
-// cudaError_t of the launch (0 = ok), -1 for arguments the kernel does not
-// take. `staged` asks for the shared-memory copy of the edge block (npad a
-// power of two, nlev = bit_length(npad), a 16-byte aligned table); the
-// threads per block shrink until the block's shared memory fits.
-extern "C" int fused_walk_f64(const double* table, long long n_rows, const long long* lvl_base,
-                              long long n_edges, const long long* edges, const int* r_lo,
-                              const int* r_hi, const int* side, const double* qs, double* out,
-                              long long so_g, long long so_q, long long so_w, int G, int Q,
-                              int W, int ks, int nlev, int npad, int blk_rows, int staged,
-                              int device, void* stream) {
+template <typename T>
+int fused_walk(const T* table, long long n_rows, const long long* lvl_base, long long n_edges,
+               const long long* edges, const int* r_lo, const int* r_hi, const int* side,
+               const double* qs, double* out, long long so_g, long long so_q, long long so_w,
+               int G, int Q, int W, int ks, int nlev, int npad, int blk_rows, int staged,
+               int device, void* stream) {
   if (G <= 0 || Q <= 0 || W <= 0) return 0;  // empty output: nothing to do
   if (nlev < 0 || nlev > MAX_LEVELS || ks <= 0 || n_rows <= 0 || n_rows > 2147483647LL ||
       blk_rows < 0 || n_edges <= 0)
@@ -269,7 +292,7 @@ extern "C" int fused_walk_f64(const double* table, long long n_rows, const long 
   if (staged && (npad <= 0 || (npad & (npad - 1)) || 32 - __builtin_clz(npad) != nlev ||
                  ((unsigned long long)table & 15)))
     return -1;
-  const long long staged_bytes = staged ? 2LL * (2LL * npad - 1) * wc * 8 : 0;
+  const long long staged_bytes = staged ? stage_bytes(npad, wc, sizeof(T)) : 0;
   // per thread: a warp's row slot share and one atom's emit rows
   const long long per_thread = (long long)wc * 8 / 32 + (2LL * nlev + 1) * 4;
   int threads = MAX_THREADS;
@@ -287,8 +310,48 @@ extern "C" int fused_walk_f64(const double* table, long long n_rows, const long 
   const cudaStream_t st = (cudaStream_t)stream;
   const bool stg = staged != 0;
   const size_t sm = (size_t)smem;
-  if (nlev <= 3) return (int)launch<3>(a, grid, threads, sm, stg, st);
-  if (nlev <= 6) return (int)launch<6>(a, grid, threads, sm, stg, st);
-  if (nlev <= 9) return (int)launch<9>(a, grid, threads, sm, stg, st);
-  return (int)launch<12>(a, grid, threads, sm, stg, st);
+  if (nlev <= 3) return (int)launch<T, 3>(a, grid, threads, sm, stg, st);
+  if (nlev <= 6) return (int)launch<T, 6>(a, grid, threads, sm, stg, st);
+  if (nlev <= 9) return (int)launch<T, 9>(a, grid, threads, sm, stg, st);
+  return (int)launch<T, 12>(a, grid, threads, sm, stg, st);
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes), one entry per table type with the
+// same arguments. All pointers are device pointers. Launches on `stream`,
+// does not synchronise, allocates nothing; returns the cudaError_t of the
+// launch (0 = ok), -1 for arguments the kernel does not take. `staged` asks
+// for the shared-memory copy of the edge block (npad a power of two, nlev =
+// bit_length(npad), a 16-byte aligned table); the threads per block shrink
+// until the block's shared memory fits.
+extern "C" int fused_walk_f64(const double* table, long long n_rows, const long long* lvl_base,
+                              long long n_edges, const long long* edges, const int* r_lo,
+                              const int* r_hi, const int* side, const double* qs, double* out,
+                              long long so_g, long long so_q, long long so_w, int G, int Q,
+                              int W, int ks, int nlev, int npad, int blk_rows, int staged,
+                              int device, void* stream) {
+  return fused_walk(table, n_rows, lvl_base, n_edges, edges, r_lo, r_hi, side, qs, out, so_g,
+                    so_q, so_w, G, Q, W, ks, nlev, npad, blk_rows, staged, device, stream);
+}
+
+extern "C" int fused_walk_f32(const float* table, long long n_rows, const long long* lvl_base,
+                              long long n_edges, const long long* edges, const int* r_lo,
+                              const int* r_hi, const int* side, const double* qs, double* out,
+                              long long so_g, long long so_q, long long so_w, int G, int Q,
+                              int W, int ks, int nlev, int npad, int blk_rows, int staged,
+                              int device, void* stream) {
+  return fused_walk(table, n_rows, lvl_base, n_edges, edges, r_lo, r_hi, side, qs, out, so_g,
+                    so_q, so_w, G, Q, W, ks, nlev, npad, blk_rows, staged, device, stream);
+}
+
+extern "C" int fused_walk_bf16(const __nv_bfloat16* table, long long n_rows,
+                               const long long* lvl_base, long long n_edges,
+                               const long long* edges, const int* r_lo,
+                               const int* r_hi, const int* side, const double* qs, double* out,
+                               long long so_g, long long so_q, long long so_w, int G, int Q,
+                               int W, int ks, int nlev, int npad, int blk_rows, int staged,
+                               int device, void* stream) {
+  return fused_walk(table, n_rows, lvl_base, n_edges, edges, r_lo, r_hi, side, qs, out, so_g,
+                    so_q, so_w, G, Q, W, ks, nlev, npad, blk_rows, staged, device, stream);
 }

@@ -33,6 +33,11 @@ A pack's rows are located by a :class:`FlatIndex` (:func:`walk_index`,
 :func:`leaf_index`), whose range is checked once, when the pack is built —
 never per launch, which would be a host sync.
 
+Both take the window table in the table codec's storage dtype (the walk
+float64, float32 or bfloat16, the leaf float64 or float32) and widen every
+value they load to float64: the arithmetic is float64 whatever the table
+stores, in the kernels and in their plain versions alike.
+
 This module holds the plain PyTorch versions — what a CPU tensor gets and
 what the kernels are compared with on the card — the index builders and the
 ``ctypes`` bindings of the compiled kernels. The launching wrappers, with
@@ -110,19 +115,21 @@ def leaf_index(edges: torch.Tensor, nleaf: int) -> FlatIndex:
     return FlatIndex(edges, None, nleaf, rows)
 
 
-def _climb(rows_at, l, r, nlev: int, WC: int, dtype):
+def _climb(rows_at, l, r, nlev: int, WC: int):
     """The canonical ≤2-nodes-per-level climb of the plain versions:
-    ``acc [G, Q, WC]`` summed left emit before right emit, levels ascending,
-    a level that emits nothing adding 0.0. ``rows_at(lev, node)`` gathers
-    the rows (any in-range row where nothing is emitted)."""
+    ``acc [G, Q, WC]`` float64, summed left emit before right emit, levels
+    ascending, a level that emits nothing adding 0.0. ``rows_at(lev, node)``
+    gathers the rows (any in-range row where nothing is emitted); a narrow
+    table's rows are widened to float64 as they are gathered, as the kernel
+    widens them in registers."""
     G, Q = l.shape
-    acc = torch.zeros((G, Q, WC), dtype=dtype, device=l.device)
+    acc = torch.zeros((G, Q, WC), dtype=torch.float64, device=l.device)
     for lev in range(nlev):
         emit_l = (l < r) & ((l & 1) == 1)
-        acc = acc + torch.where(emit_l[..., None], rows_at(lev, l), 0.0)
+        acc = acc + torch.where(emit_l[..., None], rows_at(lev, l).to(torch.float64), 0.0)
         l = torch.where(emit_l, l + 1, l)
         emit_r = (l < r) & ((r & 1) == 1)
-        acc = acc + torch.where(emit_r[..., None], rows_at(lev, r - 1), 0.0)
+        acc = acc + torch.where(emit_r[..., None], rows_at(lev, r - 1).to(torch.float64), 0.0)
         r = torch.where(emit_r, r - 1, r)
         l, r = l >> 1, r >> 1
     return acc
@@ -159,8 +166,7 @@ def fused_walk_ref(
     def rows_at(lev, node):
         return nodeval[gi, ((offs[lev] + node) * 2 + side).clamp(0, R2 - 1)]
 
-    acc = _climb(rows_at, r_lo.to(torch.int64), r_hi.to(torch.int64), len(offs), WC,
-                 nodeval.dtype)
+    acc = _climb(rows_at, r_lo.to(torch.int64), r_hi.to(torch.int64), len(offs), WC)
     return _contract_walk(acc, qs).permute(0, 2, 1).contiguous()  # [G, W, Q]
 
 
@@ -184,22 +190,25 @@ def fused_walk_flat_ref(
     def rows_at(lev, node):
         return table[((base[lev] + node) * 2 + side).clamp(0, N2 - 1)]
 
-    acc = _climb(rows_at, r_lo.to(torch.int64), r_hi.to(torch.int64), nlev, WC, table.dtype)
+    acc = _climb(rows_at, r_lo.to(torch.int64), r_hi.to(torch.int64), nlev, WC)
     return _contract_walk(acc, qs)
 
 
 def fused_walk_library(*, verbose: bool = False) -> ctypes.CDLL:
     """The compiled ``csrc/fused_walk.cu``, built at first use, with the
-    argument types of ``fused_walk_f64`` set (pointers and the stream are
-    ``c_void_p``: ctypes would otherwise cut them to 32 bits)."""
+    argument types of its entries ``fused_walk_f64``, ``fused_walk_f32`` and
+    ``fused_walk_bf16`` (one per table dtype, the same arguments) set
+    (pointers and the stream are ``c_void_p``: ctypes would otherwise cut
+    them to 32 bits)."""
     from ._build import load_library
 
     lib = load_library("fused_walk", verbose=verbose)
-    fn = lib.fused_walk_f64
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, p, ll, p, p, p, p, p, p, ll, ll, ll] + [i] * 9 + [p]
-        fn.restype = i
+    for suffix in ("f64", "f32", "bf16"):
+        fn = getattr(lib, f"fused_walk_{suffix}")
+        if fn.argtypes is None:
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            fn.argtypes = [p, ll, p, ll, p, p, p, p, p, p, ll, ll, ll] + [i] * 9 + [p]
+            fn.restype = i
     return lib
 
 
@@ -240,9 +249,9 @@ def fused_leaf_ref(
     gi = torch.arange(G, device=lcum.device)[:, None]
     side = side.to(torch.int64)
 
-    def rows(leaf):
+    def rows(leaf):  # widened to float64 as gathered (a narrow table)
         idx = (leaf.to(torch.int64) * 2 + side).clamp(0, R - 1)
-        return lcum[gi, idx].reshape(G, Q, W, 2, K)
+        return lcum[gi, idx].to(torch.float64).reshape(G, Q, W, 2, K)
 
     diff = rows(leaf_hi) - rows(leaf_lo)
     return _contract_leaf(diff, qs, qtl, qtr).permute(0, 2, 1).contiguous()  # [G, W, Q]
@@ -269,22 +278,24 @@ def fused_leaf_flat_ref(
     base = index.edges[:, None] * R
     side = side.to(torch.int64)
 
-    def rows(leaf):
+    def rows(leaf):  # widened to float64 as gathered (a narrow table)
         idx = base + (leaf.to(torch.int64) * 2 + side).clamp(0, R - 1)
-        return lcum[idx].reshape(G, Q, W, 2, K)
+        return lcum[idx].to(torch.float64).reshape(G, Q, W, 2, K)
 
     return _contract_leaf(rows(leaf_hi) - rows(leaf_lo), qs, qtl, qtr)
 
 
 def fused_leaf_library(*, verbose: bool = False) -> ctypes.CDLL:
     """The compiled ``csrc/fused_leaf.cu``, built at first use, with the
-    argument types of ``fused_leaf_f64`` set."""
+    argument types of its entries ``fused_leaf_f64`` and ``fused_leaf_f32``
+    (one per table dtype, the same arguments) set."""
     from ._build import load_library
 
     lib = load_library("fused_leaf", verbose=verbose)
-    fn = lib.fused_leaf_f64
-    if fn.argtypes is None:
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, p, i, p, p, p, p, p, p, p, ll, ll, ll] + [i] * 6 + [p]
-        fn.restype = i
+    for suffix in ("f64", "f32"):
+        fn = getattr(lib, f"fused_leaf_{suffix}")
+        if fn.argtypes is None:
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            fn.argtypes = [p, ll, p, i, p, p, p, p, p, p, p, ll, ll, ll] + [i] * 6 + [p]
+            fn.restype = i
     return lib

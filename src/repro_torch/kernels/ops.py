@@ -16,6 +16,15 @@ count in ``fused_leaf.launches``, ``dyn_leaf_query_flat`` (the kernel
 executor's quantized flush) in ``dyn_leaf_query.launches``.
 ``dyn_leaf_query`` keeps the reference's grouped contract with materialised
 query vectors on ``csrc/dyn_leaf_query.cu``.
+
+The flat walk and leaf wrappers take the window table in the storage dtype
+of the engine's table codec — float64, float32 or bfloat16 for the walk
+(:data:`WALK_DTYPES`), float64 or float32 for the leaf (:data:`LEAF_DTYPES`)
+— and launch that dtype's instantiation of the kernel, which widens every
+loaded value to float64; a narrow table is never widened to reach the
+float64 kernel. Those four wrappers' counts (``fused_walk``,
+``dyn_node_walk``, ``fused_leaf``, ``dyn_leaf_query``) are also kept per
+table dtype in ``launches_by_dtype``.
 """
 from __future__ import annotations
 
@@ -44,14 +53,21 @@ __all__ = ["FlatIndex", "dyn_leaf_query", "dyn_leaf_query_flat", "dyn_node_walk"
            "dyn_node_walk_flat", "flash_attention", "fused_leaf", "fused_leaf_flat", "fused_walk",
            "fused_walk_flat", "leaf_index", "minplus_matmul", "tree_query", "walk_index"]
 
+# the table dtypes each kernel source is instantiated for, by the suffix of
+# its C entry (the walk: every fold dtype of the table codec; the leaf: the
+# moment dtypes, float64 and float32)
+WALK_DTYPES = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
+LEAF_DTYPES = {torch.float64: "f64", torch.float32: "f32"}
+TABLE_DTYPES = ("float64", "float32", "bfloat16")  # keys of launches_by_dtype
+
 # the fused_leaf kernel holds the two [W, k_t] temporal vectors and two rows
 # per warp in shared memory (csrc/fused_leaf.cu SMEM_MAX)
 LEAF_SMEM_MAX = 227 * 1024
 # the fused_walk kernel copies an edge's block of the flat table into shared
-# memory when it takes at most this many bytes (walk_staged): on the card the
-# staged form was the faster one for the RFS blocks of npad 32, 64 and 128
-# (20, 40 and 80 KB) and by far the slower one for the 163 KB block of npad
-# 256 (the DRFS tree; PERF.md §6)
+# memory when the block would take at most this many bytes in float64
+# (walk_staged): on the card the staged form was the faster one for the f64
+# RFS blocks of npad 32, 64 and 128 (20, 40 and 80 KB) and by far the slower
+# one for the 163 KB block of npad 256 (the DRFS tree; PERF.md §6)
 WALK_STAGE_MAX = 96 * 1024
 # dynamic shared memory a fused_walk block may use (csrc/fused_walk.cu SMEM_CAP)
 WALK_SMEM_CAP = 227 * 1024
@@ -60,42 +76,49 @@ WALK_SMEM_CAP = 227 * 1024
 TREE_STAGE_MAX = 64 * 1024
 
 
-def walk_stage_bytes(npad: int, wc: int) -> int:
+def walk_stage_bytes(npad: int, wc: int, itemsize: int = 8) -> int:
     """Shared memory of the fused_walk kernel's staged edge block: 2·npad − 1
-    nodes of two rows of ``wc`` f64 values."""
-    return (2 * int(npad) - 1) * 2 * int(wc) * 8
+    nodes of two rows of ``wc`` values of ``itemsize`` bytes, rounded up to
+    16 bytes (csrc/fused_walk.cu ``stage_bytes``)."""
+    return -(-(2 * int(npad) - 1) * 2 * int(wc) * int(itemsize) // 16) * 16
 
 
-def walk_stageable(npad: int, wc: int) -> bool:
+def walk_stageable(npad: int, wc: int, itemsize: int = 8) -> bool:
     """Whether the fused_walk kernel can stage the edge block at all: npad a
-    power of two, and the block with one warp's row and its 32 atoms' emit
-    rows within WALK_SMEM_CAP (csrc/fused_walk.cu's launcher shrinks the
-    block's threads to 32 before it gives up)."""
+    power of two, and the block with one warp's f64 row and its 32 atoms'
+    emit rows within WALK_SMEM_CAP (csrc/fused_walk.cu's launcher shrinks
+    the block's threads to 32 before it gives up)."""
     npad = int(npad)
     if npad <= 0 or npad & (npad - 1):
         return False
     emit_rows = 32 * (2 * npad.bit_length() + 1) * 4
-    return walk_stage_bytes(npad, wc) + int(wc) * 8 + emit_rows <= WALK_SMEM_CAP
+    return walk_stage_bytes(npad, wc, itemsize) + int(wc) * 8 + emit_rows <= WALK_SMEM_CAP
 
 
-def walk_staged(npad: int, wc: int) -> bool:
+def walk_staged(npad: int, wc: int, itemsize: int = 8) -> bool:
     """Whether the fused_walk kernel stages an edge's block in shared memory
     (csrc/fused_walk.cu's ``STAGED`` form) by default: it can, and the block
-    takes at most WALK_STAGE_MAX bytes."""
-    return walk_stageable(npad, wc) and walk_stage_bytes(npad, wc) <= WALK_STAGE_MAX
+    would take at most WALK_STAGE_MAX bytes in float64 — the npad classes a
+    float64 table stages, whatever the table stores. A float32 or bfloat16
+    block of npad 256 fits the same bytes, but on the card its staged form
+    was slower for the DRFS complete tree (few atoms per group to repay the
+    copy) while faster for the RFS packs (PERF.md §6)."""
+    return walk_stageable(npad, wc, itemsize) and walk_stage_bytes(npad, wc) <= WALK_STAGE_MAX
 
 
-def walk_form(npad: int, wc: int, data_ptr: int, staged=None) -> bool:
-    """The form a fused_walk launch on a table at ``data_ptr`` takes:
-    ``staged`` None picks :func:`walk_staged` when the table is 16-byte
-    aligned (the copy moves 16-byte pieces); a staged form forced on a table
-    that cannot take it raises instead of running the other form."""
+def walk_form(npad: int, wc: int, data_ptr: int, staged=None, itemsize: int = 8) -> bool:
+    """The form a fused_walk launch on a table at ``data_ptr`` (values of
+    ``itemsize`` bytes) takes: ``staged`` None picks :func:`walk_staged` when
+    the table is 16-byte aligned (the copy moves 16- or 8-byte pieces); a
+    staged form forced on a table that cannot take it raises instead of
+    running the other form."""
     aligned = int(data_ptr) % 16 == 0
     if staged is None:
-        return aligned and walk_staged(npad, wc)
-    if staged and not (aligned and walk_stageable(npad, wc)):
+        return aligned and walk_staged(npad, wc, itemsize)
+    if staged and not (aligned and walk_stageable(npad, wc, itemsize)):
         raise ValueError(f"fused_walk: the staged form needs a 16-byte aligned table and an "
-                         f"edge block that fits shared memory (npad {npad}, row width {wc})")
+                         f"edge block that fits shared memory (npad {npad}, row width {wc}, "
+                         f"{itemsize}-byte values)")
     return bool(staged)
 
 
@@ -121,6 +144,23 @@ def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
+def _table_suffix(kernel, table, dtypes) -> str:
+    """The suffix of the C entry for the table's storage dtype (``f64``,
+    ``f32``, ``bf16``); a dtype the source is not instantiated for raises."""
+    suffix = dtypes.get(table.dtype)
+    if suffix is None:
+        raise TypeError(f"{kernel}: the table must be one of "
+                        f"{', '.join(str(d) for d in dtypes)}, got {table.dtype}")
+    return suffix
+
+
+def _count(wrapper, table):
+    """One launch of ``wrapper``'s kernel on ``table``: the total count and
+    the count for the table's dtype."""
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[str(table.dtype).removeprefix("torch.")] += 1
+
+
 def _check_rows(kernel, table, index):
     """The one range check of a launch on a flat table, against the row
     count its index was checked for when the pack was built (no host sync)."""
@@ -132,9 +172,10 @@ def _check_rows(kernel, table, index):
 def _walk_launch(kernel, table, lvl_base, edges, r_lo, r_hi, side, qs, out, *, nlev, npad,
                  blk_rows, staged):
     """Checks and launch of ``csrc/fused_walk.cu`` on the flat rows
-    ``table [N2, W·2k_s]``: the shared body of every walk wrapper (each
-    counts its own launches). ``out`` is [G, Q, W] or a view of it with
-    other strides."""
+    ``table [N2, W·2k_s]`` (float64, float32 or bfloat16: that dtype's
+    instantiation): the shared body of every walk wrapper (each counts its
+    own launches). ``out`` is [G, Q, W] float64 or a view of it with other
+    strides."""
     if table.device.type != "cuda":
         raise ValueError(f"{kernel}: unsupported device {table.device}")
     if table.dim() != 2 or qs.dim() != 3 or lvl_base.dim() != 2:
@@ -149,7 +190,8 @@ def _walk_launch(kernel, table, lvl_base, edges, r_lo, r_hi, side, qs, out, *, n
         )
     W = WC // (2 * ks)
     dev = table.device
-    _check(kernel, "table", table, torch.float64, (N2, WC), dev)
+    suffix = _table_suffix(kernel, table, WALK_DTYPES)
+    _check(kernel, "table", table, table.dtype, (N2, WC), dev)
     _check(kernel, "lvl_base", lvl_base, torch.int64, tuple(lvl_base.shape), dev)
     _check(kernel, "edges", edges, torch.int64, (G,), dev)
     _check(kernel, "qs", qs, torch.float64, (G, Q, ks), dev)
@@ -157,9 +199,9 @@ def _walk_launch(kernel, table, lvl_base, edges, r_lo, r_hi, side, qs, out, *, n
         _check(kernel, name, t, torch.int32, (G, Q), dev)
     if out.numel() == 0:
         return False  # nothing to launch
-    lib = fused_walk_library()
+    fn = getattr(fused_walk_library(), f"fused_walk_{suffix}")
     so_g, so_q, so_w = out.stride()
-    err = lib.fused_walk_f64(
+    err = fn(
         table.data_ptr(), N2, lvl_base.data_ptr(), max(int(lvl_base.shape[1]), 1),
         edges.data_ptr(), r_lo.data_ptr(), r_hi.data_ptr(), side.data_ptr(), qs.data_ptr(),
         out.data_ptr(), so_g, so_q, so_w, G, Q, W, ks, nlev, npad, blk_rows, int(bool(staged)),
@@ -206,7 +248,7 @@ def _walk_flat(kernel, table, index, r_lo, r_hi, side, qs, staged=None):
     G, Q, ks = (int(d) for d in qs.shape)
     WC = int(table.shape[1]) if table.dim() == 2 else 0
     W = WC // (2 * ks) if ks else 0
-    staged = walk_form(npad, WC, table.data_ptr(), staged)
+    staged = walk_form(npad, WC, table.data_ptr(), staged, table.element_size())
     out = torch.empty((G, Q, W), dtype=torch.float64, device=table.device)
     launched = _walk_launch(kernel, table, index.lvl_base, index.edges, r_lo, r_hi, side, qs,
                             out, nlev=npad.bit_length(), npad=npad, blk_rows=0, staged=staged)
@@ -228,19 +270,21 @@ def fused_walk(nodeval, r_lo, r_hi, side, qs, *, offs) -> torch.Tensor:
         return fused_walk_ref(nodeval, r_lo, r_hi, side, qs, offs=offs)
     out, launched = _walk_grouped("fused_walk", nodeval, r_lo, r_hi, side, qs, offs)
     if launched:
-        fused_walk.launches += 1
+        _count(fused_walk, nodeval)
     return out
 
 
 fused_walk.launches = 0
+fused_walk.launches_by_dtype = dict.fromkeys(TABLE_DTYPES, 0)
 
 
 def fused_walk_flat(table, index: FlatIndex, r_lo, r_hi, side, qs) -> torch.Tensor:
     """Fused walk on the flat window table in place (the fused executor's
     flush, see fused_walk.py): [G, Q, W] float64, halves folded.
 
-    ``table [N2, W·2k_s]`` float64 (``packed_node_tables`` / ``dyn_node_tables``
-    viewed as rows), ``index`` from :func:`walk_index` (range-checked when
+    ``table [N2, W·2k_s]`` float64, float32 or bfloat16 (``packed_node_tables``
+    / ``dyn_node_tables`` in the codec's fold dtype, viewed as rows),
+    ``index`` from :func:`walk_index` (range-checked when
     the pack was built; here only its row count against the table's),
     ``r_lo/r_hi/side [G, Q]`` int32, ``qs [G, Q, k_s]`` float64, all
     contiguous and on one device. Counts in ``fused_walk.launches``.
@@ -250,7 +294,7 @@ def fused_walk_flat(table, index: FlatIndex, r_lo, r_hi, side, qs) -> torch.Tens
         return fused_walk_flat_ref(table, index, r_lo, r_hi, side, qs)
     out, launched = _walk_flat("fused_walk", table, index, r_lo, r_hi, side, qs)
     if launched:
-        fused_walk.launches += 1
+        _count(fused_walk, table)
     return out
 
 
@@ -279,11 +323,12 @@ def fused_leaf(lcum, leaf_lo, leaf_hi, side, qs, qtl, qtr) -> torch.Tensor:
     if _leaf_launch("fused_leaf", lcum.reshape(G * R, WK),
                               torch.arange(G, device=lcum.device), R, leaf_lo, leaf_hi, side,
                               qs, qtl, qtr, out.permute(0, 2, 1)):
-        fused_leaf.launches += 1
+        _count(fused_leaf, lcum)
     return out
 
 
 fused_leaf.launches = 0
+fused_leaf.launches_by_dtype = dict.fromkeys(TABLE_DTYPES, 0)
 
 
 def _leaf_flat(kernel, lcum, index, leaf_lo, leaf_hi, side, qs, qtl, qtr):
@@ -302,8 +347,9 @@ def fused_leaf_flat(lcum, index: FlatIndex, leaf_lo, leaf_hi, side, qs, qtl, qtr
     """Fused quantized DRFS tree phase on the flat leaf-prefix table in place
     (the fused executor's flush, see fused_walk.py): [G, Q, W] float64.
 
-    ``lcum [E·(nleaf+1)·2, W·2K]`` float64 (``dyn_window_tables`` viewed as
-    rows), ``index`` from :func:`leaf_index`, the rest as
+    ``lcum [E·(nleaf+1)·2, W·2K]`` float64 or float32 (``dyn_window_tables``
+    in the codec's moment dtype, viewed as rows), ``index`` from
+    :func:`leaf_index`, the rest as
     :func:`fused_leaf`. Counts in ``fused_leaf.launches``. Launches on the
     current stream and does not synchronise.
     """
@@ -311,14 +357,15 @@ def fused_leaf_flat(lcum, index: FlatIndex, leaf_lo, leaf_hi, side, qs, qtl, qtr
         return fused_leaf_flat_ref(lcum, index, leaf_lo, leaf_hi, side, qs, qtl, qtr)
     out, launched = _leaf_flat("fused_leaf", lcum, index, leaf_lo, leaf_hi, side, qs, qtl, qtr)
     if launched:
-        fused_leaf.launches += 1
+        _count(fused_leaf, lcum)
     return out
 
 
 def _leaf_launch(kernel, lcum, edges, R, leaf_lo, leaf_hi, side, qs, qtl, qtr, out):
     """Checks and launch of ``csrc/fused_leaf.cu`` on the flat rows
-    ``lcum [N, W·2K]``, R rows per edge; ``out`` [G, Q, W] or a view of it
-    with other strides. Returns whether it launched."""
+    ``lcum [N, W·2K]`` (float64 or float32: that dtype's instantiation), R
+    rows per edge; ``out`` [G, Q, W] float64 or a view of it with other
+    strides. Returns whether it launched."""
     if lcum.dim() != 2 or qs.dim() != 3 or qtl.dim() != 2:
         raise ValueError(f"{kernel}: lcum must be [N, W*2*K], qs [G, Q, k_s], qtl [W, k_t]")
     N, WK = (int(d) for d in lcum.shape)
@@ -331,7 +378,8 @@ def _leaf_launch(kernel, lcum, edges, R, leaf_lo, leaf_hi, side, qs, qtl, qtr, o
             f"k_t={kt}, or the [W, k_t] vectors and two rows exceed {LEAF_SMEM_MAX} bytes"
         )
     dev = lcum.device
-    _check(kernel, "lcum", lcum, torch.float64, (N, WK), dev)
+    suffix = _table_suffix(kernel, lcum, LEAF_DTYPES)
+    _check(kernel, "lcum", lcum, lcum.dtype, (N, WK), dev)
     _check(kernel, "edges", edges, torch.int64, (G,), dev)
     _check(kernel, "qs", qs, torch.float64, (G, Q, ks), dev)
     for name, t in (("qtl", qtl), ("qtr", qtr)):
@@ -340,9 +388,9 @@ def _leaf_launch(kernel, lcum, edges, R, leaf_lo, leaf_hi, side, qs, qtl, qtr, o
         _check(kernel, name, t, torch.int32, (G, Q), dev)
     if out.numel() == 0:
         return False  # nothing to launch
-    lib = fused_leaf_library()
+    fn = getattr(fused_leaf_library(), f"fused_leaf_{suffix}")
     so_g, so_q, so_w = out.stride()
-    err = lib.fused_leaf_f64(
+    err = fn(
         lcum.data_ptr(), N, edges.data_ptr(), R, leaf_lo.data_ptr(), leaf_hi.data_ptr(),
         side.data_ptr(), qs.data_ptr(), qtl.data_ptr(), qtr.data_ptr(), out.data_ptr(),
         so_g, so_q, so_w, G, Q, W, ks, kt, _device_index(dev),
@@ -451,11 +499,12 @@ def dyn_leaf_query(tab, leaf_lo, leaf_hi, side, qv_l, qv_r) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"dyn_leaf_query: kernel launch failed (cudaError {err})")
-    dyn_leaf_query.launches += 1
+    _count(dyn_leaf_query, tab)
     return out
 
 
 dyn_leaf_query.launches = 0
+dyn_leaf_query.launches_by_dtype = dict.fromkeys(TABLE_DTYPES, 0)
 
 
 def dyn_leaf_query_flat(lcum, index: FlatIndex, leaf_lo, leaf_hi, side, qs, qtl,
@@ -472,7 +521,7 @@ def dyn_leaf_query_flat(lcum, index: FlatIndex, leaf_lo, leaf_hi, side, qs, qtl,
     out, launched = _leaf_flat("dyn_leaf_query", lcum, index, leaf_lo, leaf_hi, side, qs, qtl,
                                qtr)
     if launched:
-        dyn_leaf_query.launches += 1
+        _count(dyn_leaf_query, lcum)
     return out
 
 
@@ -487,11 +536,12 @@ def dyn_node_walk(nodeval, r_lo, r_hi, side, qs, *, hq) -> torch.Tensor:
     out, launched = _walk_grouped("dyn_node_walk", nodeval, r_lo, r_hi, side, qs,
                                   tree_offs(int(hq)))
     if launched:
-        dyn_node_walk.launches += 1
+        _count(dyn_node_walk, nodeval)
     return out
 
 
 dyn_node_walk.launches = 0
+dyn_node_walk.launches_by_dtype = dict.fromkeys(TABLE_DTYPES, 0)
 
 
 def dyn_node_walk_flat(table, index: FlatIndex, r_lo, r_hi, side, qs) -> torch.Tensor:
@@ -503,7 +553,7 @@ def dyn_node_walk_flat(table, index: FlatIndex, r_lo, r_hi, side, qs) -> torch.T
         return fused_walk_flat_ref(table, index, r_lo, r_hi, side, qs)
     out, launched = _walk_flat("dyn_node_walk", table, index, r_lo, r_hi, side, qs)
     if launched:
-        dyn_node_walk.launches += 1
+        _count(dyn_node_walk, table)
     return out
 
 

@@ -199,16 +199,11 @@ def test_x64_shim_does_not_leak():
 
 # ------------------------------------------------------ what is not served
 @pytest.mark.parametrize("kwargs,match", [
-    # DRFS and its horizon are served; its table codec (A3's TableCodec and
-    # the delta-encoded leaf prefix of A4) is not
-    (dict(solution="drfs", table_codec="f32"), "A4"),
-    (dict(solution="ada"), "A3"),
-    (dict(table_codec="f32"), "A3"),
-    (dict(table_codec="bf16"), "A3"),
+    # the table codec and ADA are served (tests/test_torch_codec.py::
+    # test_a3_arguments_are_served); sharding and the legacy executors are not
     (dict(mesh=object()), "A8"),
     (dict(executor="search"), "A5"),
     (dict(executor="cascade"), "A5"),
-    (dict(solution="drfs", horizon_s=3600.0, table_codec="bf16"), "A4"),
 ])
 def test_unsupported_arguments_raise_not_implemented(world, kwargs, match):
     net, ev = world
