@@ -45,6 +45,22 @@ Table-3 berkeley replica:
   ``minplus_matmul`` launch per round — held against scipy's bounded
   Dijkstra (``endpoint_distance_rows``), with the kernel's grid: blocks,
   blocks per SM (``minplus_occupancy``) and waves;
+* ``[serve]`` the serve tier, ``repro_torch.serve.TNKDEServer`` with two
+  profiles on ``[drfs]``'s parameters (quantized: ``fused_leaf``; exact:
+  ``fused_walk``) and the server's defaults (flushes of up to 16 centres),
+  ``warmup()``, then a ``make_request_mix`` stream over the held-back 10 %
+  (its first 48 queries, an insert of 1 % after 24): every answer bitwise
+  equal to a standalone ``TNKDE`` replaying the server's flush at the pinned
+  snapshot (cold and warm), exact also against SPS, no engine fault,
+  degradation or library loaded after warmup, no dispatch that waits for
+  the card, and the kernels launched once per atom block of every flush;
+  ``[serve-durable]``
+  restores the quantized profile from the write-ahead log and checkpoint a
+  crash left and serves the rest bitwise; ``[serve-router]`` two replicas
+  behind ``ReplicaRouter`` with background compaction on and one replica
+  killed mid-run (berkeley x0.1), every answer exact after failover; each
+  phase holds ``fused_leaf`` against its plain version at the shapes of its
+  own last flush;
 * ``[lm]`` LM serving of qwen2.5-3b at full width with seeded weights:
   bf16 prefill of 4 × 2 048 tokens with ``attn_impl='kernel'`` (one
   ``flash_attention`` launch per layer) and 32 greedy decode steps; then in
@@ -478,7 +494,8 @@ def flat_walk_case(layout, E, G, Q, W, ks, device, dtype=torch.float64):
     qs = rng.normal(size=(G, Q, ks))
     qs[:, ::5] = 0.0
     t = lambda x, dt: torch.as_tensor(x, device=device).to(dt).contiguous()  # noqa: E731
-    index = ops.walk_index(t(lvl_base, torch.int64), t(edges, torch.int64), npad)
+    index = ops.walk_index(t(lvl_base, torch.int64), t(edges, torch.int64), npad,
+                           lvl_base_host=lvl_base.numpy(), edges_host=edges)
     return (t(table, dtype), index, t(r_lo, torch.int32), t(r_hi, torch.int32),
             t(side, torch.int32), t(qs, torch.float64))
 
@@ -501,7 +518,7 @@ def flat_leaf_case(nleaf, E, G, Q, W, ks, kt, device, dtype=torch.float64):
     qs = rng.normal(size=(G, Q, ks))
     qtl, qtr = rng.normal(size=(W, kt)), rng.normal(size=(W, kt))
     t = lambda x, dt: torch.as_tensor(x, device=device).to(dt).contiguous()  # noqa: E731
-    return (t(lcum, dtype), ops.leaf_index(t(edges, torch.int64), nleaf),
+    return (t(lcum, dtype), ops.leaf_index(t(edges, torch.int64), nleaf, edges_host=edges),
             t(lo, torch.int32), t(hi, torch.int32), t(side, torch.int32), t(qs, torch.float64),
             t(qtl, torch.float64), t(qtr, torch.float64))
 
@@ -730,7 +747,7 @@ def phase_kernel_kernels(device):
         qv = [torch.as_tensor(rng.normal(size=(G, W, Q, ks * kt)), device=device) for _ in range(2)]
         check("dyn_leaf_query", f"nleaf{nleaf}:G{G}:Q{Q}:W{W}:K{ks * kt}",
               (tab, lo, hi, side, *qv))
-        index = ops.leaf_index(torch.arange(G, device=device), nleaf)
+        index = ops.leaf_index(torch.arange(G, device=device), nleaf, edges_host=np.arange(G))
         check("dyn_leaf_query_flat", f"nleaf{nleaf}:G{G}:Q{Q}:W{W}:ks{ks}:kt{kt}",
               (tab.reshape(G * tab.shape[1], -1), index, lo, hi, side, qs, qtl, qtr))
     for hq, G, Q, W, ks in [(2, 3, 7, 1, 2), (3, 3, 33, 2, 3), (4, 3, 65, 2, 2),
@@ -1477,6 +1494,525 @@ def phase_drfs_codec(args, device, card):
     say("drfs-codec", card=card, max_memory_allocated=peak,
         seconds=round(time.perf_counter() - t0, 1))
     return out
+
+
+# ------------------------------------------------------------ serve tier
+# The serve phases run the server's defaults (window_cap 16: a flush
+# coalesces up to 16 distinct centres; 32 slots). Their counts are cut to
+# their time budget (120 s on the card for the three). At berkeley x1.0 a
+# model takes ~6 s to build, each epoch ~6 s of host planning per model and
+# ~3 s for its first flush (the epoch's atom packs), a quantized flush
+# 0.02-0.1 s on a sealed epoch and ~0.5 s with 1 % of the events pending
+# (~1.7 s with 5 %), an exact flush ~1-2.5 s whatever its width, and a
+# compaction ~10 s per model (tools/serve_costs.py; PERF.md §5). So the
+# phases serve the first two epochs of the mix (an insert of 1 % between),
+# the exact profile takes every SERVE_EXACT_EVERY-th query of the first
+# epoch, and [serve]/[serve-durable] compact nothing: background compaction
+# between batches runs in [serve-router] (berkeley x0.1), the single
+# server's and the router's own.
+SERVE_REQUESTS = 48  # queries served: the first two epochs of the mix
+SERVE_EVERY = 24  # the mix inserts the next 1 % of the events after every 24 queries
+SERVE_MIX_INSERTS = 10  # the mix spreads the held-back 10 % over 10 inserts
+SERVE_WINDOWS = 3  # each query asks for 1..3 window centres
+SERVE_EXACT_EVERY = 8  # the exact profile takes queries 0, 8, 16 (first epoch); quantized all
+SERVE_CRASH = SERVE_EVERY + 1  # [serve-durable]'s server stops after the insert
+SERVE_KILL = 12  # [serve-router] kills replica 1 once this many queries are admitted
+SERVE_ROUTER_SCALE = 0.1  # [serve-router]'s berkeley scale: x1.0 does not fit the budget
+SERVE_PROFILES = dict(quantized=False, exact=True)  # profile -> drfs_exact_leaf
+
+
+def serve_world(args, scale=None):
+    """``[drfs]``'s world and profile: berkeley, the first 90 % of the events
+    (by time) as the base index, the held-back 10 % as the stream of the
+    serve mix (``make_request_mix``: queries of 1..3 centres inside
+    [t_min + 0.2 span, t_min + 0.8 span], an insert of the next tenth of the
+    stream after every SERVE_EVERY), of which the first SERVE_REQUESTS
+    queries and the inserts between them are served."""
+    from repro_torch.core.events import Events
+    from repro_torch.data.spatial import make_dataset
+    from repro_torch.serve import QueryItem, make_request_mix
+
+    net, ev, _ = make_dataset("berkeley", scale=args.scale if scale is None else scale,
+                              seed=args.seed)
+    order = np.argsort(ev.time, kind="stable")
+    n_base = int(0.9 * ev.n)
+
+    def part(sel):
+        return Events(ev.edge_id[sel], ev.pos[sel], ev.time[sel])
+
+    t_min = float(ev.time.min())
+    span = float(ev.time.max()) - t_min
+    prof = dict(g=50.0, b_s=800.0, b_t=0.2 * span, solution="drfs", engine="torch",
+                executor="fused", drfs_depth=8, auto_seal=False, horizon_s=0.9 * span)
+    mix = make_request_mix(part(order[n_base:]), t_min + 0.2 * span, t_min + 0.8 * span,
+                           n_requests=SERVE_EVERY * SERVE_MIX_INSERTS, stream_every=SERVE_EVERY,
+                           max_windows=SERVE_WINDOWS, seed=args.seed + 17)
+    mix = mix[:SERVE_REQUESTS + (SERVE_REQUESTS - 1) // SERVE_EVERY]
+    require(isinstance(mix[-1], QueryItem), "the served mix ends on an insert")
+    return net, part(order[:n_base]), prof, mix
+
+
+def serve_profiles(prof, names=tuple(SERVE_PROFILES)):
+    from repro_torch.serve import ProfileConfig
+
+    return {n: ProfileConfig(drfs_exact_leaf=SERVE_PROFILES[n], **prof) for n in names}
+
+
+def serve_route(profiles):
+    """The profiles query ``q`` (its index among the mix's queries) goes to:
+    all for one profile; with the exact profile, every SERVE_EXACT_EVERY-th
+    query of the first epoch to it as well."""
+    def route(q):
+        return [n for n in profiles
+                if n != "exact" or (q % SERVE_EXACT_EVERY == 0 and q < SERVE_EVERY)]
+    return route
+
+
+def serve_drive(server, mix, items, route, *, on_submit=None, on_insert=None, on_item=None):
+    """Drive ``mix[i] for i in items`` through ``server`` (a TNKDEServer or a
+    ReplicaRouter): each query goes to the profiles ``route`` names (tag
+    ``(profile, i)``), full flushes are pumped as they fill, and before an
+    insert every admitted request is answered — so each epoch's host plan is
+    built over exactly that epoch's events. ``on_item(i)`` runs after item
+    i. Returns ({tag: Response}, {tag: seconds from admission to answer})."""
+    from repro_torch.serve import InsertItem
+
+    out, t_sub, lat = {}, {}, {}
+
+    def handle(rs):
+        t = time.perf_counter()
+        for r in rs:
+            require(r.tag not in out, f"two responses for {r.tag}")
+            out[r.tag], lat[r.tag] = r, t - t_sub[r.tag]
+
+    def drain():
+        while server.n_queued:
+            handle(server.pump(force=True))
+
+    for i in items:
+        item = mix[i]
+        if isinstance(item, InsertItem):
+            drain()
+            server.insert(item.events)
+            if on_insert is not None:
+                on_insert(item.events)
+        else:
+            q = sum(1 for it in mix[:i] if not isinstance(it, InsertItem))
+            for name in route(q):
+                t_sub[(name, i)] = time.perf_counter()
+                server.submit(item.ts, profile=name, tag=(name, i))
+                if on_submit is not None:
+                    on_submit(name, i)
+                if server.has_ready_batch:
+                    handle(server.pump(force=False))
+        if on_item is not None:
+            on_item(i)
+    drain()
+    return out, lat
+
+
+def serve_sync_guard(model, counter):
+    """Run ``model.dispatch`` under ``torch.cuda.set_sync_debug_mode('warn')``
+    and count the warnings: a dispatch that waits for the card (``.item()``,
+    ``.cpu()``, ``nonzero``, a blocking copy, ``bool()`` of a device tensor)
+    would stall the double-buffered pipeline."""
+    import warnings
+
+    inner = model.dispatch
+
+    def dispatch(ts, **kw):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return inner(ts, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                hits = [str(w.message) for w in caught
+                        if "called a synchronizing CUDA operation" in str(w.message)]
+                counter["dispatches"] += 1
+                counter["syncs"] += len(hits)
+                if hits and "first" not in counter:
+                    counter["first"] = hits[0][:200]
+
+    model.dispatch = dispatch
+
+
+def serve_record(models, flushes, blocks=None):
+    """Record ``(profile, pinned epoch, centres)`` of every engine pass of
+    ``models`` ({profile: TNKDE}) in ``flushes``; with ``blocks``, add the
+    pass's atom blocks (one kernel launch each) to ``blocks[profile]``."""
+    for name, m in models.items():
+        def dispatch(ts, *, at=None, _m=m, _name=name, _inner=m.dispatch):
+            pq = _inner(ts, at=at)
+            if blocks is not None:
+                blocks[_name] += _m._host_plan(at).n_blocks
+            flushes.append((_name, at.epoch, tuple(ts)))
+            return pq
+
+        m.dispatch = dispatch
+
+
+def serve_replay(flushes, query, pins):
+    """``{(profile, epoch, centre): row}``: every recorded pass evaluated
+    again by ``query(profile, centres, snapshot)`` at ``pins[(profile,
+    epoch)]``, with the same centres in the same order."""
+    rows = {}
+    for name, epoch, ts in flushes:
+        F = query(name, list(ts), pins[(name, epoch)])
+        for j, c in enumerate(ts):
+            rows.setdefault((name, epoch, c), F[j])
+    return rows
+
+
+def serve_check(tag, resp, mix, rows, epochs=None):
+    """Every response ok and each of its rows bitwise equal to the replayed
+    pass that computed it, at its pinned epoch (with ``epochs``: the epoch
+    ``[serve]`` pinned for the same request)."""
+    for k, r in sorted(resp.items()):
+        require(r.ok, f"[{tag}] {k} failed: {r.error}")
+        e = tuple(r.stats.epoch)
+        if epochs is not None:
+            require(e == tuple(epochs[k]), f"[{tag}] {k} pinned {e}, [serve] {epochs[k]}")
+        want = np.stack([rows[(k[0], e, float(c))] for c in mix[k[1]].ts])
+        require(np.array_equal(r.heat, want), f"[{tag}] {k} differs from the reference: "
+                f"{float(np.abs(r.heat - want).max())}")
+    return len(resp)
+
+
+def serve_widths(flushes):
+    """{profile: [W of each engine pass, in order]} — how many distinct
+    centres each flush coalesced."""
+    out = {}
+    for name, _, ts in flushes:
+        out.setdefault(name, []).append(len(ts))
+    return out
+
+
+def phase_serve(args, device, card, tmp):
+    """The serve tier at full width: ``TNKDEServer`` with two profiles on
+    ``[drfs]``'s parameters — quantized (``fused_leaf``) and exact
+    (``fused_walk``) — and the server's defaults (window_cap 16, 32 slots)
+    over the base index, ``warmup()``, a checkpoint and a
+    ``WriteAheadLog`` under ``tmp``, then the serve mix: SERVE_EVERY queries
+    coalesced into flushes of up to 16 centres, an insert of 5 %, SERVE_EVERY
+    more; after SERVE_CRASH items the log directory is copied as a crash
+    would leave it (``[serve-durable]`` restores that copy) and the server
+    runs on as the uninterrupted run. Compaction is off here (x1.0 costs
+    ~10 s per model; ``[serve-router]`` runs it).
+
+    Every answer is held bitwise against a standalone ``TNKDE`` on the
+    profiles' parameters, fed the same inserts and queried at the response's
+    pinned snapshot in the response's mode (one model answers both, as in
+    ``[drfs]``: ``drfs_exact_leaf`` is read per query) with the centres of
+    the server's flush that computed it, cold then warm (bitwise equal); the
+    exact profile also against the SPS oracle over that snapshot's events.
+    The standalone model takes the server's host plans of the same epochs
+    (one per epoch: the plan does not depend on the mode; ~6 s each at
+    x1.0), so what it checks is the device path and the serve tier. The
+    flush's centres, not the request's own: on the card ``index_put_`` sums
+    a lixel's rows in another association for one window than for several
+    (``width_bits`` prints the difference; ROADMAP Queue C item 1)."""
+    import shutil
+
+    from repro_torch.core import TNKDE, WriteAheadLog
+    from repro_torch.core.events import Events, group_events_by_edge
+    from repro_torch.serve import TNKDEServer, jit_entries
+
+    t0 = time.perf_counter()
+    net, base, prof, mix = serve_world(args)
+    profiles = serve_profiles(prof)
+    route = serve_route(profiles)
+    srv = TNKDEServer(net, base, profiles, device=device, auto_compact=False)
+    standalone = TNKDE(net, base, device=device, **profiles["quantized"].to_kwargs())
+
+    def oracle_query(name, ts, at):
+        standalone.drfs_exact_leaf = SERVE_PROFILES[name]
+        return standalone.query(ts, at=at)
+
+    for n, m in srv.models.items():
+        require(m.engine_desc == "torch/fused", f"[serve] {n}: {m.engine_desc}")
+    require(srv.degrade_after is None or device == "cpu",
+            f"[serve] the ladder is on: degrade_after={srv.degrade_after}")
+    build_s = time.perf_counter() - t0
+    warm_s = {}
+    for name in profiles:
+        t1 = time.perf_counter()
+        w = srv.warmup(profiles=[name])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        warm_s[name] = round(time.perf_counter() - t1, 3)
+    lib0 = jit_entries()
+    t1 = time.perf_counter()
+    srv.attach_wal(WriteAheadLog(os.path.join(tmp, "wal")))
+    step = srv.checkpoint(os.path.join(tmp, "ckpt"))
+    ckpt_s = time.perf_counter() - t1
+    n_q = sum(1 for it in mix if hasattr(it, "ts"))
+    say("serve", card=card, profiles=",".join(profiles), base_events=base.n,
+        stream_events=sum(it.events.n for it in mix if hasattr(it, "events")), queries=n_q,
+        exact_every=SERVE_EXACT_EVERY, inserts=len(mix) - n_q, window_cap=srv.window_cap,
+        slots=srv.continuous.scheduler.n_slots, auto_compact=srv.auto_compact,
+        degrade_after=srv.degrade_after, window_classes=json.dumps(w["window_classes"]),
+        libraries_after_warmup=lib0, build_s=round(build_s, 3), warmup_s=json.dumps(warm_s),
+        checkpoint_step=step, checkpoint_s=round(ckpt_s, 3))
+    syncs = dict(dispatches=0, syncs=0)
+    if device != "cpu":
+        for m in srv.models.values():
+            serve_sync_guard(m, syncs)
+    pins, srv_pins = {}, {}  # (profile, epoch) -> the standalone's / the server's snapshot
+
+    def on_submit(name, i):
+        e = srv.models[name].epoch
+        require(standalone.epoch == e, "standalone epoch ladder")
+        pins.setdefault((name, e), standalone.snapshot())
+        srv_pins.setdefault((name, e), srv.models[name].snapshot())
+
+    def on_item(i):
+        if i == SERVE_CRASH - 1:  # what a crash here leaves on disk
+            shutil.copytree(os.path.join(tmp, "wal"), os.path.join(tmp, "crash-wal"))
+
+    blocks = dict.fromkeys(profiles, 0)
+    flushes = []  # (profile, pinned epoch, centres) of every engine pass
+    serve_record(srv.models, flushes, blocks)
+    reset_launches()
+    t1 = time.perf_counter()
+    resp, lat = serve_drive(srv, mix, range(len(mix)), route, on_submit=on_submit,
+                            on_insert=standalone.insert, on_item=on_item)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    launches = read_launches()
+    lib1 = jit_entries()
+    for m in srv.models.values():
+        del m.dispatch  # the class's dispatch again: no recording from here on
+    st = srv.stats
+    require(st.n_engine_faults == 0 and st.n_degradations == 0 and st.n_errors == 0,
+            f"[serve] faults {st.n_engine_faults}, degradations {st.n_degradations}, "
+            f"errors {st.n_errors}")
+    for n, m in srv.models.items():
+        require(m.engine_desc == "torch/fused", f"[serve] {n} left the fused executor: "
+                f"{m.engine_desc}")
+    require(lib1 == lib0, f"[serve] loaded {lib1 - lib0} CUDA libraries after warmup()")
+    widths = serve_widths(flushes)
+    require(max(widths["quantized"]) > 1, f"[serve] no flush coalesced centres: {widths}")
+    if device != "cpu":
+        require(launches["fused_leaf"] == blocks["quantized"] > 0
+                and launches["fused_walk"] == blocks["exact"] > 0
+                and sum(launches.values()) == blocks["quantized"] + blocks["exact"],
+                f"[serve] launches {launches} for blocks {blocks}")
+        require(syncs["syncs"] == 0,
+                f"[serve] dispatch synchronised with the card {syncs['syncs']} times in "
+                f"{syncs['dispatches']} dispatches: {syncs.get('first')}")
+    # ---- held against the standalone model (its launches not counted)
+    t1 = time.perf_counter()
+    qm = srv.models["quantized"]
+    for key in sorted({(e, False) for _, e in pins}):
+        require(qm._plan_cache.get(key) is not None, f"[serve] no server plan for {key}")
+        standalone._plan_cache.put(key, qm._plan_cache.get(key))
+    rows = serve_replay(flushes, oracle_query, pins)
+    n_checked = serve_check("serve", resp, mix, rows)
+    width_bits = None
+    for name, epoch in sorted(pins):
+        ts = [f[2] for f in flushes if f[:2] == (name, epoch)][-1]
+        if epoch == max(e for n, e in pins if n == name):
+            # cold == warm at the profile's last epoch (the quantized one has
+            # pending events), on the card's scatter order (ROADMAP Queue C
+            # item 1)
+            require(np.array_equal(oracle_query(name, list(ts), pins[(name, epoch)]),
+                                   np.stack([rows[(name, epoch, c)] for c in ts])),
+                    f"[serve] {name} at {epoch}: warm query differs from cold")
+        if width_bits is None and name == "quantized" and len(ts) > 1:
+            F1 = oracle_query(name, [ts[0]], pins[(name, epoch)])  # the same centre alone
+            width_bits = float(np.abs(F1[0] - rows[(name, epoch, ts[0])]).max())
+    tag = max(k for k in resp if k[0] == "exact")  # the last exact answer vs SPS
+    e_, p_, t_ = pins[("exact", tuple(resp[tag].stats.epoch))].event_set()
+    ee = group_events_by_edge(net, Events(e_, p_, t_))
+    ids, F_sps = sps_sample(standalone, list(mix[tag[1]].ts), SPS_EDGES, args.seed + 13, ee=ee)
+    require(len(ids) >= 64, f"SPS sample too small: {len(ids)} lixels")
+    F = resp[tag].heat
+    worst_sps = float(np.abs(F[:, ids] - F_sps).max()) / float(np.abs(F).max())
+    require(worst_sps <= SPS_TOL, f"[serve] exact vs sps {worst_sps}")
+    check_s = time.perf_counter() - t1
+    lat_ms = np.array(list(lat.values())) * 1e3
+    say("serve", card=card, requests=st.n_requests, flushes=st.n_flushes,
+        engine_flushes=len(flushes), flush_widths=json.dumps(widths), batches=st.n_batches,
+        occupancy=round(st.batch_occupancy, 4), windows_requested=st.n_windows_requested,
+        windows_evaluated=st.n_windows_evaluated, rows_computed=st.n_rows_computed,
+        epochs=json.dumps(sorted({e for _, e in pins})),
+        run_p50_ms=round(float(np.percentile(lat_ms, 50)), 3),
+        run_p95_ms=round(float(np.percentile(lat_ms, 95)), 3), serve_s=round(serve_s, 3),
+        launches=json.dumps({k: launches[k] for k in ("fused_leaf", "fused_walk")}),
+        blocks=json.dumps(blocks), libraries_added=lib1 - lib0,
+        dispatch_syncs=syncs["syncs"] if device != "cpu" else None,
+        standalone_equal=f"bitwise_{n_checked}", width_bits=width_bits,
+        exact_vs_sps=worst_sps, check_s=round(check_s, 3))
+    del standalone
+    free(device)
+    # ---- both kernels at the shapes the serve flushes gave them: the last
+    # pass of each profile (its window table is still cached)
+    shapes = {}
+    for name, exact in SERVE_PROFILES.items():
+        ts = [f[2] for f in flushes if f[0] == name][-1]
+        shapes.update(phase_drfs_shapes(srv.models[name], list(ts), device, card,
+                                        tag="serve-shapes", modes=(exact,)))
+    epochs = {k: r.stats.epoch for k, r in resp.items() if k[0] == "quantized"}
+    qpins = {k: p for k, p in srv_pins.items() if k[0] == "quantized"}
+    srv._wal.close()
+    del srv
+    free(device)
+    say("serve", seconds=round(time.perf_counter() - t0, 1))
+    # the quantized model of the uninterrupted run, with its pinned snapshots,
+    # is the reference of [serve-durable]
+    return (qm, qpins, epochs), launches, shapes
+
+
+def phase_serve_durable(args, device, card, ref, tmp):
+    """Crash recovery of the quantized profile: the write-ahead log as
+    ``[serve]``'s server left it after SERVE_CRASH items of the mix (nothing
+    closed: the log is fsync'd per record) and its checkpoint; a fresh
+    server over the same base events runs ``restore(ckpt, wal=...)`` and
+    serves the rest of the mix. The recovered epoch, every answer's pinned
+    epoch and every answer must equal the uninterrupted ``[serve]`` run's:
+    its quantized model (``ref``), queried at its own pinned snapshot with
+    the centres of the flush that computed the answer, bitwise. The kernel
+    is then held against its plain version at the shapes of this run's
+    last flush."""
+    from repro_torch.core import WriteAheadLog
+    from repro_torch.serve import TNKDEServer
+
+    qm, qpins, epochs = ref
+    t0 = time.perf_counter()
+    net, base, prof, mix = serve_world(args)
+    profiles = serve_profiles(prof, ("quantized",))
+    fresh = TNKDEServer(net, base, profiles, device=device, auto_compact=False)
+    build_s = time.perf_counter() - t0
+    rep = fresh.restore(os.path.join(tmp, "ckpt"), wal=WriteAheadLog(os.path.join(tmp, "crash-wal")))
+    crash = [k for k in epochs if k[1] >= SERVE_CRASH]
+    require(fresh.models["quantized"].epoch == tuple(epochs[min(crash)]),
+            f"recovered epoch {fresh.models['quantized'].epoch} != {epochs[min(crash)]}")
+    require(rep.restored_step is not None and rep.n_records >= 1, f"recovery: {rep.as_dict()}")
+    flushes = []
+    serve_record(fresh.models, flushes)
+    reset_launches()
+    got, _ = serve_drive(fresh, mix, range(SERVE_CRASH, len(mix)), serve_route(profiles))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    require(set(got) == set(crash), f"[serve-durable] answered {sorted(got)}")
+    require(fresh.stats.n_engine_faults == 0 and fresh.stats.n_degradations == 0,
+            "[serve-durable] faults or degradations")
+    if device != "cpu":
+        require(launches["fused_leaf"] > 0 and sum(launches.values()) == launches["fused_leaf"],
+                f"[serve-durable] launches {launches}")
+    fm = fresh.models["quantized"]
+    shapes = phase_drfs_shapes(fm, list(flushes[-1][2]), device, card,
+                               tag="serve-durable-shapes", modes=(False,))
+    epoch = fm.epoch
+    del fresh, fm
+    free(device)
+    rows = serve_replay(flushes, lambda name, ts, at: qm.query(ts, at=at), qpins)
+    n = serve_check("serve-durable", got, mix, rows, epochs)
+    say("serve-durable", card=card, restored_step=rep.restored_step,
+        crash_after_items=SERVE_CRASH, epoch=list(epoch), build_s=round(build_s, 3),
+        restore_seconds=round(rep.restore_seconds, 3), replay_seconds=round(rep.replay_seconds, 3),
+        records=rep.n_records, events=rep.n_events, truncated_bytes=rep.n_truncated_bytes,
+        answers_bitwise=n, flush_widths=json.dumps(serve_widths(flushes)),
+        launches=launches["fused_leaf"], seconds=round(time.perf_counter() - t0, 1))
+    return launches["fused_leaf"], shapes["fused_leaf"]
+
+
+def phase_serve_router(args, device, card):
+    """``ReplicaRouter`` with two replicas of the quantized profile on the
+    card, at berkeley x``SERVE_ROUTER_SCALE`` (x1.0 does not fit the time
+    budget), with background compaction on (the router's own, between
+    batches): ``ft.faults.kill_replica`` takes replica 1 down once
+    SERVE_KILL queries are admitted. Every answer — the failed-over ones
+    included — must equal a single ``TNKDEServer`` (its own background
+    compaction on) on the same world and mix, queried at its snapshot of the
+    answer's pinned epoch with the centres of the flush that computed the
+    answer, bitwise (two replicas give one answer: the card's scatter
+    order, ROADMAP Queue C item 1), with at least one failover, at least one
+    compaction on each side and the killed replica quarantined. The kernel
+    is then held against its plain version at the shapes of the router's
+    last flush."""
+    from repro_torch.ft.faults import kill_replica
+    from repro_torch.serve import ReplicaRouter, TNKDEServer
+
+    t0 = time.perf_counter()
+    scale = SERVE_ROUTER_SCALE * args.scale
+    net, base, prof, mix = serve_world(args, scale=scale)
+    profiles = serve_profiles(prof, ("quantized",))
+    route = serve_route(profiles)
+    single = TNKDEServer(net, base, profiles, device=device)
+    sm = single.models["quantized"]
+    pins = {}  # every epoch the single server's model passes through
+
+    def pin(*_):
+        pins.setdefault(("quantized", sm.epoch), sm.snapshot())
+
+    inner = sm.compact
+
+    def compact(t_now=None):
+        out = inner(t_now)
+        pin()
+        return out
+
+    sm.compact = compact
+    want, _ = serve_drive(single, mix, range(len(mix)), route, on_submit=pin, on_insert=pin)
+    del sm.compact
+    require(all(r.ok for r in want.values()), "[serve-router] the single server failed")
+    require(single.stats.n_compactions >= 1, "[serve-router] the single server never compacted")
+    # the ladder is off on the card: the killed replica must be failed over
+    # and quarantined, and any degradation fails the run
+    router = ReplicaRouter(net, base, profiles, replicas=2, device=device)
+    build_s = time.perf_counter() - t0
+    flushes = []
+    for s_ in router.servers:
+        serve_record(s_.models, flushes)
+    admitted = []
+
+    def on_submit(name, i):
+        admitted.append(i)
+        if len(admitted) == SERVE_KILL:
+            kill_replica(router.servers[1])
+
+    reset_launches()
+    got, lat = serve_drive(router, mix, range(len(mix)), route, on_submit=on_submit)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = read_launches()
+    require(set(got) == set(want), f"[serve-router] answered {sorted(got)}")
+    n = serve_check("serve-router", got, mix,
+                    serve_replay(flushes, lambda name, ts, at: sm.query(ts, at=at), pins))
+    sj = router.stats_json()
+    require(router.n_failovers >= 1, f"[serve-router] no failover: {sj['ft_events']}")
+    require(sj["n_degradations"] == 0, "[serve-router] a replica degraded")
+    compactions = router.servers[0].stats.n_compactions  # the router's, on the live replica
+    require(compactions >= 1, "[serve-router] the router never compacted")
+    require(sj["health"][1] == "quarantined" and sj["health"][0] == "healthy",
+            f"[serve-router] health {sj['health']}")
+    if device != "cpu":
+        require(launches["fused_leaf"] > 0 and sum(launches.values()) == launches["fused_leaf"],
+                f"[serve-router] launches {launches}")
+    rm = router.servers[0].models["quantized"]
+    require(rm.epoch == sm.epoch, f"[serve-router] replica at {rm.epoch}, single at {sm.epoch}")
+    shapes = phase_drfs_shapes(rm, list(flushes[-1][2]), device, card,
+                               tag="serve-router-shapes", modes=(False,))
+    lat_ms = np.array(list(lat.values())) * 1e3
+    say("serve-router", card=card, replicas=2, killed=1, scale=scale,
+        cut=f"berkeley_x{scale}_(x1.0_over_the_120_s_budget)",
+        edges=net.n_edges, base_events=base.n, health=json.dumps(sj["health"]),
+        failovers=router.n_failovers, quarantines=router.n_quarantines,
+        compactions=compactions, single_compactions=single.stats.n_compactions,
+        epochs=json.dumps(sorted({e for _, e in pins})),
+        engine_faults=sj["n_engine_faults"], answers_bitwise=n, launches=launches["fused_leaf"],
+        flush_widths=json.dumps(serve_widths(flushes)), build_s=round(build_s, 3),
+        run_p50_ms=round(float(np.percentile(lat_ms, 50)), 3),
+        run_p95_ms=round(float(np.percentile(lat_ms, 95)), 3),
+        seconds=round(time.perf_counter() - t0, 1))
+    del router, single, sm, rm, pins
+    free(device)
+    return launches["fused_leaf"], shapes["fused_leaf"]
 
 
 def minplus_case(M, K, N, dtype, device, seed):
@@ -2254,6 +2790,17 @@ def main():
     free(device)
     say("drfs-codec", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="serve-durable-") as tmp:
+        s_ref, s_launches, s_shapes = phase_serve(args, device, card, tmp)
+        dur_launches, dur_shapes = phase_serve_durable(args, device, card, s_ref, tmp)
+    del s_ref
+    free(device)
+    rt_launches, rt_shapes = phase_serve_router(args, device, card)
+    say("serve-tier", card=card, phases="serve,serve-durable,serve-router",
+        seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
     mp_launches, mp_abs, mp_rel, mp_shape, mp_bound, mp_timing, mp_waves = phase_minplus(
         args, device, card)
     free(device)
@@ -2365,6 +2912,20 @@ def main():
                              table_dtype=dt,
                              main_path=dict(scale=args.scale, codec=codec,
                                             codec_vs_f64=r["err"], **r["secs"])))
+    # the serve tier runs the [drfs] kernels through TNKDEServer: each entry's
+    # errors, times and bound come from its own phase's last flush
+    sq, sx = s_shapes["fused_leaf"], s_shapes["fused_walk"]
+    for path, n, scale, (ea, er, eshape, ebound, etiming) in (
+            ("serve-quantized", s_launches["fused_leaf"], args.scale, sq),
+            ("serve-durable", dur_launches, args.scale, dur_shapes),
+            ("serve-router", rt_launches, SERVE_ROUTER_SCALE * args.scale, rt_shapes)):
+        kernels.append(entry("fused_leaf", path, n, ea, er, eshape, ebound, etiming,
+                             "src/repro/kernels/fused_walk.py:177",
+                             main_path=dict(scale=scale, phase=path)))
+    kernels.append(entry("fused_walk", "serve-exact", s_launches["fused_walk"],
+                         sx[0], sx[1], sx[2], sx[3], sx[4],
+                         "src/repro/kernels/fused_walk.py:86",
+                         main_path=dict(scale=args.scale, phase="serve-exact")))
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.cpu_rehearsal:

@@ -10,3 +10,4 @@ from .events import Events, EdgeEvents, group_events_by_edge  # noqa: F401
 from .kernels_math import get_kernel  # noqa: F401
 from .network import Lixels, RoadNetwork, build_lixels  # noqa: F401
 from .tnkde import TNKDE, PendingQuery, QueryStats  # noqa: F401
+from .wal import RecoveryReport, WalError, WriteAheadLog  # noqa: F401

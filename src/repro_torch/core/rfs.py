@@ -597,11 +597,20 @@ class _DeviceEngine:
             "fused_launches": 0,
         }
 
+    def _upload(self, a: np.ndarray):
+        """Host array → device tensor without waiting for the card. A
+        ``non_blocking`` copy from pageable host memory is staged by the
+        driver before the call returns (the host array may change right
+        after), and it skips the stream synchronisation that a blocking copy
+        adds — so ``dispatch`` can pack flush N+1 while the card still runs
+        flush N. A no-op on the CPU."""
+        return torch.as_tensor(a).to(self.device, non_blocking=True)
+
     def _f64(self, x):
-        return torch.as_tensor(np.ascontiguousarray(x, dtype=np.float64), device=self.device)
+        return self._upload(np.ascontiguousarray(x, dtype=np.float64))
 
     def _as(self, x, dtype):
-        return torch.as_tensor(np.ascontiguousarray(x), device=self.device).to(dtype)
+        return self._upload(np.ascontiguousarray(x)).to(dtype)
 
     def window_batch(self, ctx: MomentContext, ts):
         """Device WindowBatch for the ts tuple, LRU-cached — repeated queries
@@ -777,7 +786,9 @@ class FlatForestEngine(_DeviceEngine):
             # cannot hold this forest degrades to f64 in place
             self.codec.validate(host["pm_cum"])
             pf, meta = packed_forest_from_numpy(host, self.device)
-            self._packed = dict(pf=pf, **meta)
+            # the host copy of the walk's node bases: range checks read it
+            self._packed = dict(pf=pf, node_base_lvl_host=np.ascontiguousarray(
+                np.asarray(host["node_base"], np.int64).T), **meta)
 
     @classmethod
     def from_host_tables(cls, rf: RangeForest, host: dict, *,
@@ -880,9 +891,10 @@ class FlatForestEngine(_DeviceEngine):
             fa = self._flat_atoms(
                 fields, np.broadcast_to(edges[:, None], fields["lixel"].shape)
             )
-            rows = torch.nonzero(fa.valid).reshape(-1)
+            rows = self._as(np.flatnonzero(fields["valid"]), torch.int64)  # host: no sync
             yield int(p), fa, dict(
                 edges=self._as(edges, torch.int64),
+                edges_host=np.asarray(edges, np.int64),  # host copy for range checks
                 rows=rows,
                 lixel=fa.lixel.index_select(0, rows),
                 side=fa.side_feat.reshape(G, qp),
@@ -905,7 +917,9 @@ class FlatForestEngine(_DeviceEngine):
             )
             entry.update(r_lo=r_lo.reshape(G, qp), r_hi=r_hi.reshape(G, qp), npad=p,
                          max_levels=p.bit_length(),
-                         index=ops.walk_index(self._packed["node_base_lvl"], entry["edges"], p))
+                         index=ops.walk_index(self._packed["node_base_lvl"], entry["edges"], p,
+                                              lvl_base_host=self._packed["node_base_lvl_host"],
+                                              edges_host=entry["edges_host"]))
             entries.append(entry)
         return entries
 
@@ -1336,9 +1350,10 @@ class FlatDynamicEngine(_DeviceEngine):
                 gfa = self._flat_atoms(
                     fields, np.broadcast_to(edges[:, None], fields["lixel"].shape)
                 )
-                rows = torch.nonzero(gfa.valid).reshape(-1)
+                rows = self._as(np.flatnonzero(fields["valid"]), torch.int64)  # host: no sync
                 entry.update(
                     edges=self._as(edges, torch.int64),
+                    edges_host=np.asarray(edges, np.int64),  # host copy for range checks
                     index={},  # (hq, exact) -> FlatIndex, built by tree_table
                     gfa=gfa,
                     # flat [G·Qp] slots of the real atoms, and their lixels
@@ -1358,18 +1373,22 @@ class FlatDynamicEngine(_DeviceEngine):
         entry — exact mode reads the complete tree through
         ``dyn_node_base(E, hq)`` (cached per hq), quantized mode the leaf
         table through ``leaf_index(edges, 2^hq)``. Every executor reads the
-        same flat tables."""
+        same flat tables. The range check reads the host copies of the edges
+        and node bases kept beside them, so building an index never waits
+        for the card."""
         (tab,) = tables
         E, hq = self.df.net.n_edges, int(hq)
         index = entry["index"].get((hq, bool(exact)))
         if index is None:
             if exact:
                 base = self._tree_base.get(hq)
-                if base is None:
-                    base = self._tree_base[hq] = dyn_node_base(E, hq, self.device)
-                index = ops.walk_index(base, entry["edges"], 1 << hq)
+                if base is None:  # (device, host) node bases
+                    host = dyn_node_base(E, hq).numpy()
+                    base = self._tree_base[hq] = (self._as(host, torch.int64), host)
+                index = ops.walk_index(base[0], entry["edges"], 1 << hq, lvl_base_host=base[1],
+                                       edges_host=entry["edges_host"])
             else:
-                index = ops.leaf_index(entry["edges"], 1 << hq)
+                index = ops.leaf_index(entry["edges"], 1 << hq, edges_host=entry["edges_host"])
             entry["index"][(hq, bool(exact))] = index
         return tab.reshape(tab.shape[0], -1), index
 

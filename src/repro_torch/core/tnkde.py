@@ -41,6 +41,16 @@ Every query reuses the plan cached for its (epoch, LS) pair — warm queries
 skip planning entirely — and window-side tables cached by the ts tuple
 (DESIGN.md §7).
 
+Durability (DESIGN.md §8): ``attach_wal`` logs every mutation of a DRFS
+index to a :class:`wal.WriteAheadLog` before it applies, ``checkpoint``
+persists the sealed index through the atomic-COMMIT layout of
+``repro_torch.ckpt``, and ``restore`` rebinds the latest committed
+checkpoint and replays the WAL suffix. The WAL bytes, the checkpoint layout
+and the config fingerprint are the reference package's, so either package
+recovers the other's state. ``degrade`` trips the executor ladder
+``torch/fused`` (or ``torch/kernel``) → ``torch/packed`` → ``numpy``; on the
+card it stops at ``torch/packed``.
+
 ``table_codec`` picks the storage dtype of the device window tables
 (``torch_engine.TableCodec``): 'auto'/'f64' (exact tier), 'f32' or 'bf16'
 (float32 / bfloat16 node values; DRFS quantized mode stores float32
@@ -66,6 +76,7 @@ from .ada import AggregateDistanceIndex
 from .aggregation import build_event_moments
 from .drfs import DynamicRangeForest
 from .events import (
+    EdgeEvents,
     EventCountsView,
     Events,
     group_events_by_edge,
@@ -80,6 +91,7 @@ from .query_plan import PlanCache, build_host_plan
 from .rfs import RangeForest
 from .shortest_path import adjacency_csr, bounded_dijkstra
 from .sps import sps_eval_edge
+from . import wal as _wal
 
 __all__ = ["TNKDE", "PendingQuery", "QueryStats"]
 
@@ -88,9 +100,6 @@ _LATER = {
     "mesh": "mesh= (sharded forest): ROADMAP.md Queue A8",
     "search": "executor='search' (legacy executor): ROADMAP.md Queue A5",
     "cascade": "executor='cascade' (legacy executor): ROADMAP.md Queue A5",
-}
-_LATER_METHODS = {
-    "degrade": "A7", "attach_wal": "A6", "checkpoint": "A6", "restore": "A6",
 }
 
 
@@ -214,6 +223,32 @@ class TNKDE:
         # cumulative consumption cursors over the index/engine work counters
         # (see _consume_counters)
         self._counter_cursor: dict = {}
+        # ---- durability: WAL hookup + config identity (DESIGN.md §8) -------
+        self._wal = None  # attach_wal(); logged-before-mutation when set
+        self._replaying = False  # replay must not re-log its own records
+        self._ckpt_step = 0
+        self._ckpt_thread = None  # in-flight blocking=False checkpoint
+        # the reference package's keys and values: a checkpoint taken by
+        # either package passes the other's check
+        self._fingerprint = dict(
+            solution=solution,
+            g=float(g),
+            b_s=float(b_s),
+            b_t=float(b_t),
+            spatial_kernel=spatial_kernel,
+            temporal_kernel=temporal_kernel,
+            drfs_depth=int(drfs_depth),
+            drfs_h0=drfs_h0,
+            drfs_exact_leaf=bool(drfs_exact_leaf),
+            # replay determinism: auto-seal timing and the eviction cutoff
+            # both depend on these, so a restore under different settings
+            # must be rejected, not silently diverge
+            auto_seal=bool(auto_seal),
+            horizon_s=horizon_s,
+            n_edges=int(net.n_edges),
+            n_lixels=int(self.lix.n_lixels),
+            n_base_events=int(self.ee.n),
+        )
         self._adj = adjacency_csr(net)
         # per-edge event extremes for window-independent LS classification
         E = net.n_edges
@@ -229,9 +264,11 @@ class TNKDE:
             self.stats.index_bytes = self.index.index_bytes
 
     def _build_engine(self) -> None:
-        """Bind the flush engine + plan cache for the requested
-        ``(engine, executor)``. A device engine that cannot be built raises:
-        there is no fallback to the host path."""
+        """(Re)bind the flush engine + plan cache for the requested
+        ``(engine, executor)``: at construction, by ``restore`` (fresh
+        device caches over the restored index) and by ``degrade``. A device
+        engine that cannot be built raises: there is no fallback to the host
+        path."""
         self.engine = "numpy"
         self._fe = None
         if self.solution in ("rfs", "drfs") and self._engine_req != "numpy":
@@ -242,6 +279,30 @@ class TNKDE:
                            codec=self.table_codec)
             self.engine = "torch"
         self._plan_cache = PlanCache(2)
+
+    def degrade(self) -> Optional[str]:
+        """Trip one rung down the executor ladder ``torch/fused`` (or
+        ``torch/kernel``) → ``torch/packed`` → ``numpy`` (DESIGN.md §8).
+
+        Returns the new ``engine_desc``, or ``None`` when already on the
+        floor. On the card the floor is ``torch/packed``: the ``numpy`` rung
+        would move the work to the host while the tables stay on the card,
+        so it is not taken. The serve tier calls this after repeated engine
+        faults on the CPU only; on the card it is an operator's explicit
+        call. Unlike the reference, a rung that cannot be built raises
+        instead of landing on the floor, as every engine build of this
+        package does.
+        """
+        if self._fe is None:
+            return None
+        if self._fe.executor in ("fused", "kernel"):
+            self._engine_req, self._executor_req = "torch", "packed"
+        elif self._fe.device.type != "cpu":
+            return None
+        else:
+            self._engine_req, self._executor_req = "numpy", "auto"
+        self._build_engine()
+        return self.engine_desc
 
     # ------------------------------------------------------------------ API
     @property
@@ -328,11 +389,14 @@ class TNKDE:
         append, and incremental per-dirty-edge planner updates (count bumps
         + extreme min/max). Invalid batches (bad edge id, out-of-range
         position, non-finite time) raise :class:`EventValidationError`
-        before any mutation. (The reference also logs the batch to an
-        attached WAL first; the port has no WAL yet — ROADMAP.md Queue A6.)
+        before the WAL append and before any mutation. With a WAL attached,
+        the validated batch is fsync'd to the log before any in-memory
+        mutation — a crash at any later instant replays it (DESIGN.md §8).
         """
         self._require_drfs("insert")
         validate_events(self.net, events)
+        if self._wal is not None and not self._replaying:
+            self._wal.append_insert(events)
         ctx = self.ctx
         pos = events.pos  # validated in [0, edge_len] — no silent clipping
         lens = self.net.edge_len[events.edge_id]
@@ -392,7 +456,10 @@ class TNKDE:
         over the pre-compaction arrays). ``t_now`` resolves the horizon
         cutoff ``t_now - horizon_s``; default is the stream clock
         ``stream_t_max``. After an eviction the device packs of older epochs
-        are released at once. Returns ``{"evicted": n, "sealed": n}``.
+        are released at once. Eviction is not a pure function of event
+        counts, so it is WAL-logged as an EVICT record carrying the resolved
+        ``t_now`` before it applies; the seal is logged as usual. Returns
+        ``{"evicted": n, "sealed": n}``.
         """
         self._require_drfs("compact")
         out = {"evicted": 0, "sealed": 0}
@@ -401,6 +468,8 @@ class TNKDE:
             if self._ee_tmin < t_now - self.horizon_s and (
                 self.index.n_sealed + self.index.n_pending
             ):
+                if self._wal is not None and not self._replaying:
+                    self._wal.append_evict(t_now)
                 out["evicted"] = self._apply_evict(t_now)
         if self.index.n_pending:
             out["sealed"] = self.index.n_pending
@@ -412,9 +481,11 @@ class TNKDE:
         return out
 
     def _apply_evict(self, t_now: float) -> int:
-        """Apply the eviction for resolved stream time ``t_now``. Updates the
-        planner's counts and per-edge extremes exactly for the touched
-        edges, so post-eviction LS classification stays exact."""
+        """Apply (never log) the eviction for resolved stream time
+        ``t_now`` — called by ``compact`` after logging, and by WAL replay
+        for each EVICT record. Updates the planner's counts and per-edge
+        extremes exactly for the touched edges, so post-eviction LS
+        classification and replayed state stay exact."""
         cutoff = float(t_now) - self.horizon_s
         idx = self.index
         removed = idx.evict_before(cutoff)
@@ -445,16 +516,161 @@ class TNKDE:
         self._ee_tmin = t_lo if np.isfinite(t_lo) else self._ee_tmax
         return int(removed.sum())
 
+    # ------------------------------------------- durability (DESIGN.md §8)
+    def attach_wal(self, wal) -> None:
+        """Log every subsequent mutation (``insert``/``seal``/``extend``/
+        eviction) to ``wal`` before it takes effect in memory. DRFS only —
+        the static solutions have no mutations to log."""
+        self._require_drfs("attach_wal")
+        self._wal = wal
+
     def seal(self) -> None:
         """Merge the pending buffers into the sealed tree (incremental:
-        only dirty edges are re-aggregated)."""
+        only dirty edges are re-aggregated), logged when a WAL is attached.
+        The automatic geometric seal inside ``index.insert`` is not logged:
+        its trigger is a pure function of event counts, so replaying the
+        logged inserts re-fires it at the same points."""
         self._require_drfs("seal")
+        if self._wal is not None and not self._replaying:
+            self._wal.append_marker(_wal.KIND_SEAL)
         self.index.seal()
 
     def extend(self) -> None:
-        """Add one index depth level (Algorithm 4)."""
+        """Add one index depth level (Algorithm 4), logged."""
         self._require_drfs("extend")
+        if self._wal is not None and not self._replaying:
+            self._wal.append_marker(_wal.KIND_EXTEND)
         self.index.extend()
+
+    def checkpoint(self, ckpt_dir: str, *, step: Optional[int] = None, keep_last: int = 3,
+                   blocking: bool = True) -> int:
+        """Persist the sealed index through the atomic-COMMIT checkpoint
+        layout (``repro_torch.ckpt``); returns the step written.
+
+        Seals first (logged, so a crash during the save still replays
+        consistently from the previous checkpoint), captures the index state
+        tree with the planner's stream bounds and the config fingerprint,
+        then — once the save committed — rotates the WAL and prunes the
+        segments the new checkpoint covers. With ``blocking=False`` the
+        arrays are captured by reference (safe: mutations rebind, never
+        overwrite) and written on a worker thread; rotation still happens
+        now, pruning waits for the next blocking checkpoint.
+        """
+        self._require_drfs("checkpoint")
+        from ..ckpt import save_checkpoint
+
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join()
+            self._ckpt_thread = None
+        self.seal()
+        if step is not None:
+            seq = int(step)  # coordinated checkpoint: the server picks the seq
+        elif self._wal is not None:
+            seq = self._wal.last_seq
+        else:
+            seq = self._ckpt_step + 1
+        extras = {
+            "seq": int(seq),
+            "depth": int(self.index.depth),
+            "revision": int(self.index.revision),
+            "pend_revision": int(self.index.pend_revision),
+            "ee_t_min": float(self._ee_tmin),
+            "ee_t_max": float(self._ee_tmax),
+            "n_events": int(self.index.n_sealed),
+            "fingerprint": self._fingerprint,
+        }
+        self._ckpt_thread = save_checkpoint(ckpt_dir, seq, self.index.state_tree(),
+                                            extras=extras, blocking=blocking,
+                                            keep_last=keep_last)
+        self._ckpt_step = seq
+        if self._wal is not None:
+            self._wal.rotate()
+            if blocking:
+                self._wal.prune(seq)
+        return seq
+
+    def restore(self, ckpt_dir=None, *, wal=None, attach: bool = True):
+        """Crash recovery: rebind the latest committed checkpoint (if any),
+        then replay the WAL suffix past its sequence number.
+
+        Call on a freshly built model with the same configuration and base
+        events as the crashed process — enforced through the config
+        fingerprint stored in the checkpoint. With no committed checkpoint
+        the whole log replays against the seed state. ``attach=True`` keeps
+        logging to ``wal`` afterwards, so the recovered model is itself
+        durable. Returns a :class:`wal.RecoveryReport`.
+        """
+        self._require_drfs("restore")
+        t0 = _time.perf_counter()
+        step = None
+        seq0 = 0
+        arrays = None
+        if ckpt_dir is not None:
+            from ..ckpt import load_checkpoint_arrays
+
+            try:
+                arrays, step, extras = load_checkpoint_arrays(ckpt_dir)
+            except FileNotFoundError:
+                arrays = None  # crashed before the first checkpoint committed
+        if arrays is not None:
+            fp = extras.get("fingerprint")
+            if fp != self._fingerprint:
+                raise ValueError(
+                    "checkpoint fingerprint mismatch: the checkpoint was taken "
+                    f"under a different configuration ({fp!r} != {self._fingerprint!r})"
+                )
+            # leaves are keyed as "['ptr']" -> "ptr"
+            tree = {k[2:-2]: v for k, v in arrays.items()}
+            self.index.load_state(tree, depth=extras["depth"], revision=extras["revision"],
+                                  pend_revision=extras["pend_revision"])
+            # the sealed index arrays ARE the canonical (edge, time)-sorted
+            # event set: rebind the planner's view from them by reference
+            self.ee = EdgeEvents(ptr=self.index.ptr, pos=self.index.pos, time=self.index.time,
+                                 t_min=float(extras["ee_t_min"]),
+                                 t_max=float(extras["ee_t_max"]))
+            E = self.net.n_edges
+            self.ev_min_pos = np.full(E, np.inf)
+            self.ev_max_pos = np.full(E, -np.inf)
+            eo = np.repeat(np.arange(E), np.diff(self.index.ptr))
+            if self.index.n_sealed:
+                np.minimum.at(self.ev_min_pos, eo, self.index.pos)
+                np.maximum.at(self.ev_max_pos, eo, self.index.pos)
+            seq0 = int(extras["seq"])
+            self._ckpt_step = step
+            self._build_engine()  # fresh device caches over the restored state
+        report = _wal.RecoveryReport(
+            restored_step=step,
+            from_seq=seq0,
+            to_seq=seq0,
+            n_truncated_bytes=wal.truncated_bytes if wal is not None else 0,
+            restore_seconds=_time.perf_counter() - t0,
+        )
+        if wal is not None:
+            t1 = _time.perf_counter()
+            self._replaying = True
+            try:
+                for rec in wal.records(after_seq=seq0):
+                    if rec.kind == _wal.KIND_INSERT:
+                        self.insert(rec.events)
+                        report.n_events += rec.events.n
+                    elif rec.kind == _wal.KIND_SEAL:
+                        self.index.seal()
+                    elif rec.kind == _wal.KIND_EVICT:
+                        # the record carries the resolved stream time; each
+                        # model applies its own horizon cutoff (one server
+                        # log serves profiles with different horizons)
+                        if self.horizon_s is not None:
+                            report.n_evicted += self._apply_evict(rec.t_now)
+                    else:
+                        self.index.extend()
+                    report.n_records += 1
+                    report.to_seq = rec.seq
+            finally:
+                self._replaying = False
+            report.replay_seconds = _time.perf_counter() - t1
+            if attach:
+                self._wal = wal
+        return report
 
     def edge_geometries(self):
         """Yield the window-independent EdgeGeometry of every query edge with
@@ -601,21 +817,6 @@ class TNKDE:
         snapshot is pinned per query internally, so a query never straddles
         a mutation). Equivalent to ``dispatch(ts, at=at).result()``."""
         return self.dispatch(ts, at=at).result()
-
-
-def _later_method(name, item):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"TNKDE.{name}() is not part of the PyTorch port yet: ROADMAP.md Queue {item}"
-        )
-
-    method.__name__ = name
-    method.__doc__ = f"Served by the reference package only so far (ROADMAP.md Queue {item})."
-    return method
-
-
-for _name, _item in _LATER_METHODS.items():
-    setattr(TNKDE, _name, _later_method(_name, _item))
 
 
 class PendingQuery:

@@ -30,8 +30,9 @@ with ``q_s ⊗ q_t`` built in-kernel (s-major, left half + right half). It
 replaces ``repro.kernels.fused_walk.fused_leaf_pallas``.
 
 A pack's rows are located by a :class:`FlatIndex` (:func:`walk_index`,
-:func:`leaf_index`), whose range is checked once, when the pack is built —
-never per launch, which would be a host sync.
+:func:`leaf_index`), whose range is checked once, when the pack is built,
+on host copies of its edges and node bases — never per launch and never on
+the card, either of which would be a host sync.
 
 Both take the window table in the table codec's storage dtype (the walk
 float64, float32 or bfloat16, the leaf float64 or float32) and widen every
@@ -48,6 +49,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -76,39 +78,63 @@ class FlatIndex(NamedTuple):
     rows: int  # table rows the pack can read; the wrappers raise on a smaller table
 
 
-def walk_index(lvl_base: torch.Tensor, edges: torch.Tensor, npad: int) -> FlatIndex:
+def _host_copy(t: torch.Tensor, host, name: str) -> np.ndarray:
+    """The host array a range check reads: ``host`` (the same values as
+    ``t``), or ``t`` itself when it lies on the CPU."""
+    if host is None:
+        if t.device.type != "cpu":
+            raise ValueError(f"{name} lies on {t.device}: pass {name}_host, its host copy, "
+                             "so that the range check never waits for the card")
+        return t.numpy()
+    host = np.asarray(host)
+    if host.shape != tuple(t.shape):
+        raise ValueError(f"{name}_host has shape {host.shape}, {name} {tuple(t.shape)}")
+    return host
+
+
+def walk_index(lvl_base: torch.Tensor, edges: torch.Tensor, npad: int, *,
+               lvl_base_host: Optional[np.ndarray] = None,
+               edges_host: Optional[np.ndarray] = None) -> FlatIndex:
     """The :class:`FlatIndex` of a walk pack: ``npad.bit_length()`` levels,
     level ℓ of edge e the ``npad >> ℓ`` nodes from ``lvl_base[ℓ, e]``.
-    Raises ``ValueError`` if an edge or a base is out of range. One host sync:
-    call it when the pack is built."""
+    Raises ``ValueError`` if an edge or a base is out of range. The check
+    reads host arrays — ``lvl_base_host`` and ``edges_host``, required for
+    tensors on the card — so it never waits for the card; the index holds
+    the tensors. Call it when the pack is built."""
     npad = int(npad)
     nlev = npad.bit_length()
     if lvl_base.dim() != 2 or lvl_base.shape[0] < nlev or nlev > MAX_LEVELS:
         raise ValueError(f"lvl_base must be [>= {nlev}, E] for npad={npad} "
                          f"(at most {MAX_LEVELS} levels), got {tuple(lvl_base.shape)}")
+    hb = _host_copy(lvl_base, lvl_base_host, "lvl_base")
+    he = _host_copy(edges, edges_host, "edges")
     E = int(lvl_base.shape[1])
     rows = 0
-    if edges.numel() and nlev:
-        emin, emax = (int(v) for v in torch.aminmax(edges))
+    if he.size and nlev:
+        emin, emax = int(he.min()), int(he.max())
         if emin < 0 or emax >= E:
             raise ValueError(f"edges out of range [0, {E}): [{emin}, {emax}]")
-        base = lvl_base[:nlev][:, edges]  # [nlev, G]
-        span = torch.tensor([npad >> lev for lev in range(nlev)], device=base.device)
-        bmin, end = (int(v) for v in torch.stack([base.min(), (base + span[:, None]).max()]))
+        base = hb[:nlev][:, he].astype(np.int64)  # [nlev, G]
+        span = np.array([npad >> lev for lev in range(nlev)], np.int64)
+        bmin, end = int(base.min()), int((base + span[:, None]).max())
         if bmin < 0:
             raise ValueError(f"lvl_base has a negative node base ({bmin})")
         rows = 2 * end
     return FlatIndex(edges, lvl_base, npad, rows)
 
 
-def leaf_index(edges: torch.Tensor, nleaf: int) -> FlatIndex:
+def leaf_index(edges: torch.Tensor, nleaf: int, *,
+               edges_host: Optional[np.ndarray] = None) -> FlatIndex:
     """The :class:`FlatIndex` of a leaf pack: ``(nleaf+1)·2`` rows per edge,
     edge e's block from row ``e·(nleaf+1)·2``. Raises ``ValueError`` on a
-    negative edge. One host sync: call it when the pack is built."""
+    negative edge. The check reads ``edges_host`` (required for edges on
+    the card), so it never waits for the card. Call it when the pack is
+    built."""
     nleaf = int(nleaf)
+    he = _host_copy(edges, edges_host, "edges")
     rows = 0
-    if edges.numel():
-        emin, emax = (int(v) for v in torch.aminmax(edges))
+    if he.size:
+        emin, emax = int(he.min()), int(he.max())
         if emin < 0:
             raise ValueError(f"edges out of range: [{emin}, {emax}]")
         rows = (emax + 1) * (nleaf + 1) * 2

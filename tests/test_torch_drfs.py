@@ -14,51 +14,22 @@ package.
   over the current event set (≤ 1e-9: a different algorithm);
 * work counters equal the reference's ``jax/packed``, ``jax/fused`` and,
   for ``executor='kernel'``, its ``executor='pallas'`` tier.
+
+The equivalence matrix lives in ``tests/test_torch_drfs_matrix_<executor>.py``
+and the streaming scripts in ``tests/test_torch_drfs_streaming.py`` (one
+file each keeps the tier-1 run's files short); the shared worlds and helpers
+are in ``tests/torch_drfs_common.py``.
 """
-import jax
 import numpy as np
 import pytest
 
-import repro.data.spatial as ref_spatial
-import repro_torch.data.spatial as port_spatial
 from repro.core import TNKDE as RefTNKDE
 from repro.core.events import Events as RefEvents
 from repro_torch.core import TNKDE
 from repro_torch.core.events import EdgeEvents, Events
-
-KW = dict(g=35.0, b_s=700.0, b_t=2.5 * 86400.0)
-# one duplicated centre; the 11-day window covers the inserted (latest) events
-TS5 = [2 * 86400.0, 4 * 86400.0, 5.5 * 86400.0, 11 * 86400.0, 4 * 86400.0]
-FAMILIES = [("triangular", "quartic"), ("epanechnikov", "cosine"), ("gaussian", "triangular")]
-N_BASE, N_INS = 700, 100  # the insert stays pending (100 < 700 / 4 seal trigger)
-
-
-def _sorted_world(mod, n_nodes=60, n_edges=100, seed=13, n_events=800, span_days=12):
-    net = mod.make_network(n_nodes, n_edges, seed=seed)
-    ev = mod.make_events(net, n_events, seed=seed + 1, span_days=span_days)
-    o = np.argsort(ev.time, kind="stable")
-    return net, (ev.edge_id[o], ev.pos[o], ev.time[o])
-
-
-@pytest.fixture(scope="module")
-def worlds():
-    return _sorted_world(port_spatial), _sorted_world(ref_spatial)
-
-
-def _sub(cls, arrs, lo, hi):
-    return cls(*(a[lo:hi] for a in arrs))
-
-
-def _rel(got, want):
-    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-300)
-
-
-@pytest.fixture
-def x64_shim(monkeypatch):
-    """The reference's device engines call ``jax.experimental.enable_x64``,
-    which newer jax releases dropped; restored for one test only."""
-    monkeypatch.setattr(jax.experimental, "enable_x64",
-                        lambda *a, **k: jax.enable_x64(True), raising=False)
+from torch_drfs_common import KW, N_BASE, N_INS, TS5, _rel, _sps_over, _sub
+from torch_drfs_common import worlds, x64_shim  # noqa: F401 (fixtures)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 # --------------------------------------------------- the index, bitwise
@@ -131,133 +102,6 @@ def test_load_state_serves_reference_state(worlds):
     port._build_engine()  # fresh device packs over the loaded state
     assert port.epoch == ref.epoch
     assert _rel(port.query(TS5), ref.query(TS5)) <= 1e-12
-
-
-# ------------------------------------------------- equivalence matrix
-_REF = {}
-
-
-def _reference(worlds, ks, kt, exact, ls):
-    key = (ks, kt, exact, ls)
-    if key not in _REF:
-        _, (rnet, rev) = worlds
-        m = RefTNKDE(rnet, _sub(RefEvents, rev, 0, N_BASE), solution="drfs", engine="numpy",
-                     drfs_depth=5, drfs_exact_leaf=exact, lixel_sharing=ls,
-                     spatial_kernel=ks, temporal_kernel=kt, **KW)
-        m.insert(_sub(RefEvents, rev, N_BASE, N_BASE + N_INS))
-        _REF[key] = m.query(TS5)
-    return _REF[key]
-
-
-@pytest.mark.parametrize("executor", ["packed", "fused", "kernel"])
-@pytest.mark.parametrize("exact", [False, True])
-@pytest.mark.parametrize("ls", [False, True])
-@pytest.mark.parametrize("W", [1, 5])
-@pytest.mark.parametrize("ks,kt", FAMILIES)
-def test_drfs_torch_engine_matches_reference(worlds, ks, kt, W, ls, exact, executor):
-    (net, ev), _ = worlds
-    m = TNKDE(net, _sub(Events, ev, 0, N_BASE), solution="drfs", engine="torch",
-              executor=executor, device="cpu", drfs_depth=5, drfs_exact_leaf=exact,
-              lixel_sharing=ls, spatial_kernel=ks, temporal_kernel=kt, **KW)
-    assert m.engine_desc == f"torch/{executor}"
-    m.insert(_sub(Events, ev, N_BASE, N_BASE + N_INS))
-    assert m.index.n_pending == N_INS
-    got = m.query(TS5[:W])
-    want = _reference(worlds, ks, kt, exact, ls)[:W]
-    assert got.shape == want.shape and got.dtype == np.float64
-    assert np.abs(want).max() > 0
-    assert _rel(got, want) <= 1e-12
-    if W == 5:
-        assert np.array_equal(got[1], got[4])  # duplicate centres, pending scans live
-
-
-# ----------------------------------------------------- streaming scripts
-SKW = dict(g=40.0, b_s=600.0, b_t=2.0 * 86400.0)
-STS = [2.5 * 86400.0, 6.0 * 86400.0]
-
-
-def _small_worlds(seed):
-    args = dict(n_nodes=24, n_edges=40, seed=seed, n_events=240, span_days=9)
-    return _sorted_world(port_spatial, **args), _sorted_world(ref_spatial, **args)
-
-
-def _sps_over(net, m, ts, kw=SKW):
-    """The port's index-free oracle over the model's CURRENT event set."""
-    e, p, t = m.index.snapshot().event_set()
-    return TNKDE(net, Events(e, p, t), solution="sps", **kw).query(ts)
-
-
-def _script(rng, n_ops):
-    ops = []
-    for _ in range(n_ops):
-        r = rng.random()
-        ops.append(("insert", int(rng.integers(1, 45))) if r < 0.45 else
-                   ("seal",) if r < 0.6 else ("extend",) if r < 0.7 else ("query",))
-    return ops
-
-
-@pytest.mark.parametrize("executor", ["packed", "fused", "kernel"])
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_seeded_interleavings_match_reference_and_sps(seed, executor):
-    (net, ev), (rnet, rev) = _small_worlds(7 + seed)
-    mk = dict(solution="drfs", drfs_depth=4, drfs_exact_leaf=True, **SKW)
-    m = TNKDE(net, _sub(Events, ev, 0, 40), engine="torch", executor=executor, device="cpu", **mk)
-    ref = RefTNKDE(rnet, _sub(RefEvents, rev, 0, 40), engine="numpy", **mk)
-    n, n_ext = 40, 0
-    for op in _script(np.random.default_rng(seed * 101 + 5), 9) + [("query",)]:
-        if op[0] == "insert":
-            k = min(op[1], len(ev[0]) - n)
-            m.insert(_sub(Events, ev, n, n + k))
-            ref.insert(_sub(RefEvents, rev, n, n + k))
-            n += k
-        elif op[0] == "seal":
-            m.seal()
-            ref.seal()
-        elif op[0] == "extend" and n_ext < 2:  # bound the depth drift
-            m.extend()
-            ref.extend()
-            n_ext += 1
-        elif op[0] == "query":
-            got, want = m.query(STS), ref.query(STS)
-            assert m.epoch == ref.epoch
-            assert _rel(got, want) <= 1e-12
-            sps = _sps_over(net, m, STS)
-            np.testing.assert_allclose(got, sps, rtol=1e-9, atol=1e-9 * max(sps.max(), 1.0))
-
-
-@pytest.mark.parametrize("executor", ["packed", "fused", "kernel"])
-@pytest.mark.parametrize("seed", [0, 1])
-def test_compact_under_horizon_matches_reference_and_sps(seed, executor):
-    """Bulk inserts + compact() under a sliding horizon: after every
-    compaction the port equals the reference and a fresh SPS over exactly
-    the surviving events; compact() reports what the reference reports."""
-    (net, ev), (rnet, rev) = _small_worlds(11 + seed)
-    rng = np.random.default_rng(seed * 31 + 7)
-    mk = dict(solution="drfs", drfs_depth=4, drfs_exact_leaf=True, auto_seal=False,
-              horizon_s=2.5 * 86400.0, **SKW)
-    m = TNKDE(net, _sub(Events, ev, 0, 40), engine="torch", executor=executor, device="cpu", **mk)
-    ref = RefTNKDE(rnet, _sub(RefEvents, rev, 0, 40), engine="numpy", **mk)
-    n, evicted = 40, 0
-    while n < len(ev[0]):
-        k = min(int(rng.integers(15, 60)), len(ev[0]) - n)
-        m.insert(_sub(Events, ev, n, n + k))
-        ref.insert(_sub(RefEvents, rev, n, n + k))
-        n += k
-        assert m.needs_compaction == ref.needs_compaction
-        out = m.compact()
-        assert out == ref.compact() and m.index.n_pending == 0
-        evicted += out["evicted"]
-        if out["evicted"]:  # the device packs of pre-eviction epochs are gone
-            assert all(key[0] >= m.epoch[0] for key in m._fe._sealed_packs)
-        assert m.epoch == ref.epoch and m.stream_t_max == ref.stream_t_max
-        assert np.array_equal(m.ev_min_pos, ref.ev_min_pos)
-        assert np.array_equal(np.diff(m.ee.ptr), np.diff(ref.ee.ptr))
-        qts = [m.stream_t_max - 0.5 * 86400.0, m.stream_t_max]
-        got, want = m.query(qts), ref.query(qts)
-        assert _rel(got, want) <= 1e-12
-        sps = _sps_over(net, m, qts)
-        np.testing.assert_allclose(got, sps, rtol=1e-9, atol=1e-9 * max(sps.max(), 1.0))
-    assert evicted > 0
 
 
 @pytest.mark.parametrize("executor", ["packed", "fused", "kernel"])

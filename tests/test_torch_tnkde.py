@@ -5,98 +5,23 @@ Tolerances: ≤ 1e-12 relative to max|F| against the reference's NumPy engine
 (float64 both sides, same tables; only summation order differs) and ≤ 1e-9
 against the index-free SPS evaluation (a different algorithm: prefix-moment
 differences vs direct kernel sums).
+
+The equivalence matrix lives in ``tests/test_torch_tnkde_matrix_<executor>.py``
+(one file per executor keeps the tier-1 run's files short); the shared worlds
+and helpers are in ``tests/torch_tnkde_common.py``.
 """
-import pathlib
 import re
 
 import jax
 import numpy as np
 import pytest
 
-import repro.data.spatial as ref_spatial
-import repro_torch.data.spatial as port_spatial
 from repro.core import TNKDE as RefTNKDE
 from repro_torch.core import TNKDE
 from repro_torch.core.events import Events
-
-KW = dict(g=35.0, b_s=700.0, b_t=2.5 * 86400.0)
-TS5 = [2 * 86400.0, 4 * 86400.0, 5.5 * 86400.0, 7 * 86400.0, 9 * 86400.0]
-KERNEL_FAMILIES = [
-    ("triangular", "quartic"),
-    ("epanechnikov", "cosine"),
-    ("quartic", "exponential"),
-    ("cosine", "triangular"),
-    ("exponential", "epanechnikov"),
-    ("gaussian", "triangular"),
-]
-REPO = pathlib.Path(__file__).resolve().parents[1]
-
-
-def _world(mod):
-    net = mod.make_network(60, 100, seed=13)
-    return net, mod.make_events(net, 800, seed=14, span_days=12)
-
-
-@pytest.fixture(scope="module")
-def world():
-    return _world(port_spatial)
-
-
-@pytest.fixture(scope="module")
-def ref_world():
-    return _world(ref_spatial)
-
-
-_REF, _SPS = {}, {}
-
-
-def _reference(ref_world, ks, kt, ls):
-    """Reference package, NumPy engine, all five windows."""
-    key = (ks, kt, ls)
-    if key not in _REF:
-        net, ev = ref_world
-        _REF[key] = RefTNKDE(net, ev, solution="rfs", engine="numpy", lixel_sharing=ls,
-                             spatial_kernel=ks, temporal_kernel=kt, **KW).query(TS5)
-    return _REF[key]
-
-
-def _sps(world, ks, kt):
-    """The port's own index-free oracle."""
-    key = (ks, kt)
-    if key not in _SPS:
-        net, ev = world
-        _SPS[key] = TNKDE(net, ev, solution="sps", spatial_kernel=ks,
-                          temporal_kernel=kt, **KW).query(TS5)
-    return _SPS[key]
-
-
-@pytest.fixture
-def x64_shim(monkeypatch):
-    """The reference's device engines call ``jax.experimental.enable_x64``,
-    which newer jax releases dropped. Restore it for ONE test (monkeypatch
-    undoes it afterwards, so the reference's own tests see jax as it is)."""
-    monkeypatch.setattr(jax.experimental, "enable_x64",
-                        lambda *a, **k: jax.enable_x64(True), raising=False)
-
-
-# ------------------------------------------------------- equivalence matrix
-@pytest.mark.parametrize("executor", ["fused", "packed", "kernel"])
-@pytest.mark.parametrize("ls", [False, True])
-@pytest.mark.parametrize("W", [1, 5])
-@pytest.mark.parametrize("ks,kt", KERNEL_FAMILIES)
-def test_torch_engine_matches_reference_and_sps(world, ref_world, ks, kt, W, ls, executor):
-    net, ev = world
-    m = TNKDE(net, ev, solution="rfs", engine="torch", executor=executor, device="cpu",
-              lixel_sharing=ls, spatial_kernel=ks, temporal_kernel=kt, **KW)
-    assert m.engine_desc == f"torch/{executor}"
-    got = m.query(TS5[:W])
-    ref = _reference(ref_world, ks, kt, ls)[:W]
-    assert got.shape == ref.shape and got.dtype == np.float64
-    scale = np.abs(ref).max()
-    assert scale > 0
-    assert np.abs(got - ref).max() <= 1e-12 * scale, np.abs(got - ref).max() / scale
-    sps = _sps(world, ks, kt)[:W]
-    assert np.abs(got - sps).max() <= 1e-9 * scale, np.abs(got - sps).max() / scale
+from torch_tnkde_common import KW, REPO, TS5
+from torch_tnkde_common import ref_world, world, x64_shim  # noqa: F401 (fixtures)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def test_executor_auto_resolves_to_packed(world):
@@ -226,18 +151,15 @@ def test_executor_pallas_is_called_kernel_here(world, solution):
 STREAMING_METHODS = ("insert", "seal", "extend", "compact", "snapshot")  # served (Queue A4)
 
 
-@pytest.mark.parametrize("method", [*STREAMING_METHODS,
-                                    "degrade", "attach_wal", "checkpoint", "restore"])
+@pytest.mark.parametrize("method", STREAMING_METHODS)
 def test_unsupported_methods_raise_not_implemented(world, method):
-    """Methods of later queue items raise NotImplementedError naming the
-    item; the streaming methods are served for solution='drfs' and, as in
-    the reference, refused by a static index (``snapshot`` pins nothing)."""
+    """The streaming methods are served for solution='drfs' and, as in the
+    reference, refused by a static index (``snapshot`` pins nothing). The
+    durability and serve-tier methods (``degrade``, ``attach_wal``,
+    ``checkpoint``, ``restore``) are served too:
+    ``tests/test_torch_serve.py::test_a6_a7_methods_are_served``."""
     net, ev = world
     m = TNKDE(net, ev, solution="rfs", engine="numpy", **KW)
-    if method not in STREAMING_METHODS:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-            getattr(m, method)()
-        return
     if method == "snapshot":
         assert m.snapshot() is None
         return
