@@ -126,7 +126,12 @@ MINPLUS_SASS = ("DADD", "DMNMX", "DSETP", "FADD", "FMNMX", "FSETP", "FSEL", "SEL
 
 KERNEL_TOL = 1e-13  # f64, kernel vs its plain version; only association and FMA differ
 KERNELS = ("fused_walk", "fused_leaf", "tree_query", "dyn_leaf_query", "dyn_node_walk",
-           "minplus_matmul", "flash_attention")
+           "minplus_matmul", "flash_attention", "segment_add")
+# segment_add launches per path (each read with that path's own counts, right
+# after it ran): every TN-KDE flush ends in the fixed-order scatter
+SEGMENT_LAUNCHES = {}
+SHARDS = (2, 4)  # [sharded]: S slabs on the one card
+SHARDED_DRFS_SCALE = 0.1  # [sharded] DRFS and serve: berkeley x0.1 (exact mode's scans x S)
 PACKED_TOL = 1e-12  # fused vs packed executor, relative to max|F|
 # a table codec's answer vs the f64 answer, relative to max|F|: the narrow
 # tables store each value rounded to float32 (~6e-8 of it) or bfloat16 (~4e-3);
@@ -213,7 +218,8 @@ def layout_case(layout, G, Q, W, ks, device):
 
 def plain_version(name):
     """The plain PyTorch version of ``ops.<name>``."""
-    from repro_torch.kernels import dyn_query, flash_attention, fused_walk, minplus, tree_query
+    from repro_torch.kernels import (dyn_query, flash_attention, fused_walk, minplus,
+                                     segment_add, tree_query)
 
     return dict(fused_walk=fused_walk.fused_walk_ref, fused_leaf=fused_walk.fused_leaf_ref,
                 fused_walk_flat=fused_walk.fused_walk_flat_ref,
@@ -224,7 +230,8 @@ def plain_version(name):
                 dyn_leaf_query_flat=fused_walk.fused_leaf_flat_ref,
                 dyn_node_walk=dyn_query.dyn_node_walk_ref,
                 minplus_matmul=minplus.minplus_matmul_ref,
-                flash_attention=flash_attention.flash_attention_ref)[name]
+                flash_attention=flash_attention.flash_attention_ref,
+                segment_add=segment_add.segment_add_ref)[name]
 
 
 def compare(name, args, fn=None, **kw):
@@ -258,6 +265,14 @@ def read_launches():
     from repro_torch.kernels import ops
 
     return {name: getattr(ops, name).launches for name in KERNELS}
+
+
+def take_segment(counts, path):
+    """Pop segment_add's count from a path's counts (read right after the
+    path ran) and record it under ``path`` for the kernels line."""
+    n = counts.pop("segment_add")
+    SEGMENT_LAUNCHES[path] = SEGMENT_LAUNCHES.get(path, 0) + n
+    return n
 
 
 def read_launches_by_dtype():
@@ -846,8 +861,11 @@ def phase_main(args, device, card):
     warm_s = time.perf_counter() - t1
     counts = read_launches()
     launches = counts.pop("fused_walk")
+    seg = take_segment(counts, "rfs")
     warm_searches = m.stats.n_rank_searches - s0
     require(not any(counts.values()), f"[main] launched another kernel: {counts}")
+    if device != "cpu":
+        require(seg == launches, f"[main] segment_add launches {seg} for {launches} walks")
 
     packs = m._fe._pack_cache.get(((m.epoch, m.ls), "fused"))
     n_packs = len(packs)
@@ -1008,8 +1026,10 @@ def phase_main_codec(m, ts, F64, main, device, card):
         counts, by_dtype = read_launches(), read_launches_by_dtype()
         warm_bytes = fe.counters["bytes_moved"] - b0
         launches = counts.pop("fused_walk")
+        seg = take_segment(counts, f"rfs-codec-{codec}")
         n_packs = len(fe._pack_cache.get(((m.epoch, m.ls), "fused")))
         require(not any(counts.values()), f"[main-codec] launched another kernel: {counts}")
+        require(device == "cpu" or seg == launches, f"[main-codec] segment_add launches {seg}")
         if device != "cpu":
             require(by_dtype["fused_walk"][dt] == launches == 2 * n_packs,
                     f"[main-codec] {codec}: fused_walk launches {by_dtype['fused_walk']} "
@@ -1076,7 +1096,9 @@ def phase_rfs_kernel(args, device, card, ts, F_main):
     warm_s = time.perf_counter() - t1
     counts = read_launches()
     launches = counts.pop("tree_query")
+    seg = take_segment(counts, "rfs-kernel")
     require(not any(counts.values()), f"[kernel] rfs launched another kernel: {counts}")
+    require(device == "cpu" or seg == launches, f"[kernel] segment_add launches {seg}")
 
     entries = m._fe._pack_cache.get(((m.epoch, m.ls), "kernel"))
     n = len(entries)
@@ -1218,8 +1240,9 @@ def phase_drfs(args, device, card, *, executor="fused", versus="packed", inserts
         for k, v in grew.items():
             launches[k] += v
         nb = plan.n_blocks
-        if device != "cpu":
-            require(grew[kern] == nb and sum(grew.values()) == nb,
+        if device != "cpu":  # and the scatter once or twice a block (tree, scans)
+            require(grew[kern] == nb and sum(grew.values()) - grew["segment_add"] == nb
+                    and nb <= grew["segment_add"] <= 2 * nb,
                     f"{step}: launches {grew} for {nb} blocks of {kern}")
         require(m._fe.counters["fused_launches"] - f0 == (nb if executor == "fused" else 0),
                 f"{step}: fused_launches")
@@ -1307,9 +1330,11 @@ def phase_drfs(args, device, card, *, executor="fused", versus="packed", inserts
         Fq, Fx = run(False, "quantized-compacted"), run(True, "exact-compacted")
         check(Fq, Fx, "compacted")
     mine = {k: launches[k] for k in DRFS_KERNELS[executor]}
+    seg = take_segment(launches, tag)
     require(sum(launches.values()) == sum(mine.values()), f"{tag}: other kernels launched: {launches}")
     if device != "cpu":
-        require(min(mine.values()) > 0, f"the {tag} path never launched a kernel: {mine}")
+        require(min(mine.values()) > 0 and seg > 0,
+                f"the {tag} path never launched a kernel: {mine}, segment_add {seg}")
     peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
     say(tag, card=card, launches=json.dumps(mine), **{f"{executor}_vs_{versus}": errs["versus"]},
         exact_vs_sps=errs["sps"], device_bytes=m._fe.device_bytes, max_memory_allocated=peak,
@@ -1460,7 +1485,9 @@ def phase_drfs_codec(args, device, card):
                 counts, by_dtype = read_launches(), read_launches_by_dtype()
                 warm_bytes = fe.counters["bytes_moved"] - b0
                 launches = counts.pop(kern)
+                seg = take_segment(counts, f"drfs-codec-{executor}-{mode}-{codec}")
                 require(not any(counts.values()), f"[drfs-codec] launched another kernel: {counts}")
+                require(device == "cpu" or seg >= launches, f"[drfs-codec] segment_add {seg}")
                 if device != "cpu":
                     require(by_dtype[kern][dt] == launches == 2 * n_blocks,
                             f"[drfs-codec] {executor} {codec} {mode}: {kern} launches "
@@ -1710,9 +1737,10 @@ def phase_serve(args, device, card, tmp):
     The standalone model takes the server's host plans of the same epochs
     (one per epoch: the plan does not depend on the mode; ~6 s each at
     x1.0), so what it checks is the device path and the serve tier. The
-    flush's centres, not the request's own: on the card ``index_put_`` sums
-    a lixel's rows in another association for one window than for several
-    (``width_bits`` prints the difference; ROADMAP Queue C item 1)."""
+    flush's centres, not the request's own; ``width_bits`` (a centre of a
+    wider flush answered alone against the flush) must be 0.0: every flush
+    ends in the fixed-order scatter (``ops.segment_add``), whose sums do not
+    depend on the flush's width."""
     import shutil
 
     from repro_torch.core import TNKDE, WriteAheadLog
@@ -1782,6 +1810,7 @@ def phase_serve(args, device, card, tmp):
         torch.cuda.synchronize()
     serve_s = time.perf_counter() - t1
     launches = read_launches()
+    seg = take_segment(dict(launches), "serve")
     lib1 = jit_entries()
     for m in srv.models.values():
         del m.dispatch  # the class's dispatch again: no recording from here on
@@ -1798,7 +1827,8 @@ def phase_serve(args, device, card, tmp):
     if device != "cpu":
         require(launches["fused_leaf"] == blocks["quantized"] > 0
                 and launches["fused_walk"] == blocks["exact"] > 0
-                and sum(launches.values()) == blocks["quantized"] + blocks["exact"],
+                and sum(launches.values()) - seg == blocks["quantized"] + blocks["exact"]
+                and seg >= blocks["quantized"] + blocks["exact"],
                 f"[serve] launches {launches} for blocks {blocks}")
         require(syncs["syncs"] == 0,
                 f"[serve] dispatch synchronised with the card {syncs['syncs']} times in "
@@ -1824,6 +1854,9 @@ def phase_serve(args, device, card, tmp):
         if width_bits is None and name == "quantized" and len(ts) > 1:
             F1 = oracle_query(name, [ts[0]], pins[(name, epoch)])  # the same centre alone
             width_bits = float(np.abs(F1[0] - rows[(name, epoch, ts[0])]).max())
+    # the fixed-order scatter: a centre answered alone is bitwise the same
+    # centre in a wider flush (ROADMAP Queue C item 1, closed)
+    require(width_bits == 0.0, f"[serve] a centre alone differs from its flush by {width_bits}")
     tag = max(k for k in resp if k[0] == "exact")  # the last exact answer vs SPS
     e_, p_, t_ = pins[("exact", tuple(resp[tag].stats.epoch))].event_set()
     ee = group_events_by_edge(net, Events(e_, p_, t_))
@@ -1898,12 +1931,14 @@ def phase_serve_durable(args, device, card, ref, tmp):
     if device != "cpu":
         torch.cuda.synchronize()
     launches = read_launches()
+    seg = take_segment(launches, "serve-durable")
     require(set(got) == set(crash), f"[serve-durable] answered {sorted(got)}")
     require(fresh.stats.n_engine_faults == 0 and fresh.stats.n_degradations == 0,
             "[serve-durable] faults or degradations")
     if device != "cpu":
-        require(launches["fused_leaf"] > 0 and sum(launches.values()) == launches["fused_leaf"],
-                f"[serve-durable] launches {launches}")
+        require(launches["fused_leaf"] > 0 and sum(launches.values()) == launches["fused_leaf"]
+                and seg >= launches["fused_leaf"],
+                f"[serve-durable] launches {launches}, segment_add {seg}")
     fm = fresh.models["quantized"]
     shapes = phase_drfs_shapes(fm, list(flushes[-1][2]), device, card,
                                tag="serve-durable-shapes", modes=(False,))
@@ -1981,6 +2016,7 @@ def phase_serve_router(args, device, card):
     if device != "cpu":
         torch.cuda.synchronize()
     launches = read_launches()
+    seg = take_segment(launches, "serve-router")
     require(set(got) == set(want), f"[serve-router] answered {sorted(got)}")
     n = serve_check("serve-router", got, mix,
                     serve_replay(flushes, lambda name, ts, at: sm.query(ts, at=at), pins))
@@ -1992,8 +2028,9 @@ def phase_serve_router(args, device, card):
     require(sj["health"][1] == "quarantined" and sj["health"][0] == "healthy",
             f"[serve-router] health {sj['health']}")
     if device != "cpu":
-        require(launches["fused_leaf"] > 0 and sum(launches.values()) == launches["fused_leaf"],
-                f"[serve-router] launches {launches}")
+        require(launches["fused_leaf"] > 0 and sum(launches.values()) == launches["fused_leaf"]
+                and seg >= launches["fused_leaf"],
+                f"[serve-router] launches {launches}, segment_add {seg}")
     rm = router.servers[0].models["quantized"]
     require(rm.epoch == sm.epoch, f"[serve-router] replica at {rm.epoch}, single at {sm.epoch}")
     shapes = phase_drfs_shapes(rm, list(flushes[-1][2]), device, card,
@@ -2612,6 +2649,446 @@ def lm_layerwise(params, cfg, toks):
                        perturbed_embed_rel=float((lp_ - ld).abs().max()) / top)
 
 
+# ------------------------------------------- the fixed-order scatter
+def segment_case(L, n_src, W, halves, layout, device, seed):
+    """Seeded inputs of ``ops.segment_add``: (heat [L, W], src [n_src, C],
+    index) for one index ``layout``: 'dup' (every row real, many per lixel),
+    'padded' (a grouped layout: some slots real), 'single' (one segment),
+    'empty' (no rows)."""
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(seed)
+    C = 2 * W if halves else W
+    if layout == "dup":
+        slots = np.arange(n_src)
+        lixel = rng.integers(0, max(L // 3, 1), n_src)
+    elif layout == "padded":
+        slots = np.sort(rng.choice(n_src, n_src // 2, replace=False))
+        lixel = rng.integers(0, L, len(slots))
+    elif layout == "single":
+        slots = rng.permutation(n_src)[: n_src // 3]
+        lixel = np.full(len(slots), L // 2)
+    else:
+        slots = lixel = np.zeros(0, np.int64)
+    heat = torch.as_tensor(rng.normal(size=(L, W)), device=device)
+    src = torch.as_tensor(rng.normal(size=(n_src, C)) * 10.0 ** rng.integers(-6, 6, (n_src, 1)),
+                          device=device)
+    return heat, src, ops.segment_index(lixel, slots, device=device)
+
+
+def segment_bitwise(heat, src, index, halves):
+    """ops.segment_add against its plain version on copies of ``heat``:
+    (max_abs_err, max_rel_err), required 0.0 — the same additions in the
+    same order, no FMA to contract."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_add import segment_add_ref
+
+    got = ops.segment_add(heat.clone(), src, index, halves=halves)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    want = segment_add_ref(heat.clone(), src, index, halves=halves)
+    require(torch.isfinite(got).all(), "segment_add produced non-finite values")
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    require(torch.equal(got, want), f"segment_add is not bitwise its plain version ({err})")
+    return err, err
+
+
+def phase_segment_kernels(device):
+    """``[segment-kernels]``: ops.segment_add held bitwise against its plain
+    version over odd widths (W = 1, 5, 16), half-window pairs, a transposed
+    (strided) source, duplicates, padded slots, one segment and none."""
+    n = 0
+    for W in (1, 5, 16):
+        for halves in (False, True):
+            for layout in ("dup", "padded", "single", "empty"):
+                heat, src, index = segment_case(301, 2000, W, halves, layout, device,
+                                                W * 100 + halves * 10 + len(layout))
+                segment_bitwise(heat, src, index, halves)
+                segment_bitwise(heat, src.T.contiguous().T, index, halves)
+                n += 2
+    say("segment-kernels", cases=n, bitwise=True)
+    return n
+
+
+def segment_bound(heat, src, index, halves):
+    """Least time the card could take for one segment_add, from this input:
+    the larger of bytes/bandwidth (each real row's W or 2W source values,
+    its source-row index, the segment bounds and lixels, and each (lixel,
+    window) heat value read and written once) and operations/peak f64 lane
+    rate (one add per row and window, two with half-window pairs)."""
+    W = heat.shape[1]
+    M, U = index.n_rows, index.n_segs
+    nbytes = M * W * (2 if halves else 1) * 8 + M * 8 + (2 * U + 1) * 8 + 2 * U * W * 8
+    ops_n = M * W * (2 if halves else 1)
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, ops_n / PEAK_F64_LANE_OPS
+    return dict(bound_ms=max(t_b, t_o) * 1e3, bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=nbytes, adds=ops_n)
+
+
+def segment_timing(heat, src, index, halves, device):
+    """On the card: the kernel and its plain version, and ``index_put_``
+    with ``accumulate=True`` — one PyTorch call of the same function, on the
+    same rows gathered beforehand (the scatter the port used before) — timed
+    in turns (kernel, library, library, kernel; 5 samples each) with L2
+    flushed."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_add import segment_add_ref
+
+    timing = dict(ms=None, plain_ms=None, library_ms=None)
+    if device == "cpu":
+        return timing
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)  # 256 MB > L2
+    lix = index.lixel.repeat_interleave(index.seg_ptr[1:] - index.seg_ptr[:-1])
+    rows = src.index_select(0, index.rows)
+    if halves:
+        rows = rows[:, 0::2] + rows[:, 1::2]
+    h = heat.clone()
+    calls = dict(kernel=lambda: ops.segment_add(h, src, index, halves=halves),
+                 library=lambda: h.index_put_((lix,), rows, accumulate=True))
+    samples = {k: [] for k in calls}
+    for k in ("kernel", "library", "library", "kernel"):
+        samples[k] += time_samples(calls[k], reps=5, flush=flush)
+    timing["ms"] = float(np.median(samples["kernel"]))
+    timing["library_ms"] = float(np.median(samples["library"]))
+    timing["plain_ms"] = time_ms(lambda: segment_add_ref(h, src, index, halves=halves),
+                                 reps=3, flush=flush)
+    return timing
+
+
+def phase_segment_shapes(m, ts, device, card, tag="main-segment"):
+    """segment_add at the shapes ``[main]``'s flushes gave it: every atom
+    pack's walk output (the fused kernel on the window table in place) onto
+    a seeded heatmap, bitwise against the plain version; the pack with the
+    most real rows is timed (``segment_timing``)."""
+    from repro_torch.kernels import ops
+
+    fe = m._fe
+    packs = fe._pack_cache.get(((m.epoch, m.ls), "fused"))
+    tabs = fe.window_tables(fe.window_batch(m.ctx, ts), tuple(ts))
+    table = tabs.reshape(tabs.shape[0], -1)
+    heat = torch.as_tensor(np.random.default_rng(5).normal(size=(m.n_lixels, len(ts))),
+                           device=device)
+    big, big_n = None, -1
+    for e in packs:
+        out = ops.fused_walk_flat(table, e["index"], e["r_lo"], e["r_hi"], e["side"], e["qs"])
+        src = out.reshape(-1, len(ts))
+        segment_bitwise(heat, src, e["seg"], False)
+        if e["seg"].n_rows > big_n:
+            big, big_n = (src, e["seg"]), e["seg"].n_rows
+        else:
+            del src, out
+    src, index = big
+    shape = dict(L=m.n_lixels, W=len(ts), src_rows=int(src.shape[0]), rows=index.n_rows,
+                 lixels=index.n_segs, longest_segment=index.max_len, halves=False)
+    bound = segment_bound(heat, src, index, False)
+    timing = segment_timing(heat, src, index, False, device)
+    say(tag, card=card, packs=len(packs), bitwise=True, timed_shape=json.dumps(shape), **timing,
+        **bound)
+    return 0.0, 0.0, shape, bound, timing
+
+
+def phase_segment_shapes_drfs(m, ts, device, card, tag="drfs-segment"):
+    """segment_add at the shapes ``[drfs]``'s flushes gave it: per atom block
+    of the last plan, the tree phase's [G·Qp, W] slots (``gseg``) and the
+    scan phase's half-window [M, 2W] rows (``seg``, a transposed source, as
+    ``eval_atoms_dyn`` hands it over), on seeded values, bitwise against the
+    plain version; the block with the most rows is timed in its tree form."""
+    fe = m._fe
+    packs = fe._atom_packs(m._host_plan(m.snapshot()))
+    W = len(ts)
+    rng = np.random.default_rng(6)
+    heat = torch.as_tensor(rng.normal(size=(m.n_lixels, W)), device=device)
+    big, big_n = None, -1
+    for e in packs:
+        G, Qp = e["side"].shape
+        src = torch.as_tensor(rng.normal(size=(G * Qp, W)), device=device)
+        segment_bitwise(heat, src, e["gseg"], False)
+        vals = torch.as_tensor(rng.normal(size=(2 * W, e["m"])), device=device)
+        segment_bitwise(heat, vals.T, e["seg"], True)
+        if e["gseg"].n_rows > big_n:
+            big, big_n = (src, e["gseg"]), e["gseg"].n_rows
+    src, index = big
+    shape = dict(L=m.n_lixels, W=W, src_rows=int(src.shape[0]), rows=index.n_rows,
+                 lixels=index.n_segs, longest_segment=index.max_len, halves=False)
+    bound = segment_bound(heat, src, index, False)
+    timing = segment_timing(heat, src, index, False, device)
+    say(tag, card=card, blocks=len(packs), bitwise=True, timed_shape=json.dumps(shape), **timing,
+        **bound)
+    return 0.0, 0.0, shape, bound, timing
+
+
+# ------------------------------------------- search / cascade executors
+def phase_search(m, ts, F_main, device, card):
+    """``[search]``: ``executor='search'`` and then ``'cascade'`` (plain
+    torch over the time-major forest, no kernel of their own) on ``[main]``'s
+    model, index and plan: an engine of each swapped in, a cold and a warm
+    query with the launch counts set to 0 just before and read just after.
+    Each answer within PACKED_TOL of ``[main]``'s, warm == cold and duplicate
+    centres bitwise, no kernel launched but the scatter (once per pack)."""
+    from repro_torch.core.rfs import FlatForestEngine
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    fused_fe, out = m._fe, {}
+    fmax = float(np.abs(F_main).max())
+    for executor in ("search", "cascade"):
+        t0 = time.perf_counter()
+        fe = FlatForestEngine(m.index, executor=executor, device=device)
+        require(fe.executor == executor, f"[search] asked {executor}, built {fe.executor}")
+        m._fe, m._counter_cursor = fe, {}
+        require(m.engine_desc == f"torch/{executor}", m.engine_desc)
+        build_s = time.perf_counter() - t0
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        st0 = dict(fe.counters)
+        reset_launches()
+        t1 = time.perf_counter()
+        F_cold = m.query(ts)
+        sync()
+        cold_s = time.perf_counter() - t1
+        st1 = dict(fe.counters)
+        t1 = time.perf_counter()
+        F = m.query(ts)
+        sync()
+        warm_s = time.perf_counter() - t1
+        counts = read_launches()
+        seg = take_segment(counts, executor)
+        n_packs = len(fe._pack_cache.get((m._host_plan().key, executor)))
+        require(not any(counts.values()), f"[search] {executor} launched a kernel: {counts}")
+        require(device == "cpu" or seg == 2 * n_packs,
+                f"[search] {executor}: segment_add {seg} for {n_packs} packs")
+        require(np.array_equal(F, F_cold), f"[search] {executor}: warm query differs from cold")
+        require(np.array_equal(F[1], F[4]), f"[search] {executor}: duplicate centres differ")
+        err = float(np.abs(F - F_main).max()) / fmax
+        require(err <= PACKED_TOL, f"[search] {executor} vs [main]: {err}")
+        cold = {k: st1[k] - st0[k] for k in ("rank_searches", "moment_gathers", "bytes_moved")}
+        warm = {k: fe.counters[k] - st1[k] for k in cold}
+        peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
+        say("search", card=card, executor=executor, engine=m.engine_desc, packs=n_packs,
+            launches=json.dumps({**{k: v for k, v in counts.items() if v}, "segment_add": seg}),
+            vs_main=err, counters_cold=json.dumps(cold), counters_warm=json.dumps(warm),
+            device_bytes=fe.device_bytes, max_memory_allocated=peak,
+            build_s=round(build_s, 3), cold_s=round(cold_s, 4), warm_s=round(warm_s, 4))
+        out[executor] = dict(err=err, cold_s=cold_s, warm_s=warm_s, launches=seg)
+        m._fe, m._counter_cursor = fused_fe, {}
+        del fe
+        free(device)
+    return out
+
+
+# ------------------------------------------------------ sharded engines
+def phase_sharded(m, ts, F_main, host, device, card):
+    """``[sharded]`` static RFS at ``[main]``'s scale: S slabs (SHARDS) on the
+    one card, a ``ShardedForestEngine`` over ``[main]``'s index swapped into
+    its model with the mesh (``engine_desc`` ``torch/packed@shards=S``), a
+    cold and a warm query with the launch counts set to 0 just before and
+    read just after. Each answer within PACKED_TOL of ``[main]``'s, warm ==
+    cold and duplicate centres bitwise; ``bytes_per_shard`` over the
+    single-device packed engine's ``device_bytes`` (after the same query)
+    at most 1/S + 0.25; the heaviest shard's events at most twice the mean."""
+    from repro_torch.core.distributed import ShardMesh, ShardedForestEngine
+    from repro_torch.core.rfs import FlatForestEngine
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    fused_fe = m._fe
+    fmax = float(np.abs(F_main).max())
+    single = FlatForestEngine.from_host_tables(m.index, host, executor="packed", device=device)
+    m._fe, m._counter_cursor = single, {}
+    m.query(ts)
+    single_bytes = single.device_bytes
+    m._fe, m._counter_cursor = fused_fe, {}
+    del single
+    free(device)
+    out = {}
+    for S in SHARDS:
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mesh = ShardMesh.on_one_device(S, device=device)
+        fe = ShardedForestEngine(m.index, mesh)
+        sync()
+        build_s = time.perf_counter() - t0
+        m._fe, m.mesh, m._counter_cursor = fe, mesh, {}
+        require(m.engine_desc == f"torch/packed@shards={S}", m.engine_desc)
+        reset_launches()
+        t1 = time.perf_counter()
+        F_cold = m.query(ts)
+        sync()
+        cold_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        F = m.query(ts)
+        sync()
+        warm_s = time.perf_counter() - t1
+        counts = read_launches()
+        seg = take_segment(counts, f"sharded-rfs-{S}")
+        require(not any(counts.values()), f"[sharded] launched another kernel: {counts}")
+        require(device == "cpu" or seg > 0, "[sharded] the scatter never launched")
+        require(np.array_equal(F, F_cold), f"[sharded] S={S}: warm query differs from cold")
+        require(np.array_equal(F[1], F[4]), f"[sharded] S={S}: duplicate centres differ")
+        err = float(np.abs(F - F_main).max()) / fmax
+        require(err <= PACKED_TOL, f"[sharded] S={S} vs [main]: {err}")
+        frac = m.stats.bytes_per_shard / single_bytes
+        require(0.0 < frac <= 1.0 / S + 0.25, f"[sharded] S={S}: bytes_per_shard frac {frac}")
+        loads = fe.sf.events_per_shard.astype(np.float64)
+        require(loads.max() <= 2.0 * loads.mean(), f"[sharded] S={S}: loads {loads}")
+        peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
+        say("sharded", card=card, solution="rfs", shards=S, engine=m.engine_desc,
+            vs_main=err, bytes_per_shard=m.stats.bytes_per_shard, single_bytes=single_bytes,
+            bytes_frac=round(frac, 4), frac_gate=round(1.0 / S + 0.25, 4),
+            events_per_shard=json.dumps(loads.astype(int).tolist()), segment_add=seg,
+            device_bytes=fe.device_bytes, max_memory_allocated=peak, build_s=round(build_s, 3),
+            cold_s=round(cold_s, 4), warm_s=round(warm_s, 4))
+        out[S] = dict(err=err, frac=frac, cold_s=cold_s, warm_s=warm_s, peak=peak)
+        m._fe, m.mesh, m._counter_cursor = fused_fe, None, {}
+        del fe
+        free(device)
+    return out
+
+
+def phase_sharded_drfs(args, device, card):
+    """``[sharded]`` streaming DRFS, cut to berkeley ``SHARDED_DRFS_SCALE``
+    (exact mode's boundary-leaf scans run once per shard): per S in SHARDS a
+    ``TNKDE(solution='drfs', mesh=...)`` on the first 90 % of the events,
+    both modes at the base epoch, after an insert of 5 % (pending) and after
+    ``seal()``, each answer held against the single-device packed engine
+    swapped in on the same model and snapshot (≤ 1e-11), exact mode's last
+    answer against the SPS oracle. Each sharded query's own launches are
+    summed; the comparisons' are not counted."""
+    from repro_torch.core import TNKDE
+    from repro_torch.core.distributed import ShardMesh
+    from repro_torch.core.events import Events, group_events_by_edge
+    from repro_torch.core.rfs import FlatDynamicEngine
+    from repro_torch.data.spatial import make_dataset
+
+    scale = SHARDED_DRFS_SCALE * args.scale
+    net, ev, _ = make_dataset("berkeley", scale=scale, seed=args.seed)
+    order = np.argsort(ev.time, kind="stable")
+
+    def part(lo, hi):
+        sel = order[lo:hi]
+        return Events(ev.edge_id[sel], ev.pos[sel], ev.time[sel])
+
+    n_base, n_batch = int(0.9 * ev.n), int(0.05 * ev.n)
+    t_min = float(ev.time.min())
+    span = float(ev.time.max()) - t_min
+    ts = [t_min + f * span for f in DRFS_FRACS]
+    worst = 0.0
+    for S in SHARDS:
+        t0 = time.perf_counter()
+        m = TNKDE(net, part(0, n_base), g=50.0, b_s=800.0, b_t=0.2 * span, solution="drfs",
+                  mesh=ShardMesh.on_one_device(S, device=device), drfs_depth=8,
+                  auto_seal=False, device=device)
+        require(m.engine_desc == f"torch/packed@shards={S}", m.engine_desc)
+        single = FlatDynamicEngine(m.index, executor="packed", device=device)
+        build_s = time.perf_counter() - t0
+        seg = 0
+        times = {}
+        reset_launches()
+        for step in ("base", "insert", "seal"):
+            if step == "insert":
+                m.insert(part(n_base, n_base + n_batch))
+            elif step == "seal":
+                m.seal()
+            for exact in (False, True):
+                m.drfs_exact_leaf = exact
+                snap = m.snapshot()
+                l0 = read_launches()
+                t1 = time.perf_counter()
+                F = m.query(ts, at=snap)
+                if device != "cpu":
+                    torch.cuda.synchronize()
+                times[f"{step}-{'exact' if exact else 'quantized'}_s"] = round(
+                    time.perf_counter() - t1, 4)
+                grew = {k: v - l0[k] for k, v in read_launches().items()}
+                seg += take_segment(grew, f"sharded-drfs-{S}")
+                require(not any(grew.values()), f"[sharded] drfs launched another kernel: {grew}")
+                own, cursor = m._fe, dict(m._counter_cursor)
+                m._fe, m._counter_cursor = single, {}
+                F_1 = m.query(ts, at=snap)
+                m._fe, m._counter_cursor = own, cursor
+                require(np.isfinite(F).all() and np.abs(F).max() > 0, f"[sharded] {step}: F")
+                require(np.array_equal(F[1], F[4]), f"[sharded] {step}: duplicate centres")
+                err = float(np.abs(F - F_1).max()) / float(np.abs(F_1).max())
+                require(err <= 1e-11, f"[sharded] drfs S={S} {step} exact={exact}: {err}")
+                worst = max(worst, err)
+        require(device == "cpu" or seg > 0, "[sharded] drfs: the scatter never launched")
+        e_, p_, t_ = m.index.snapshot().event_set()  # m.ee holds counts after an insert
+        ids, F_sps = sps_sample(m, ts, SPS_EDGES, args.seed + 19,
+                                ee=group_events_by_edge(net, Events(e_, p_, t_)))
+        err_sps = float(np.abs(F[:, ids] - F_sps).max()) / float(np.abs(F).max())
+        require(len(ids) >= 64 and err_sps <= SPS_TOL, f"[sharded] drfs vs sps {err_sps}")
+        say("sharded", card=card, solution="drfs", shards=S, scale=scale,
+            scale_cut=f"berkeley x{scale} (exact mode's scans run once per shard)",
+            edges=net.n_edges, base_events=n_base, batch_events=n_batch,
+            vs_single_packed=worst, exact_vs_sps=err_sps, segment_add=seg,
+            bytes_per_shard=m._fe.bytes_per_shard, single_device_bytes=single.device_bytes,
+            build_s=round(build_s, 3),
+            **times)
+        del m, single
+        free(device)
+    return worst
+
+
+def phase_sharded_serve(args, device, card):
+    """``[sharded]`` serve: a ``TNKDEServer(mesh=...)`` (two slabs, one
+    quantized DRFS profile, berkeley ``SHARDED_DRFS_SCALE``) answers a few
+    requests — one admitted before an insert, two after — and every answer
+    is held against an unsharded server's (≤ 1e-12)."""
+    from repro_torch.core.distributed import ShardMesh
+    from repro_torch.core.events import Events
+    from repro_torch.data.spatial import make_dataset
+    from repro_torch.serve import ProfileConfig, TNKDEServer
+
+    scale = SHARDED_DRFS_SCALE * args.scale
+    net, ev, _ = make_dataset("berkeley", scale=scale, seed=args.seed)
+    order = np.argsort(ev.time, kind="stable")
+
+    def part(lo, hi):
+        sel = order[lo:hi]
+        return Events(ev.edge_id[sel], ev.pos[sel], ev.time[sel])
+
+    n_base = int(0.9 * ev.n)
+    t_min = float(ev.time.min())
+    span = float(ev.time.max()) - t_min
+    cfg = {"default": ProfileConfig(g=50.0, b_s=800.0, b_t=0.2 * span, solution="drfs",
+                                    drfs_depth=8)}
+    reqs = [[t_min + 0.3 * span], [t_min + 0.5 * span, t_min + 0.7 * span],
+            [t_min + 0.4 * span]]
+    got = {}
+    seg = 0
+    for name, kw in (("sharded", dict(mesh=ShardMesh.on_one_device(2, device=device))),
+                     ("single", {})):
+        srv = TNKDEServer(net, part(0, n_base), profiles=cfg, device=device, **kw)
+        reset_launches()
+        srv.submit(reqs[0])
+        srv.insert(part(n_base, n_base + int(0.02 * ev.n)))
+        for r in reqs[1:]:
+            srv.submit(r)
+        got[name] = {r.id: r.heat for r in srv.pump(force=True)}
+        if name == "sharded":
+            desc = srv.models["default"].engine_desc
+            counts = read_launches()
+            seg = take_segment(counts, "sharded-serve")
+            require(not any(counts.values()), f"[sharded] serve launched another kernel {counts}")
+            require(device == "cpu" or seg > 0, "[sharded] serve: the scatter never launched")
+        del srv
+        free(device)
+    require(desc == "torch/packed@shards=2", f"[sharded] serve engine {desc}")
+    require(set(got["sharded"]) == set(got["single"]) and len(got["single"]) == len(reqs),
+            f"[sharded] serve answered {sorted(got['sharded'])}")
+    errs = [float(np.abs(got["sharded"][k] - b).max()) / float(np.abs(b).max())
+            for k, b in got["single"].items()]
+    require(max(errs) <= PACKED_TOL, f"[sharded] serve vs unsharded: {errs}")
+    say("sharded", card=card, solution="drfs-serve", engine=desc, scale=scale, requests=len(reqs),
+        vs_unsharded=max(errs), segment_add=seg)
+    return max(errs)
+
+
 def ptxas_report(log):
     """Per kernel function in an ``nvcc -Xptxas -v`` log: registers and
     spill bytes (stores, loads)."""
@@ -2669,11 +3146,13 @@ def build_kernels():
     from repro_torch.kernels.flash_attention import flash_library
     from repro_torch.kernels.fused_walk import fused_leaf_library, fused_walk_library
     from repro_torch.kernels.minplus import minplus_library
+    from repro_torch.kernels.segment_add import segment_add_library
     from repro_torch.kernels.tree_query import tree_query_library
 
     builders = dict(fused_walk=fused_walk_library, fused_leaf=fused_leaf_library,
                     tree_query=tree_query_library, dyn_leaf_query=dyn_leaf_query_library,
-                    minplus=minplus_library, flash_attention=flash_library)
+                    minplus=minplus_library, flash_attention=flash_library,
+                    segment_add=segment_add_library)
     t1 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
         futures = {name: pool.submit(b, verbose=True) for name, b in builders.items()}
@@ -2752,11 +3231,19 @@ def main():
     kworst = phase_kernel_kernels(device)
     n_minplus_cases = phase_minplus_kernels(device)
     fl_abs, fl_rel, fl_shape, fl_bound, fl_timing = phase_flash_kernels(device)
+    n_seg_cases = phase_segment_kernels(device)
     say("kernels", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
     m, ts, F_main, launches, secs = phase_main(args, device, card)
     abs2, rel2, shape, bound, timing = phase_main_shapes(m, ts, device, card)
+    seg_main = phase_segment_shapes(m, ts, device, card)
     say("main", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
+    search = phase_search(m, ts, F_main, device, card)
+    say("search", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
+    sharded = phase_sharded(m, ts, F_main, secs["host"], device, card)
+    say("sharded", solution="rfs", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
     main_codec = phase_main_codec(m, ts, F_main, secs, device, card)
     del m, secs["host"]
@@ -2773,6 +3260,7 @@ def main():
     say("drfs", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
     dshapes = phase_drfs_shapes(dm, dts, device, card)
+    seg_drfs = phase_segment_shapes_drfs(dm, dts, device, card)
     del dm
     free(device)
     say("drfs-shapes", seconds=round(time.perf_counter() - t1, 1))
@@ -2801,6 +3289,10 @@ def main():
     say("serve-tier", card=card, phases="serve,serve-durable,serve-router",
         seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
+    sharded_drfs = phase_sharded_drfs(args, device, card)
+    sharded_serve = phase_sharded_serve(args, device, card)
+    say("sharded", solution="drfs,serve", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
     mp_launches, mp_abs, mp_rel, mp_shape, mp_bound, mp_timing, mp_waves = phase_minplus(
         args, device, card)
     free(device)
@@ -2821,6 +3313,8 @@ def main():
                 "a [main-codec] path never launched its fused_walk instantiation")
         require(all(r["launches"] > 0 for r in drfs_codec.values()),
                 "a [drfs-codec] path never launched its kernel instantiation")
+        require(all(n > 0 for n in SEGMENT_LAUNCHES.values()),
+                f"a TN-KDE path never launched segment_add: {SEGMENT_LAUNCHES}")
 
     def entry(name, path, n, err_abs, err_rel, shp, bnd, tm, replaces, source=None,
               table_dtype="float64", **extra):
@@ -2831,8 +3325,10 @@ def main():
             source=f"src/repro_torch/kernels/csrc/{source or name}.cu", replaces=replaces,
             launches=n, max_abs_err=err_abs, max_rel_err=err_rel,
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=bnd["bound_ms"], bound_by=bnd["bound_by"],
-            # flash_attention: scaled_dot_product_attention, timed only; no single
-            # PyTorch call computes any of the others
+            # timed only, never on a path: flash_attention against
+            # scaled_dot_product_attention, segment_add against index_put_
+            # (accumulate) on its rows gathered beforehand; no single PyTorch
+            # call computes any of the others
             library_ms=tm.get("library_ms"),
             timed_shape=shp, card=card, **forms, **extra,
         )
@@ -2926,6 +3422,19 @@ def main():
                          sx[0], sx[1], sx[2], sx[3], sx[4],
                          "src/repro/kernels/fused_walk.py:86",
                          main_path=dict(scale=args.scale, phase="serve-exact")))
+    # the fixed-order scatter ends every TN-KDE flush: its [main] entry counts
+    # that path's launches and lists every path's (launches_by_path); its
+    # [drfs] entry is timed at that path's largest block
+    seg_replaces = ("none: added by the port, no TPU counterpart (the reference scatters "
+                    "with heat.at[lixel].add in its jitted flushes, src/repro/core/rfs.py:562)")
+    for path, n, (ea, er, eshape, ebound, etiming), extra in (
+            ("rfs", SEGMENT_LAUNCHES["rfs"], seg_main,
+             dict(launches_by_path=dict(SEGMENT_LAUNCHES), bitwise_cases=n_seg_cases,
+                  search=search, sharded_rfs={str(k): v for k, v in sharded.items()},
+                  sharded_drfs_vs_single=sharded_drfs, sharded_serve_vs_single=sharded_serve)),
+            ("drfs", SEGMENT_LAUNCHES["drfs"], seg_drfs, {})):
+        kernels.append(entry("segment_add", path, n, ea, er, eshape, ebound, etiming,
+                             seg_replaces, main_path=dict(scale=args.scale), **extra))
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.cpu_rehearsal:

@@ -36,6 +36,7 @@ __all__ = [
     "build_host_plan",
     "chunk_atoms",
     "group_atoms_by_edge",
+    "route_atoms_by_shard",
 ]
 
 
@@ -148,6 +149,61 @@ def group_atoms_by_edge(atoms: AtomSet, q_pad: Optional[int] = None):
         valid=valid,
     )
     return edges, fields, Qp
+
+
+def route_atoms_by_shard(
+    atoms: AtomSet,
+    shard_of_edge: np.ndarray,
+    edge_slot: np.ndarray,
+    n_shards: int,
+    pad_to: Optional[int] = None,
+):
+    """Route a plan block's atoms to the shard owning their edge: [S, Mp].
+
+    The sharded packing of :func:`chunk_atoms` blocks (DESIGN.md §3): atoms
+    are grouped by ``shard_of_edge[atom.edge]``, their edge ids rewritten to
+    the shard-LOCAL slots (``edge_slot``), and every shard padded to a
+    common capacity — ``pad_to`` if given, else the per-shard max rounded
+    to its ⅛-octave size class. Padding rows carry ``valid=False``, empty
+    selection intervals and edge slot 0 — they decompose to an empty walk on
+    any shard and belong to no segment of the scatter, so routing is safe
+    even for shards that own no atoms.
+
+    Returns a dict of host arrays matching ``torch_engine.FlatAtoms`` fields,
+    bitwise the reference's. Window-independent: one routing serves every
+    query window, exactly like the single-host pack.
+    """
+    S = max(int(n_shards), 1)
+    shard = shard_of_edge[atoms.edge]
+    order = np.argsort(shard, kind="stable")
+    counts = np.bincount(shard, minlength=S)
+    if pad_to is None:
+        from .rfs import _size_class
+
+        pad_to = _size_class(int(counts.max(initial=1)))
+    mp = max(int(pad_to), int(counts.max(initial=1)), 1)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+
+    def packed(x, fill=0):
+        out = np.full((S, mp) + x.shape[1:], fill, x.dtype)
+        for s in range(S):
+            out[s, : counts[s]] = x[order[offs[s] : offs[s + 1]]]
+        return out
+
+    valid = np.zeros((S, mp), bool)
+    for s in range(S):
+        valid[s, : counts[s]] = True
+    return dict(
+        lixel=packed(atoms.lixel),
+        edge=packed(edge_slot[atoms.edge]),
+        side_feat=packed(atoms.side_feat.astype(np.int32)),
+        qs=packed(atoms.qs, 0.0),
+        pos_hi=packed(atoms.pos_hi, -np.inf),
+        pos_lo1=packed(atoms.pos_lo1, np.inf),
+        lo1_right=packed(atoms.lo1_right, False),
+        pos_lo2=packed(atoms.pos_lo2, np.inf),
+        valid=valid,
+    )
 
 
 def build_host_plan(

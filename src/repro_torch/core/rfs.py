@@ -30,12 +30,15 @@ NumPy query engines, selectable with ``cascade``:
 
 The device engine (``FlatForestEngine``) runs the packed query plan
 (DESIGN.md §7) in PyTorch: host plans cached per snapshot epoch, window
-tables per ts tuple, and three executors — the gather-lean ``packed`` walk
+tables per ts tuple, and the executors — the gather-lean ``packed`` walk
 in plain torch (default) and ``fused``, ONE hand-written CUDA ``fused_walk``
 launch per flush (``repro_torch.kernels.fused_walk``) reading the window
 table in place, both over the position-major tables, and ``kernel``, the
 per-bucket-search tier: ONE ``tree_query`` launch per flush over the flat
-forest's time-major tables (``repro_torch.kernels.tree_query``).
+forest's time-major tables (``repro_torch.kernels.tree_query``), and the
+reference's ``search`` / ``cascade`` tiers in plain torch over the same
+tables. Every flush ends in ``ops.segment_add``, the fixed-order scatter
+onto the heatmap (one launch per pack on the card).
 
 ``FlatDynamicEngine`` does the same for the streaming DRFS index
 (``drfs.DynamicRangeForest``): device packs per snapshot epoch, window tables
@@ -80,6 +83,7 @@ from .torch_engine import (
     dyn_node_tables,
     dyn_window_tables,
     eval_atoms_dyn,
+    eval_atoms_flat,
     eval_atoms_packed,
     packed_forest_from_numpy,
     packed_node_tables,
@@ -672,19 +676,24 @@ class _DeviceEngine:
         """Device [L, W] heatmap → host [W, L] float64 (the one transfer)."""
         return heat.t().contiguous().cpu().numpy()
 
+    def _segments(self, lixel, slots=None):
+        """The fixed-order scatter's index of one pack (``ops.segment_index``):
+        its real rows' lixels in plan order and, for a padded layout, the
+        output slot of each. Built from host arrays, once per pack."""
+        return ops.segment_index(lixel, slots, device=self.device)
+
 
 def _rfs_flush(tabs, entry, heat):
     """ONE fused kernel launch on the window table in place: walk + window
-    contraction, [G, Qp, W], scattered onto heat [L, W] in place. Padding
-    slots of the [G, Qp] layout carry qs = 0 and an empty interval, so the
-    kernel writes exact zeros there; only the real atoms' rows
-    (``entry["rows"]``) are scattered."""
+    contraction, [G, Qp, W], added onto heat [L, W] in place by the
+    fixed-order scatter. Padding slots of the [G, Qp] layout carry qs = 0
+    and an empty interval, so the kernel writes exact zeros there; only the
+    real atoms' slots (``entry["seg"]``) are added."""
     out = ops.fused_walk_flat(
         tabs.reshape(tabs.shape[0], -1), entry["index"], entry["r_lo"], entry["r_hi"],
         entry["side"], entry["qs"],
     )  # [G, Qp, W]
-    flat = out.reshape(-1, heat.shape[1])
-    _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
+    ops.segment_add(heat, out.reshape(-1, heat.shape[1]), entry["seg"])
 
 
 def tree_query_args(ff, ranks, entry, wb):
@@ -706,27 +715,17 @@ def tree_query_args(ff, ranks, entry, wb):
 
 def _rfs_kernel_flush(ff, ranks, entry, wb, heat):
     """ONE ``tree_query`` launch for the entry: [G, Qp, Wh], then the real
-    atoms' rows, window halves folded, scattered onto heat [L, W]."""
+    atoms' rows, window halves folded, added onto heat [L, W] by the
+    fixed-order scatter."""
     args, kw = tree_query_args(ff, ranks, entry, wb)
     out = ops.tree_query(*args, **kw)  # [G, Qp, Wh]
-    rows = out.reshape(-1, out.shape[2]).index_select(0, entry["rows"])  # [M, Wh]
-    _scatter_add(heat, entry["lixel"], rows[:, 0::2] + rows[:, 1::2])
-
-
-def _scatter_add(heat, lixel, rows):
-    """heat[lixel[m], :] += rows[m, :] in place. ``index_put_`` with
-    ``accumulate=True`` rather than ``index_add_``: on CUDA it sorts the
-    indices and adds the duplicates of a lixel in one fixed order for every
-    window column, so duplicate window centers stay bitwise identical and
-    two runs give the same bits; ``index_add_`` uses atomics, whose order
-    changes from column to column and from run to run."""
-    heat.index_put_((lixel,), rows, accumulate=True)
+    ops.segment_add(heat, out.reshape(-1, out.shape[2]), entry["seg"], halves=True)
 
 
 class FlatForestEngine(_DeviceEngine):
     """Device-resident window-batched query engine over a built RangeForest.
 
-    Solves the multiple-temporal-KDE hot loop (§8.2) on the GPU with three
+    Solves the multiple-temporal-KDE hot loop (§8.2) on the GPU with five
     interchangeable executors over the packed query plan (DESIGN.md §7):
 
       executor='packed'   (default) gather-lean plain-torch executor:
@@ -747,6 +746,12 @@ class FlatForestEngine(_DeviceEngine):
                           query vector built in the kernel
                           (kernels/tree_query.py). Window-side state is the
                           [3, W, E] time-rank table (:func:`rank_boundaries`).
+      executor='search'   the same decomposition in plain torch
+                          (``torch_engine.eval_atoms_flat``), per LEVEL class.
+      executor='cascade'  the fractional-cascading prefix-path walk over the
+                          forest's bridges, plain torch, per LEVEL class; a
+                          forest built without bridges (``cascade=False``)
+                          runs ``search`` instead, as the reference does.
 
     All answer all W windows per flush into a device-resident [L, W]
     heatmap (float64 — exactness is part of the paper's claim), transferred
@@ -766,11 +771,15 @@ class FlatForestEngine(_DeviceEngine):
         self._init_device(device)
         if executor in ("auto", None):
             executor = "packed"
-        if executor not in ("packed", "fused", "kernel"):
+        if executor not in ("packed", "fused", "kernel", "search", "cascade"):
             raise ValueError(f"unknown rfs executor {executor!r}")
+        if executor == "cascade" and not rf.has_bridges:
+            executor = "search"
         self.rf = rf
         self.executor = executor
-        self.codec = TableCodec("f64" if executor == "kernel" else codec)
+        # the time-major executors read the raw f64 forest: no window-table codec
+        time_major = executor in ("kernel", "search", "cascade")
+        self.codec = TableCodec("f64" if time_major else codec)
         self.max_levels = max(rf.max_levels, 1)
         npmax = max(int(rf.n_pad.max(initial=1)), 1)
         nemax = max(int(np.diff(rf.ee.ptr).max(initial=1)), 1)
@@ -778,7 +787,7 @@ class FlatForestEngine(_DeviceEngine):
         self._tab_cache = PlanCache(2)  # ts_key -> window tables (plans)
         self._pack_cache = PlanCache(2)  # plan.key -> device atom packs
         self._packed = self._flat = None
-        if executor == "kernel":
+        if time_major:
             self._flat = self._flat_forest()
         else:
             host = build_packed_host_tables(rf) if host_tables is None else host_tables
@@ -843,9 +852,10 @@ class FlatForestEngine(_DeviceEngine):
         """Device atom packs for a HostPlan, with the window-independent root
         position-rank interval of every atom (searched once per plan, ever).
 
-        packed: per block, per LEVEL class (edge tree depth rounded up to
-        multiples of 3, so shallow-edge atoms never walk the deepest edge's
-        level count). fused / kernel: per block, per NPAD class
+        packed, search, cascade: per block, per LEVEL class (edge tree depth
+        rounded up to multiples of 3, so shallow-edge atoms never walk the
+        deepest edge's level count; only packed resolves root ranks). fused /
+        kernel: per block, per NPAD class
         (:meth:`_fused_pack`, :meth:`_kernel_pack`).
         """
         key = (plan.key, self.executor)
@@ -865,11 +875,16 @@ class FlatForestEngine(_DeviceEngine):
             for c in np.unique(cls):
                 sel = np.nonzero(cls == c)[0]
                 fa = self._device_atoms(atoms, sel)
+                if self.executor != "packed":  # search / cascade: no root ranks
+                    packs.append(dict(max_levels=int(c), fa=fa, m=len(sel),
+                                      seg=self._segments(atoms.lixel[sel])))
+                    continue
                 r_lo, r_hi = packed_root_ranks(
                     self._packed["pf"], fa, search_steps=self.search_steps
                 )
                 packs.append(
-                    dict(max_levels=int(c), fa=fa, m=len(sel), r_lo=r_lo, r_hi=r_hi)
+                    dict(max_levels=int(c), fa=fa, m=len(sel), r_lo=r_lo, r_hi=r_hi,
+                         seg=self._segments(atoms.lixel[sel]))
                 )
         self._pack_cache.put(key, packs)
         return packs
@@ -891,12 +906,11 @@ class FlatForestEngine(_DeviceEngine):
             fa = self._flat_atoms(
                 fields, np.broadcast_to(edges[:, None], fields["lixel"].shape)
             )
-            rows = self._as(np.flatnonzero(fields["valid"]), torch.int64)  # host: no sync
+            slots = np.flatnonzero(fields["valid"])  # the real atoms' [G·Qp] slots
             yield int(p), fa, dict(
                 edges=self._as(edges, torch.int64),
                 edges_host=np.asarray(edges, np.int64),  # host copy for range checks
-                rows=rows,
-                lixel=fa.lixel.index_select(0, rows),
+                seg=self._segments(fields["lixel"].reshape(-1)[slots], slots),
                 side=fa.side_feat.reshape(G, qp),
                 qs=(fa.qs * fa.valid[:, None]).reshape(G, qp, -1),
                 m=sub.m,
@@ -950,8 +964,8 @@ class FlatForestEngine(_DeviceEngine):
         packed / fused: q_t-folded paired node values (the plan's core hoist
         — every time search and every per-node prefix gather happens HERE,
         at node count scale, never per atom), stored in the codec's fold
-        dtype. kernel: the [3, W, E] time-rank boundary table shared by
-        every flush of the query.
+        dtype. kernel, search, cascade: the [3, W, E] time-rank boundary
+        table shared by every flush of the query.
         """
         key = (ts_key, self.executor, self.codec.name)
         hit = self._tab_cache.get(key)
@@ -959,7 +973,7 @@ class FlatForestEngine(_DeviceEngine):
             return hit
         W = len(ts_key)
         K = self.rf.ctx.K
-        if self.executor == "kernel":
+        if self._flat is not None:
             tabs = rank_boundaries(self._flat, wb, search_steps=self.search_steps)
             self.counters["rank_searches"] += 3 * W * self.rf.net.n_edges
             self._tab_cache.put(key, tabs)
@@ -1000,6 +1014,18 @@ class FlatForestEngine(_DeviceEngine):
         pk = self._packed
         for entry in packs:
             c, m = entry["max_levels"], entry["m"]
+            if self.executor in ("search", "cascade"):
+                cascade = self.executor == "cascade"
+                vals = eval_atoms_flat(self._flat, entry["fa"], wb, tabs, max_levels=c,
+                                       search_steps=self.search_steps, cascade=cascade)  # [Wh, M]
+                ops.segment_add(heat, vals.T, entry["seg"], halves=True)
+                # paired hi/lo prefix rows: cascade pays one stacked gather per
+                # (boundary, level); search two buckets of two rows per
+                # (half-window, level) — the reference's counts for these tiers
+                gathers = 2 * 3 * W * m * (c + 1) if cascade else 4 * 2 * W * m * c
+                self.counters["moment_gathers"] += gathers
+                self.counters["bytes_moved"] += gathers * 2 * self.rf.ctx.K * 8
+                continue
             if self.executor == "kernel":
                 _rfs_kernel_flush(self._flat, tabs, entry, wb, heat)
                 # two buckets of two [4, K] prefix rows per (half-window,
@@ -1014,8 +1040,7 @@ class FlatForestEngine(_DeviceEngine):
                     tabs, pk["node_base_lvl"], fa, entry["r_lo"], entry["r_hi"],
                     max_levels=c,
                 )  # [Wh, M]
-                per_win = vals[0::2] + vals[1::2]  # fold window halves
-                _scatter_add(heat, fa.lixel, per_win.T)
+                ops.segment_add(heat, vals.T, entry["seg"], halves=True)
             else:
                 _rfs_flush(tabs, entry, heat)
                 # ONE kernel launch answered the whole pack; the walk still
@@ -1027,15 +1052,16 @@ class FlatForestEngine(_DeviceEngine):
 
 
 # ===================================================================== DRFS
-def _dyn_plain_flush(forest, fa, wb, tables, heat, *, n_levels: int, hq: int,
+def _dyn_plain_flush(forest, fa, seg, wb, tables, heat, *, n_levels: int, hq: int,
                      scan_steps: int, pend_steps: int, exact: bool, tree: bool = True):
     """heat[L, W] += one atom block through :func:`eval_atoms_dyn` (all
-    three phases, or only the scans with ``tree=False``), in place."""
+    three phases, or only the scans with ``tree=False``), in place, window
+    halves folded by the fixed-order scatter over ``seg``."""
     vals = eval_atoms_dyn(
         forest, fa, wb, tables, n_levels=n_levels, hq=hq, scan_steps=scan_steps,
         pend_steps=pend_steps, exact=exact, tree=tree,
     )  # [Wh, M]
-    _scatter_add(heat, fa.lixel, (vals[0::2] + vals[1::2]).T)  # fold window halves
+    ops.segment_add(heat, vals.T, seg, halves=True)
 
 
 def dyn_kernel_call(forest, tab, entry, wb, *, hq: int, exact: bool, executor: str, index=None):
@@ -1063,14 +1089,13 @@ def dyn_kernel_call(forest, tab, entry, wb, *, hq: int, exact: bool, executor: s
 
 
 def _dyn_flush(forest, tab, index, entry, wb, heat, *, hq: int, exact: bool, executor: str):
-    """ONE kernel launch for the block's tree phase ([G, Qp, W]), scattered
-    onto heat [L, W] in place — only the real atoms' slots
-    (``entry["rows"]``)."""
+    """ONE kernel launch for the block's tree phase ([G, Qp, W]), added
+    onto heat [L, W] in place by the fixed-order scatter — only the real
+    atoms' slots (``entry["gseg"]``)."""
     name, args, kwargs = dyn_kernel_call(forest, tab, entry, wb, hq=hq, exact=exact,
                                          executor=executor, index=index)
     out = getattr(ops, name)(*args, **kwargs)
-    flat = out.reshape(-1, heat.shape[1])
-    _scatter_add(heat, entry["lixel"], flat.index_select(0, entry["rows"]))
+    ops.segment_add(heat, out.reshape(-1, heat.shape[1]), entry["gseg"])
 
 
 class _SealedPack:
@@ -1341,7 +1366,8 @@ class FlatDynamicEngine(_DeviceEngine):
             return hit
         packs = []
         for atoms in plan.blocks:
-            entry = dict(fa=self._device_atoms(atoms, np.arange(atoms.m)), atoms=atoms, m=atoms.m)
+            entry = dict(fa=self._device_atoms(atoms, np.arange(atoms.m)), atoms=atoms, m=atoms.m,
+                         seg=self._segments(atoms.lixel))
             if self.executor != "packed":
                 _, cnt = np.unique(atoms.edge, return_counts=True)
                 qp = _size_class(int(cnt.max(initial=1)), floor=16)
@@ -1350,15 +1376,14 @@ class FlatDynamicEngine(_DeviceEngine):
                 gfa = self._flat_atoms(
                     fields, np.broadcast_to(edges[:, None], fields["lixel"].shape)
                 )
-                rows = self._as(np.flatnonzero(fields["valid"]), torch.int64)  # host: no sync
+                slots = np.flatnonzero(fields["valid"])  # the real atoms' [G·Qp] slots
                 entry.update(
                     edges=self._as(edges, torch.int64),
                     edges_host=np.asarray(edges, np.int64),  # host copy for range checks
                     index={},  # (hq, exact) -> FlatIndex, built by tree_table
                     gfa=gfa,
-                    # flat [G·Qp] slots of the real atoms, and their lixels
-                    rows=rows,
-                    lixel=gfa.lixel.index_select(0, rows),
+                    # the fixed-order scatter over the real atoms' slots
+                    gseg=self._segments(fields["lixel"].reshape(-1)[slots], slots),
                     side=gfa.side_feat.reshape(G, qp),
                     qs=(gfa.qs * gfa.valid[:, None]).reshape(G, qp, -1),
                 )
@@ -1436,7 +1461,7 @@ class FlatDynamicEngine(_DeviceEngine):
             self.counters["moment_gathers"] += gathers
             self.counters["bytes_moved"] += gathers * row_bytes
             if self.executor == "packed":
-                _dyn_plain_flush(forest, entry["fa"], wb, tables, heat, **scan_kw)
+                _dyn_plain_flush(forest, entry["fa"], entry["seg"], wb, tables, heat, **scan_kw)
                 continue
             # tree phase: ONE kernel launch; scans stay in plain torch
             tab, index = self.tree_table(tables, entry, hq=int(hq), exact=exact)
@@ -1445,5 +1470,6 @@ class FlatDynamicEngine(_DeviceEngine):
             if self.executor == "fused":
                 self.counters["fused_launches"] += 1
             if scan_steps or pend.pend_steps:
-                _dyn_plain_flush(forest, entry["fa"], wb, (), heat, tree=False, **scan_kw)
+                _dyn_plain_flush(forest, entry["fa"], entry["seg"], wb, (), heat, tree=False,
+                                 **scan_kw)
         return heat

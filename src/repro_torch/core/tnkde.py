@@ -31,15 +31,27 @@ a level (``extend``) and answers against pinned snapshots
 ``executor`` picks the device executor over the packed query plan:
 'packed' (plain torch, what 'auto' resolves to), 'fused' (ONE
 hand-written CUDA launch per atom block: ``fused_walk`` for rfs and DRFS
-exact mode, ``fused_leaf`` for DRFS quantized mode; DESIGN.md §12) or
+exact mode, ``fused_leaf`` for DRFS quantized mode; DESIGN.md §12),
 'kernel' (the per-bucket-search tier, ONE hand-written CUDA launch per atom
-block: ``tree_query`` over time-major grouped tables for rfs,
-``dyn_leaf_query`` over materialised query vectors for DRFS quantized mode,
-``dyn_node_walk`` for DRFS exact mode). 'kernel' is this package's name for
-the reference's ``executor='pallas'``, which raises ``ValueError`` here.
-Every query reuses the plan cached for its (epoch, LS) pair — warm queries
-skip planning entirely — and window-side tables cached by the ts tuple
-(DESIGN.md §7).
+block: ``tree_query`` over the time-major flat forest for rfs,
+``dyn_leaf_query_flat`` for DRFS quantized mode, ``dyn_node_walk_flat`` for
+DRFS exact mode), or, rfs only, 'search' / 'cascade' (the reference's
+per-bucket binary searches and fractional-cascading walk over the
+time-major forest, plain torch; ``cascade=False`` builds no bridges, and
+'cascade' then runs 'search', as the reference does). 'kernel' is this
+package's name for the reference's ``executor='pallas'``, which raises
+``ValueError`` here. Every flush ends in the fixed-order scatter
+(``ops.segment_add``), so a window's answer does not depend on the flush it
+rode in. Every query reuses the plan cached for its (epoch, LS) pair — warm
+queries skip planning entirely — and window-side tables cached by the ts
+tuple (DESIGN.md §7).
+
+``mesh`` (a ``distributed.ShardMesh``) shards the forest index across the
+mesh's ``shard_axes`` (DESIGN.md §3): the packed executor runs per shard
+slab and the per-shard heatmap deltas are summed in shard order, so sharded
+== single-host to summation-order noise, and ``QueryStats.bytes_per_shard``
+reports the heaviest shard. rfs/drfs, the packed executor and f64 tables
+only; ``engine_desc`` reads ``torch/packed@shards=N``.
 
 Durability (DESIGN.md §8): ``attach_wal`` logs every mutation of a DRFS
 index to a :class:`wal.WriteAheadLog` before it applies, ``checkpoint``
@@ -60,9 +72,7 @@ and fall back to f64 in place when they cannot hold the index
 ``executor='kernel'`` reads the raw f64 forest, so the codec does not reach
 it; ``engine='numpy'`` ignores it.
 
-What the reference package (``repro.core.tnkde``) serves and this one does
-not yet raises ``NotImplementedError`` naming its ROADMAP.md queue item —
-never a silent different path.
+Everything the reference's ``TNKDE`` serves, this one serves.
 """
 from __future__ import annotations
 
@@ -71,6 +81,7 @@ import time as _time
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .ada import AggregateDistanceIndex
 from .aggregation import build_event_moments
@@ -94,13 +105,6 @@ from .sps import sps_eval_edge
 from . import wal as _wal
 
 __all__ = ["TNKDE", "PendingQuery", "QueryStats"]
-
-# arguments and methods of the reference that later slices of the port bring
-_LATER = {
-    "mesh": "mesh= (sharded forest): ROADMAP.md Queue A8",
-    "search": "executor='search' (legacy executor): ROADMAP.md Queue A5",
-    "cascade": "executor='cascade' (legacy executor): ROADMAP.md Queue A5",
-}
 
 
 @dataclasses.dataclass
@@ -129,7 +133,9 @@ class QueryStats:
     # gathered-row bytes, same units for every engine/executor and the same
     # formulas as the reference package (hardware-independent).
     bytes_moved: int = 0
-    # device bytes the engine holds (index tables + cached packed plans)
+    # device bytes each participating shard holds (index tables + cached
+    # packed plans): the whole engine on one device, the heaviest slab of a
+    # sharded engine — the measured form of the 1/shards memory scaling
     bytes_per_shard: int = 0
 
 
@@ -149,6 +155,7 @@ class TNKDE:
         executor: str = "auto",
         table_codec: str = "auto",
         mesh=None,
+        shard_axes: Sequence[str] = ("data",),
         lixel_sharing: bool = False,
         cascade: bool = True,
         drfs_depth: int = 8,
@@ -171,14 +178,23 @@ class TNKDE:
         if executor == "pallas":
             raise ValueError("executor='pallas' is the reference package's name: this "
                              "package serves that tier as executor='kernel'")
-        if executor in ("search", "cascade"):
-            raise NotImplementedError(_LATER[executor])
-        if executor not in ("auto", "packed", "fused", "kernel"):
+        if executor not in ("auto", "packed", "fused", "kernel", "search", "cascade"):
             raise ValueError(f"unknown executor {executor!r}")
         if table_codec not in ("auto", "f64", "f32", "bf16"):
             raise ValueError(f"unknown table_codec {table_codec!r}")
         if mesh is not None:
-            raise NotImplementedError(_LATER["mesh"])
+            if solution not in ("rfs", "drfs"):
+                raise ValueError("mesh= shards the forest indexes (rfs/drfs)")
+            if engine == "numpy" or executor in ("search", "cascade", "fused", "kernel"):
+                raise ValueError(
+                    "the sharded path runs the packed torch executor "
+                    "(engine='torch'/'auto', executor='packed'/'auto')"
+                )
+            if table_codec not in ("auto", "f64"):
+                raise ValueError("the sharded path keeps f64 slabs (table_codec='auto'/'f64')")
+            if {d.type for d in mesh.devices} != {torch.device(device).type}:
+                raise ValueError(f"mesh devices {[str(d) for d in mesh.devices]} are not of "
+                                 f"device={str(device)!r}, where degrade() rebuilds the model")
         if lixel_sharing and solution == "sps":
             raise ValueError("lixel sharing needs an aggregation index (ada/rfs/drfs)")
         if horizon_s is not None:
@@ -216,6 +232,8 @@ class TNKDE:
             )
         elif solution == "ada":
             self.index = AggregateDistanceIndex(net, self.ee, self.ctx)
+        self.mesh = mesh
+        self.shard_axes = tuple(shard_axes)
         self._engine_req = engine
         self._executor_req = executor
         self.table_codec = table_codec
@@ -271,7 +289,14 @@ class TNKDE:
         path."""
         self.engine = "numpy"
         self._fe = None
-        if self.solution in ("rfs", "drfs") and self._engine_req != "numpy":
+        if self.mesh is not None:
+            # sharding is explicit: never a silent single-device engine
+            from .distributed import ShardedDynamicEngine, ShardedForestEngine
+
+            cls = ShardedForestEngine if self.solution == "rfs" else ShardedDynamicEngine
+            self._fe = cls(self.index, self.mesh, self.shard_axes)
+            self.engine = "torch"
+        elif self.solution in ("rfs", "drfs") and self._engine_req != "numpy":
             from .rfs import FlatDynamicEngine, FlatForestEngine
 
             cls = FlatForestEngine if self.solution == "rfs" else FlatDynamicEngine
@@ -281,8 +306,10 @@ class TNKDE:
         self._plan_cache = PlanCache(2)
 
     def degrade(self) -> Optional[str]:
-        """Trip one rung down the executor ladder ``torch/fused`` (or
-        ``torch/kernel``) → ``torch/packed`` → ``numpy`` (DESIGN.md §8).
+        """Trip one rung down the executor ladder ``torch/packed@shards=N`` →
+        ``torch/fused`` (or ``torch/kernel``) → ``torch/packed`` → ``numpy``
+        (DESIGN.md §8): a sharded model first drops its mesh for the
+        single-device packed executor on ``device``, as in the reference.
 
         Returns the new ``engine_desc``, or ``None`` when already on the
         floor. On the card the floor is ``torch/packed``: the ``numpy`` rung
@@ -295,7 +322,10 @@ class TNKDE:
         """
         if self._fe is None:
             return None
-        if self._fe.executor in ("fused", "kernel"):
+        if self.mesh is not None:
+            self.mesh = None
+            self._engine_req, self._executor_req = "torch", "packed"
+        elif self._fe.executor in ("fused", "kernel", "search", "cascade"):
             self._engine_req, self._executor_req = "torch", "packed"
         elif self._fe.device.type != "cpu":
             return None
@@ -313,10 +343,13 @@ class TNKDE:
     def engine_desc(self) -> str:
         """Human-readable backend/executor that actually answers queries,
         e.g. ``'torch/fused'``, ``'torch/kernel'``, ``'torch/packed'`` or
-        ``'numpy'``."""
+        ``'numpy'``; a sharded engine appends ``@shards=N``."""
         if self._fe is None:
             return "numpy"
-        return f"{self.engine}/{self._fe.executor}"
+        desc = f"{self.engine}/{self._fe.executor}"
+        if self.mesh is not None:
+            desc += f"@shards={self._fe.n_shards}"
+        return desc
 
     @property
     def table_codec_used(self):

@@ -64,6 +64,7 @@ __all__ = [
     "dyn_node_tables",
     "dyn_window_tables",
     "eval_atoms_dyn",
+    "eval_atoms_flat",
     "eval_atoms_packed",
     "packed_forest_from_numpy",
     "packed_node_tables",
@@ -311,18 +312,26 @@ def packed_forest_from_numpy(host: dict, device):
     return pf, meta
 
 
+def _take(table, idx):
+    """``table[idx]`` with idx clamped into [0, len - 1], as jnp gathers clamp."""
+    return table[idx.clamp(0, table.shape[0] - 1)]
+
+
 def _seg_search(vals, seg_lo, seg_hi, q, right, steps: int):
     """Branch-free binary search of q within vals[seg_lo:seg_hi], batched
     over arbitrary leading dims (all args broadcast to a common shape).
     ``steps`` fixed trips; a finished lane (lo == hi) reads vals[0] and
-    keeps its state, so ±inf pads search to the segment end."""
+    keeps its state, so ±inf pads search to the segment end. The gather is
+    clamped into ``vals`` (as jnp gathers clamp): the dead lanes of the
+    search executors may hold bounds outside the table, and their answers
+    are masked off."""
     lo, hi, q, right = torch.broadcast_tensors(seg_lo, seg_hi, q, right)
     lo, hi = lo.clone(), hi.clone()
     zero = torch.zeros((), dtype=lo.dtype, device=lo.device)
     for _ in range(steps):
         live = lo < hi
         mid = (lo + hi) >> 1
-        v = vals[torch.where(live, mid, zero)]
+        v = _take(vals, torch.where(live, mid, zero))
         go = torch.where(right, v <= q, v < q) & live
         lo, hi = torch.where(go, mid + 1, lo), torch.where(go | ~live, hi, mid)
     return lo
@@ -352,6 +361,176 @@ def rank_boundaries(forest: FlatForest, wb: WindowBatch, *, search_steps: int):
     r_b = _seg_search(forest.time_flat, s_lo, tp[1:][None, None, :],
                       t_b[..., None], right_b[..., None], search_steps) - s_lo
     return r_b.to(torch.int32)
+
+
+# ======================================================= search / cascade
+# The two time-major executors of the reference (``executor='search'`` and
+# ``'cascade'``): plain torch on the flat forest, no kernel. Every gather
+# index is clamped into its table where the reference's gathers clamp
+# (lanes whose answer is masked off may point past a table's end).
+def _pref_diff(table, combo, seg_lo, i_lo, i_hi, on):
+    """Masked per-bucket moment difference prefix(i_hi) − prefix(i_lo): [..., C].
+
+    ``table [T, n_combo, C]``; seg_lo/i_lo/i_hi/on broadcast to a common
+    shape, ``combo`` into the gather. The hi and lo prefix rows ride one
+    stacked gather. Emits moment vectors: the engines accumulate them across
+    levels and contract with q_s ⊗ q_t once at the end."""
+    i_hi = torch.maximum(i_hi, i_lo)
+    ii = torch.stack(torch.broadcast_tensors(i_hi, i_lo))  # [2, ...]
+    row = (ii - 1).clamp(0, table.shape[0] - 1)
+    v = table[row, combo.expand(ii.shape[1:])[None].expand(ii.shape)]  # [2, ..., C]
+    v = torch.where((ii > seg_lo[None])[..., None], v, 0.0)
+    return torch.where(on[..., None], v[0] - v[1], 0.0)
+
+
+def _contract(mom, qs, qt):
+    """Factored query contraction Σ_(s,t) (q_s[m, s]·q_t[w, t])·mom[w, m, s, t]:
+    [W', M] from ``mom [W', M, k_s·k_t]``, ``qs [M, k_s]``, ``qt [W', k_t]``.
+    Unrolled multiply-adds in a fixed (s, t) order, s-major (see the module
+    note on duplicate window centers)."""
+    k_s, k_t = qs.shape[1], qt.shape[1]
+    m4 = mom.reshape(mom.shape[:-1] + (k_s, k_t))
+    val = None
+    for s in range(k_s):
+        for t in range(k_t):
+            term = (qs[None, :, s] * qt[:, None, t]) * m4[..., s, t]
+            val = term if val is None else val + term
+    return val
+
+
+def _engine_search(forest: FlatForest, atoms: FlatAtoms, wb: WindowBatch, combo, r_lo, r_hi,
+                   *, max_levels: int, search_steps: int):
+    """Canonical ≤2-buckets-per-level decomposition with three position
+    searches per bucket (the reference's ``executor='search'``): [Wh, M].
+
+    Per level the left bucket ``l`` and the right bucket ``r − 1`` are
+    searched together (their bounds do not depend on each other's emission)
+    in one stacked search of ``min(search_steps, lev + 1)`` trips — a bucket
+    of 2^lev rows needs no more, and the trips beyond are no-ops — and
+    added in the reference's order (left, then right)."""
+    Wh, M = r_lo.shape
+    eid = atoms.edge
+    base = forest.edge_base[eid][None]
+    npad = forest.n_pad[eid][None]
+    q = torch.stack([atoms.pos_hi, atoms.pos_lo1, atoms.pos_lo2])[:, None, None]  # [3,1,1,M]
+    ones = torch.ones_like(atoms.lo1_right)
+    right = torch.stack([ones, atoms.lo1_right, ~ones])[:, None, None]
+    K = forest.cum_flat.shape[-1]
+    mom = torch.zeros((Wh, M, K), dtype=forest.cum_flat.dtype, device=eid.device)
+    l = r_lo.to(torch.int64)
+    r = r_hi.to(torch.int64)
+    for lev in range(max_levels):
+        b = torch.stack([l, r - 1])  # [2, Wh, M]
+        seg_lo = base + lev * npad + (b << lev)
+        seg_hi = seg_lo + (1 << lev)
+        i = _seg_search(forest.pos_flat, seg_lo[None], seg_hi[None], q, right,
+                        min(search_steps, lev + 1))  # [3, 2, Wh, M]
+        i_lo = torch.maximum(i[1], i[2])
+        active = l < r
+        emit_l = active & ((l & 1) == 1)
+        mom = mom + _pref_diff(forest.cum_flat, combo, seg_lo[0], i_lo[0], i[0][0], emit_l)
+        l = torch.where(emit_l, l + 1, l)
+        emit_r = (l < r) & ((r & 1) == 1)
+        mom = mom + _pref_diff(forest.cum_flat, combo, seg_lo[1], i_lo[1], i[0][1], emit_r)
+        r = torch.where(emit_r, r - 1, r)
+        l, r = l >> 1, r >> 1
+    return _contract(mom, atoms.qs, wb.qt)
+
+
+def _engine_cascade(forest: FlatForest, atoms: FlatAtoms, wb: WindowBatch, ranks, *,
+                    max_levels: int, search_steps: int):
+    """Prefix-path walks over the cascade bridges, one per window BOUNDARY
+    (the reference's ``executor='cascade'``): [Wh, M].
+
+    Each center w contributes three rank boundaries (lo, mid, hi); the
+    half-window aggregates are prefix differences, left = G(mid) − G(lo) and
+    right = G(hi) − G(mid). The position bounds are binary-searched once per
+    atom in the root bucket (window independent; the two lower bounds
+    collapse to one rank there), and each walk step pays two bridge gathers
+    and one paired prefix-moment gather (``cum`` viewed as [T, side, 2K]).
+    G(k) emits the fully covered left children along the path of rank k,
+    plus the root when k == npad and the leaf itself when the path bottoms
+    out on an odd rank."""
+    Wh = wb.t_lo.shape[0]
+    W = Wh // 2
+    M = atoms.edge.shape[0]
+    K = forest.cum_flat.shape[-1]
+    dev = atoms.edge.device
+    eid = atoms.edge
+    base = forest.edge_base[eid]  # [M]
+    npad = forest.n_pad[eid]
+    nlev = forest.n_lev[eid]
+    top = (nlev - 1).clamp_min(0)
+    k = ranks[:, :, eid].to(torch.int64)  # [3, W, M]
+
+    # ---- window-independent: root-bucket position searches ---------------
+    root_lo = base + top * npad
+    q = torch.stack([atoms.pos_hi, atoms.pos_lo1, atoms.pos_lo2])
+    ones = torch.ones(M, dtype=torch.bool, device=dev)
+    right = torch.stack([ones, atoms.lo1_right, ~ones])
+    j = _seg_search(forest.pos_flat, root_lo[None], (root_lo + npad)[None], q, right,
+                    search_steps)  # [3, M]
+    root_loc = torch.stack([j[0], torch.maximum(j[1], j[2])]) - root_lo[None]  # [2, M]
+
+    cum2 = forest.cum_flat.reshape(-1, 2, 2 * K)
+    side = atoms.side_feat.to(torch.int64)[None, None]  # [1, 1, M]
+    npb = npad[None, None]
+    bsb = base[None, None]
+    full0 = (npb > 0) & (k == npb)
+    s_root = root_lo[None, None]
+    mom = _pref_diff(cum2, side, s_root, s_root + root_loc[1][None, None],
+                     s_root + root_loc[0][None, None], full0)  # [3, W, M, 2K]
+    zero = torch.zeros((3, W, M), dtype=torch.int64, device=dev)
+    lev = top[None, None] + zero
+    node = zero
+    loc = root_loc[:, None, None, :] + zero[None]  # [2, 3, W, M] local (hi, lo) ranks
+    active = (npb > 0) & (k > 0) & ~full0
+    one = torch.ones_like(lev)
+    for _ in range(max_levels):
+        a0 = node << lev
+        active = active & (k > a0)  # the boundary landed on a node edge: done
+        half = (one << lev) >> 1
+        go_right = active & (lev > 0) & (k >= a0 + half)
+        nf = bsb + lev * npb + a0  # the parent bucket's flat offset
+        bl = torch.where(loc > 0, _take(forest.bridge, nf[None] + (loc - 1).clamp_min(0)), 0)
+        bl = bl.to(torch.int64)
+        emit_leaf = active & (lev == 0)
+        on = go_right | emit_leaf
+        s_emit = torch.where(emit_leaf, nf, nf - npb)  # the left child starts at a0
+        hi_loc = torch.where(emit_leaf, loc[0], bl[0])
+        lo_loc = torch.where(emit_leaf, loc[1], bl[1])
+        mom = mom + _pref_diff(cum2, side, s_emit, s_emit + lo_loc, s_emit + hi_loc, on)
+        desc = active & (lev > 0)
+        loc = torch.where(desc[None], torch.where(go_right[None], loc - bl, bl), loc)
+        node = torch.where(desc, (node << 1) + go_right.to(torch.int64), node)
+        lev = torch.where(desc, lev - 1, lev)
+        active = active & ~emit_leaf
+    val_l = _contract((mom[1] - mom[0])[..., :K], atoms.qs, wb.qt[0::2])
+    val_r = _contract((mom[2] - mom[1])[..., K:], atoms.qs, wb.qt[1::2])
+    return torch.stack([val_l, val_r], dim=1).reshape(Wh, M)
+
+
+def eval_atoms_flat(forest: FlatForest, atoms: FlatAtoms, wb: WindowBatch, ranks, *,
+                    max_levels: int, search_steps: int, cascade: bool = False):
+    """Per-atom aggregated Q·A for every half-window over the time-major
+    flat forest (the ``search`` / ``cascade`` executors): [Wh, M].
+
+    Callers fold the two halves of each center and scatter the M axis onto
+    lixels. Requires the paired ``make_window_batch`` row layout; ``ranks``
+    is the :func:`rank_boundaries` table [3, W, E] of the window batch."""
+    if cascade:
+        acc = _engine_cascade(forest, atoms, wb, ranks, max_levels=max_levels,
+                              search_steps=search_steps)
+    else:
+        Wh = wb.t_lo.shape[0]
+        M = atoms.edge.shape[0]
+        k = ranks[:, :, atoms.edge].to(torch.int64)  # [3, W, M]
+        r_lo = torch.stack([k[0], k[1]], dim=1).reshape(Wh, M)
+        r_hi = torch.stack([k[1], k[2]], dim=1).reshape(Wh, M)
+        combo = atoms.side_feat.to(torch.int64)[None, :] * 2 + wb.half.to(torch.int64)[:, None]
+        acc = _engine_search(forest, atoms, wb, combo, r_lo, r_hi, max_levels=max_levels,
+                             search_steps=search_steps)
+    return torch.where(atoms.valid[None, :], acc, 0.0)
 
 
 def packed_root_ranks(pf: PackedForest, atoms: FlatAtoms, *, search_steps: int):

@@ -1,3 +1,4 @@
+from .elastic import ElasticPlan, plan_degraded_mesh  # noqa: F401
 from .faults import (  # noqa: F401
     KillPoint,
     crash_checkpoint_save,
@@ -8,4 +9,4 @@ from .faults import (  # noqa: F401
     stall_replica,
     tear_wal_tail,
 )
-from .watchdog import StepWatchdog  # noqa: F401
+from .watchdog import StepWatchdog, PreemptionHandler  # noqa: F401

@@ -1,18 +1,21 @@
-"""Straggler / stall detection.
+"""Straggler / stall detection and preemption handling.
 
 StepWatchdog keeps a rolling window of step wall-times; a step beyond
 ``zmax`` sigmas (or ``hard_timeout``) flags a straggler — the serve tier
-counts it and the router marks the replica SUSPECT. The reference's
-PreemptionHandler and elastic re-meshing (``ft/elastic.py``) have no caller
-on one card; they come with multi-card serving (ROADMAP.md Queue A8).
+counts it and the router marks the replica SUSPECT. PreemptionHandler turns
+SIGTERM (a cloud's preemption warning) into a final synchronous checkpoint
+and an exit-intent flag, so a restart loses no step; on one card it has no
+caller, and is kept so that ``ft/`` matches the reference.
 """
 from __future__ import annotations
 
+import signal
+import threading
 import time
 from collections import deque
-from typing import Deque, Optional
+from typing import Callable, Deque, Optional
 
-__all__ = ["StepWatchdog"]
+__all__ = ["StepWatchdog", "PreemptionHandler"]
 
 
 class StepWatchdog:
@@ -50,3 +53,26 @@ class StepWatchdog:
         self.times.append(dt)
         self.flags += int(straggler)
         return straggler
+
+
+class PreemptionHandler:
+    """SIGTERM -> on_preempt() (checkpoint) -> exit-intent flag."""
+
+    def __init__(self, on_preempt: Callable[[], None]):
+        self.requested = threading.Event()
+        self._cb = on_preempt
+        self._installed = False
+
+    def install(self):
+        def handler(signum, frame):
+            self.requested.set()
+
+        signal.signal(signal.SIGTERM, handler)
+        self._installed = True
+
+    def poll(self) -> bool:
+        """Call between steps; runs the checkpoint callback once if preempted."""
+        if self.requested.is_set():
+            self._cb()
+            return True
+        return False

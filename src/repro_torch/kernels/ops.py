@@ -15,7 +15,9 @@ wrappers: ``fused_walk`` (the grouped JAX contract) and ``fused_walk_flat``
 count in ``fused_leaf.launches``, ``dyn_leaf_query_flat`` (the kernel
 executor's quantized flush) in ``dyn_leaf_query.launches``.
 ``dyn_leaf_query`` keeps the reference's grouped contract with materialised
-query vectors on ``csrc/dyn_leaf_query.cu``.
+query vectors on ``csrc/dyn_leaf_query.cu``. ``segment_add``
+(``csrc/segment_add.cu``, counted in ``segment_add.launches``) is the
+fixed-order scatter that ends every flush; it has no TPU counterpart.
 
 The flat walk and leaf wrappers take the window table in the storage dtype
 of the engine's table codec — float64, float32 or bfloat16 for the walk
@@ -47,11 +49,13 @@ from .fused_walk import (
 )
 from .flash_attention import HEAD_DIMS, LOG2E, check_seq_len, flash_attention_ref, flash_library
 from .minplus import minplus_library, minplus_matmul_ref, minplus_vec
+from .segment_add import SegmentIndex, segment_add_library, segment_add_ref, segment_index
 from .tree_query import tree_query_library, tree_query_ref
 
 __all__ = ["FlatIndex", "dyn_leaf_query", "dyn_leaf_query_flat", "dyn_node_walk",
            "dyn_node_walk_flat", "flash_attention", "fused_leaf", "fused_leaf_flat", "fused_walk",
-           "fused_walk_flat", "leaf_index", "minplus_matmul", "tree_query", "walk_index"]
+           "fused_walk_flat", "leaf_index", "minplus_matmul", "segment_add", "segment_index",
+           "tree_query", "walk_index"]
 
 # the table dtypes each kernel source is instantiated for, by the suffix of
 # its C entry (the walk: every fold dtype of the table codec; the leaf: the
@@ -654,3 +658,54 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
 
 
 flash_attention.launches = 0
+
+
+def segment_add(heat, src, index: SegmentIndex, *, halves: bool = False) -> torch.Tensor:
+    """Fixed-order scatter of one pack's rows onto the heatmap, in place (see
+    segment_add.py): ``heat[lixel[u], w] += Σ x(rows[i], w)`` over each
+    segment of ``index`` in plan order; returns ``heat``.
+
+    ``heat [L, W]`` float64 contiguous; ``src [N, C]`` float64 with any
+    strides (C = W, or 2W half-window columns folded pairwise with
+    ``halves``); ``index`` from :func:`segment_index`, on the same device.
+    Counts in ``segment_add.launches``. Launches on the current stream and
+    does not synchronise.
+    """
+    if heat.device.type == "cpu":
+        return segment_add_ref(heat, src, index, halves=halves)
+    if heat.device.type != "cuda":
+        raise ValueError(f"segment_add: unsupported device {heat.device}")
+    if heat.dim() != 2 or src.dim() != 2:
+        raise ValueError("segment_add: heat must be [L, W] and src [N, C]")
+    L, W = (int(d) for d in heat.shape)
+    N, C = (int(d) for d in src.shape)
+    if C != (2 * W if halves else W):
+        raise ValueError(f"segment_add: src has {C} columns for {W} windows"
+                         + (" (half-window pairs)" if halves else ""))
+    if index.src_rows > N:
+        raise ValueError(f"segment_add: the index reads source rows up to {index.src_rows}, "
+                         f"but src has {N}")
+    dev = heat.device
+    _check("segment_add", "heat", heat, torch.float64, (L, W), dev)
+    if src.device != dev or src.dtype != torch.float64:
+        raise ValueError(f"segment_add: src must be float64 on {dev}, got {src.dtype} on "
+                         f"{src.device}")
+    U = index.n_segs
+    _check("segment_add", "rows", index.rows, torch.int64, (index.n_rows,), dev)
+    _check("segment_add", "seg_ptr", index.seg_ptr, torch.int64, (U + 1,), dev)
+    _check("segment_add", "lixel", index.lixel, torch.int64, (U,), dev)
+    if U == 0 or W == 0:
+        return heat  # nothing to launch
+    ld, sc = (int(x) for x in src.stride())
+    err = segment_add_library().segment_add_f64(
+        heat.data_ptr(), W, src.data_ptr(), ld, 2 * sc if halves else sc, sc if halves else 0,
+        index.rows.data_ptr(), index.seg_ptr.data_ptr(), index.lixel.data_ptr(), U, W,
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"segment_add: kernel launch failed (cudaError {err})")
+    segment_add.launches += 1
+    return heat
+
+
+segment_add.launches = 0

@@ -1,0 +1,116 @@
+"""Fixed-order scatter of a flush's per-atom rows onto the [L, W] heatmap.
+
+Every flush of every executor ends by adding its atoms' rows (one row per
+atom, one column per window) onto the heatmap rows of their lixels. The
+order of those additions decides the bits of the answer, so it is fixed
+here, once per atom pack and independent of any window: the pack's real
+rows are stably sorted by lixel (:func:`segment_index`), and each (unique
+lixel, window column) adds its rows in plan order onto the heatmap's
+value, one rounding per add. The answer for a window therefore does not
+depend on the flush's width, its batchmates or the PyTorch release, and
+equals a sequential scatter of the rows in atom order.
+
+``csrc/segment_add.cu`` computes it on the card with one thread per (unique
+lixel, column): the lixels of one call are unique, so there are no atomics.
+It was added by the port and has no TPU counterpart. This module holds the
+segment index, the plain PyTorch version (:func:`segment_add_ref`: a loop
+over the k-th row of every segment at once, the same additions in the same
+order, so on the card it is bitwise the kernel's) and the ``ctypes`` binding
+of the kernel. The launching wrapper, with its checks and launch count, is
+:func:`repro_torch.kernels.ops.segment_add`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+__all__ = ["SegmentIndex", "segment_index", "segment_add_ref", "segment_add_library"]
+
+
+class SegmentIndex(NamedTuple):
+    """One atom pack's rows grouped by lixel, in plan order within a lixel.
+
+    ``rows [M]`` the source row of each real row (sorted by lixel, stable),
+    ``seg_ptr [U+1]`` the CSR bounds of each unique lixel's rows in ``rows``,
+    ``lixel [U]`` the unique lixels, all int64 on the pack's device; the
+    host ints are the longest segment (the plain version's trip count), and
+    one past the largest source row (what the wrapper checks the source's
+    row count against, without reading the card)."""
+
+    rows: torch.Tensor
+    seg_ptr: torch.Tensor
+    lixel: torch.Tensor
+    max_len: int
+    src_rows: int
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.rows.shape[0])
+
+    @property
+    def n_segs(self) -> int:
+        return int(self.lixel.shape[0])
+
+
+def segment_index(lixel, slots=None, *, device) -> SegmentIndex:
+    """The :class:`SegmentIndex` of a pack from host arrays: ``lixel [M]`` the
+    lixel of each real row in plan order, ``slots [M]`` the row of the flush's
+    output that holds it (default: row m). Padding rows are simply not
+    listed: they belong to no segment. Host work only; the uploads do not
+    wait for the card."""
+    lixel = np.asarray(lixel, np.int64).reshape(-1)
+    slots = (np.arange(len(lixel), dtype=np.int64) if slots is None
+             else np.asarray(slots, np.int64).reshape(-1))
+    if slots.shape != lixel.shape:
+        raise ValueError(f"segment_index: {slots.shape[0]} slots for {lixel.shape[0]} lixels")
+    order = np.argsort(lixel, kind="stable")
+    uniq, start = np.unique(lixel[order], return_index=True)
+    ptr = np.append(start, len(lixel)).astype(np.int64)
+
+    def up(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int64)).to(device, non_blocking=True)
+
+    return SegmentIndex(rows=up(slots[order]), seg_ptr=up(ptr), lixel=up(uniq),
+                        max_len=int(np.diff(ptr).max(initial=0)),
+                        src_rows=int(slots.max(initial=-1)) + 1)
+
+
+def segment_add_ref(heat: torch.Tensor, src: torch.Tensor, index: SegmentIndex, *,
+                    halves: bool = False) -> torch.Tensor:
+    """``heat[lixel[u], w] += Σ_i x(rows[i], w)`` over each segment, in plan
+    order, in place; returns ``heat``. ``src [N, C]`` float64 (any strides)
+    holds the rows; ``x(r, w) = src[r, w]``, or with ``halves`` (C = 2W, the
+    half-window row order) ``src[r, 2w] + src[r, 2w + 1]``. Plain PyTorch:
+    trip k adds the k-th row of every segment that has one, all segments and
+    columns at once."""
+    if index.n_rows == 0 or heat.shape[1] == 0:
+        return heat
+    v = src.index_select(0, index.rows)  # [M, C] in segment order
+    if halves:
+        v = v[:, 0::2] + v[:, 1::2]
+    start = index.seg_ptr[:-1]
+    length = index.seg_ptr[1:] - start
+    acc = heat.index_select(0, index.lixel)  # [U, W]
+    last = index.n_rows - 1
+    for k in range(index.max_len):
+        row = v.index_select(0, (start + k).clamp_max(last))
+        acc = torch.where((k < length)[:, None], acc + row, acc)
+    heat.index_copy_(0, index.lixel, acc)
+    return heat
+
+
+def segment_add_library(*, verbose: bool = False) -> ctypes.CDLL:
+    """The compiled ``csrc/segment_add.cu``, built at first use, with the
+    argument types of ``segment_add_f64`` set."""
+    from ._build import load_library
+
+    lib = load_library("segment_add", verbose=verbose)
+    fn = lib.segment_add_f64
+    if fn.argtypes is None:
+        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.argtypes = [p, ll, p, ll, ll, ll, p, p, p, ll, i, i, p]
+        fn.restype = i
+    return lib

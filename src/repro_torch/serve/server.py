@@ -173,6 +173,8 @@ class TNKDEServer:
         batch_cap: int = 8,
         window_cap: int = 16,
         cache_rows: int = 4096,
+        mesh=None,
+        shard_axes=("data",),
         max_queued: Optional[int] = None,
         default_deadline_s: Optional[float] = None,
         degrade_after: Optional[int] = None,
@@ -193,9 +195,12 @@ class TNKDEServer:
         continuous core and are ignored under ``'microbatch'``;
         ``batch_cap`` is the micro-batcher's per-batch request cap.
 
-        ``device`` is passed to every profile's model. The reference's
-        ``mesh``/``shard_axes`` (sharded profiles) are not part of this
-        package yet (ROADMAP.md Queue A8).
+        ``device`` is passed to every profile's model. ``mesh`` (a
+        ``core.distributed.ShardMesh``) shards every profile's forest index
+        across the mesh's ``shard_axes`` (DESIGN.md §3): batched,
+        epoch-pinned queries then answer from the sharded packed engines —
+        the MVCC pins work unchanged because the sharded DRFS engine packs
+        per snapshot epoch exactly like the single-device one.
 
         ``degrade_after`` is the number of consecutive failed flushes of a
         profile after which the server trips its model one rung down the
@@ -219,8 +224,9 @@ class TNKDEServer:
             for name, p in profiles.items()
         }
         self.device = device
+        mesh_kw = {} if mesh is None else dict(mesh=mesh, shard_axes=tuple(shard_axes))
         self.models: Dict[str, TNKDE] = {
-            name: TNKDE(net, events, device=device, **cfg.to_kwargs())
+            name: TNKDE(net, events, device=device, **mesh_kw, **cfg.to_kwargs())
             for name, cfg in self.profiles.items()
         }
         self.window_cap = int(window_cap)

@@ -18,6 +18,7 @@ import pytest
 
 from repro.core import TNKDE as RefTNKDE
 from repro_torch.core import TNKDE
+from repro_torch.core.distributed import ShardMesh
 from repro_torch.core.events import Events
 from torch_tnkde_common import KW, REPO, TS5
 from torch_tnkde_common import ref_world, world, x64_shim  # noqa: F401 (fixtures)
@@ -122,18 +123,24 @@ def test_x64_shim_does_not_leak():
     assert fn is None or getattr(fn, "__name__", "") != "<lambda>"
 
 
-# ------------------------------------------------------ what is not served
-@pytest.mark.parametrize("kwargs,match", [
-    # the table codec and ADA are served (tests/test_torch_codec.py::
-    # test_a3_arguments_are_served); sharding and the legacy executors are not
-    (dict(mesh=object()), "A8"),
-    (dict(executor="search"), "A5"),
-    (dict(executor="cascade"), "A5"),
+# ------------------------------------- what the later slices brought (A5, A8)
+@pytest.mark.parametrize("kwargs,desc", [
+    # the table codec and ADA: tests/test_torch_codec.py::test_a3_arguments_are_served
+    (dict(mesh=ShardMesh.on_one_device(2, device="cpu")), "torch/packed@shards=2"),
+    (dict(executor="search"), "torch/search"),
+    (dict(executor="cascade"), "torch/cascade"),
 ])
-def test_unsupported_arguments_raise_not_implemented(world, kwargs, match):
+def test_a5_a8_arguments_are_served(world, kwargs, desc):
+    """Sharding and the legacy executors raise no NotImplementedError: they
+    answer, within 1e-12 of the packed executor (tests/test_torch_distributed.py
+    and tests/test_torch_search_cascade.py hold them against the reference)."""
     net, ev = world
-    with pytest.raises(NotImplementedError, match=match):
-        TNKDE(net, ev, device="cpu", **{**KW, **kwargs})
+    m = TNKDE(net, ev, device="cpu", **{**KW, **kwargs})
+    assert m.engine_desc == desc
+    want = TNKDE(net, ev, engine="torch", executor="packed", device="cpu", **KW).query(TS5[:2])
+    got = m.query(TS5[:2])
+    assert np.abs(want).max() > 0
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("solution", ["rfs", "drfs"])
