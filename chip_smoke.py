@@ -130,6 +130,11 @@ KERNELS = ("fused_walk", "fused_leaf", "tree_query", "dyn_leaf_query", "dyn_node
 # segment_add launches per path (each read with that path's own counts, right
 # after it ran): every TN-KDE flush ends in the fixed-order scatter
 SEGMENT_LAUNCHES = {}
+# segment_add's time at [main]'s largest pack and [drfs]'s largest block in its
+# earlier design (one thread per (lixel, window), loading its rows from device
+# memory one after the other; NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# this run's
+SEGMENT_EARLIER_MS = {"main-segment": 0.051776, "drfs-segment": 0.078960}
 SHARDS = (2, 4)  # [sharded]: S slabs on the one card
 SHARDED_DRFS_SCALE = 0.1  # [sharded] DRFS and serve: berkeley x0.1 (exact mode's scans x S)
 PACKED_TOL = 1e-12  # fused vs packed executor, relative to max|F|
@@ -2654,8 +2659,12 @@ def segment_case(L, n_src, W, halves, layout, device, seed):
     """Seeded inputs of ``ops.segment_add``: (heat [L, W], src [n_src, C],
     index) for one index ``layout``: 'dup' (every row real, many per lixel),
     'padded' (a grouped layout: some slots real), 'single' (one segment),
-    'empty' (no rows)."""
+    'empty' (no rows), 'long' (one segment of 3 tiles and more, among short
+    ones) and 'ramp' (segment lengths 1 .. 2·BLOCK_ROWS + 1 in shuffled atom
+    order, on padded slots: every block-boundary case). L and n_src grow to
+    what the layout needs."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.segment_add import BLOCK_ROWS
 
     rng = np.random.default_rng(seed)
     C = 2 * W if halves else W
@@ -2668,6 +2677,19 @@ def segment_case(L, n_src, W, halves, layout, device, seed):
     elif layout == "single":
         slots = rng.permutation(n_src)[: n_src // 3]
         lixel = np.full(len(slots), L // 2)
+    elif layout == "long":
+        n_long = 3 * BLOCK_ROWS + 37
+        n_src = max(n_src, n_long + 400)
+        lixel = np.concatenate([np.full(n_long, L // 2), rng.integers(0, L // 3, 300)])
+        rng.shuffle(lixel)
+        slots = rng.permutation(n_src)[: len(lixel)]
+    elif layout == "ramp":
+        lens = np.arange(1, 2 * BLOCK_ROWS + 2)
+        L = max(L, 2 * len(lens) + 1)
+        lixel = np.repeat(rng.permutation(len(lens)) * 2, lens)
+        rng.shuffle(lixel)
+        n_src = max(n_src, len(lixel) + 997)
+        slots = np.sort(rng.choice(n_src, len(lixel), replace=False))
     else:
         slots = lixel = np.zeros(0, np.int64)
     heat = torch.as_tensor(rng.normal(size=(L, W)), device=device)
@@ -2695,18 +2717,29 @@ def segment_bitwise(heat, src, index, halves):
 
 def phase_segment_kernels(device):
     """``[segment-kernels]``: ops.segment_add held bitwise against its plain
-    version over odd widths (W = 1, 5, 16), half-window pairs, a transposed
-    (strided) source, duplicates, padded slots, one segment and none."""
+    version over odd widths (W = 1, 5, 16, and 2·TILE_COLS + 3: more columns
+    than one tile holds, a ragged last column tile), half-window pairs, a
+    contiguous and a transposed (strided) source, duplicates, padded slots,
+    one segment, none, one longer than a block and a tile, and a ramp of
+    segment lengths 1 .. 2·BLOCK_ROWS + 1."""
+    from repro_torch.kernels.segment_add import BLOCK_ROWS, TILE_COLS
+
     n = 0
-    for W in (1, 5, 16):
+    widths = (1, 5, 16, 2 * TILE_COLS + 3)
+    layouts = ("dup", "padded", "single", "empty", "long", "ramp")
+    for W in widths:
         for halves in (False, True):
-            for layout in ("dup", "padded", "single", "empty"):
+            for layout in layouts:
                 heat, src, index = segment_case(301, 2000, W, halves, layout, device,
                                                 W * 100 + halves * 10 + len(layout))
+                if layout == "long":
+                    require(index.max_len > BLOCK_ROWS, "[segment-kernels] no long segment")
                 segment_bitwise(heat, src, index, halves)
                 segment_bitwise(heat, src.T.contiguous().T, index, halves)
                 n += 2
-    say("segment-kernels", cases=n, bitwise=True)
+                del heat, src, index
+    say("segment-kernels", cases=n, bitwise=True, widths=",".join(map(str, widths)),
+        layouts=",".join(layouts), block_rows=BLOCK_ROWS, tile_cols=TILE_COLS)
     return n
 
 
@@ -2730,11 +2763,12 @@ def segment_timing(heat, src, index, halves, device):
     with ``accumulate=True`` — one PyTorch call of the same function, on the
     same rows gathered beforehand (the scatter the port used before) — timed
     in turns (kernel, library, library, kernel; 5 samples each) with L2
-    flushed."""
+    flushed; and ``one_row_ms``, the kernel on a one-row index into the same
+    heat and source (its launch and dependent loads, no chain to speak of)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.segment_add import segment_add_ref
 
-    timing = dict(ms=None, plain_ms=None, library_ms=None)
+    timing = dict(ms=None, plain_ms=None, library_ms=None, one_row_ms=None)
     if device == "cpu":
         return timing
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)  # 256 MB > L2
@@ -2752,6 +2786,9 @@ def segment_timing(heat, src, index, halves, device):
     timing["library_ms"] = float(np.median(samples["library"]))
     timing["plain_ms"] = time_ms(lambda: segment_add_ref(h, src, index, halves=halves),
                                  reps=3, flush=flush)
+    one = ops.segment_index([0], [0], device=device)
+    timing["one_row_ms"] = time_ms(lambda: ops.segment_add(h, src, one, halves=halves),
+                                   reps=5, flush=flush)
     return timing
 
 
@@ -2782,8 +2819,8 @@ def phase_segment_shapes(m, ts, device, card, tag="main-segment"):
                  lixels=index.n_segs, longest_segment=index.max_len, halves=False)
     bound = segment_bound(heat, src, index, False)
     timing = segment_timing(heat, src, index, False, device)
-    say(tag, card=card, packs=len(packs), bitwise=True, timed_shape=json.dumps(shape), **timing,
-        **bound)
+    say(tag, card=card, packs=len(packs), bitwise=True, timed_shape=json.dumps(shape),
+        grid=index.n_blocks, earlier_design_ms=SEGMENT_EARLIER_MS.get(tag), **timing, **bound)
     return 0.0, 0.0, shape, bound, timing
 
 
@@ -2812,8 +2849,8 @@ def phase_segment_shapes_drfs(m, ts, device, card, tag="drfs-segment"):
                  lixels=index.n_segs, longest_segment=index.max_len, halves=False)
     bound = segment_bound(heat, src, index, False)
     timing = segment_timing(heat, src, index, False, device)
-    say(tag, card=card, blocks=len(packs), bitwise=True, timed_shape=json.dumps(shape), **timing,
-        **bound)
+    say(tag, card=card, blocks=len(packs), bitwise=True, timed_shape=json.dumps(shape),
+        grid=index.n_blocks, earlier_design_ms=SEGMENT_EARLIER_MS.get(tag), **timing, **bound)
     return 0.0, 0.0, shape, bound, timing
 
 

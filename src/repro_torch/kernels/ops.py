@@ -49,7 +49,13 @@ from .fused_walk import (
 )
 from .flash_attention import HEAD_DIMS, LOG2E, check_seq_len, flash_attention_ref, flash_library
 from .minplus import minplus_library, minplus_matmul_ref, minplus_vec
-from .segment_add import SegmentIndex, segment_add_library, segment_add_ref, segment_index
+from .segment_add import (
+    SegmentIndex,
+    segment_add_args,
+    segment_add_library,
+    segment_add_ref,
+    segment_index,
+)
 from .tree_query import tree_query_library, tree_query_ref
 
 __all__ = ["FlatIndex", "dyn_leaf_query", "dyn_leaf_query_flat", "dyn_node_walk",
@@ -665,11 +671,15 @@ def segment_add(heat, src, index: SegmentIndex, *, halves: bool = False) -> torc
     segment_add.py): ``heat[lixel[u], w] += Σ x(rows[i], w)`` over each
     segment of ``index`` in plan order; returns ``heat``.
 
-    ``heat [L, W]`` float64 contiguous; ``src [N, C]`` float64 with any
-    strides (C = W, or 2W half-window columns folded pairwise with
-    ``halves``); ``index`` from :func:`segment_index`, on the same device.
-    Counts in ``segment_add.launches``. Launches on the current stream and
-    does not synchronise.
+    ``heat [L, W]`` float64 contiguous, any W; ``src [N, C]`` float64 with
+    any strides (C = W, or 2W half-window columns folded pairwise with
+    ``halves``); ``index`` from :func:`segment_index`, on the same device
+    (its blocks and device pointers are built with it, not re-read here).
+    On the card: one launch of ``index.n_blocks`` blocks, each staging its
+    segments' rows in shared memory a tile at a time and adding them in
+    order, one thread per (segment, column). Counts in
+    ``segment_add.launches``. Launches on the current stream, does not
+    synchronise and allocates nothing.
     """
     if heat.device.type == "cpu":
         return segment_add_ref(heat, src, index, halves=halves)
@@ -694,13 +704,11 @@ def segment_add(heat, src, index: SegmentIndex, *, halves: bool = False) -> torc
     _check("segment_add", "rows", index.rows, torch.int64, (index.n_rows,), dev)
     _check("segment_add", "seg_ptr", index.seg_ptr, torch.int64, (U + 1,), dev)
     _check("segment_add", "lixel", index.lixel, torch.int64, (U,), dev)
-    if U == 0 or W == 0:
+    if index.n_blocks == 0 or W == 0:
         return heat  # nothing to launch
-    ld, sc = (int(x) for x in src.stride())
     err = segment_add_library().segment_add_f64(
-        heat.data_ptr(), W, src.data_ptr(), ld, 2 * sc if halves else sc, sc if halves else 0,
-        index.rows.data_ptr(), index.seg_ptr.data_ptr(), index.lixel.data_ptr(), U, W,
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream,
+        *segment_add_args(heat, src, index, halves=halves), _device_index(dev),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"segment_add: kernel launch failed (cudaError {err})")

@@ -10,6 +10,12 @@ measurements on the card, printing their lines:
   plain version, the largest timed with L2 flushed);
 * ``minplus``: device all-pairs shortest paths (``phase_minplus``: the
   berkeley product timed, held against scipy's bounded Dijkstra);
+* ``segment``: the fixed-order scatter at the shapes of ``[main]`` (static
+  RFS, ``executor='fused'``) and ``[drfs]`` (the base epoch, no inserts):
+  every pack and block held bitwise against the plain version, the largest
+  of each timed beside ``index_put_`` with L2 flushed
+  (``phase_segment_shapes``, ``phase_segment_shapes_drfs``), with each
+  path's warm query;
 * ``warm-drfs``: warm streaming-DRFS queries of ``chip_smoke.py``'s
   ``[drfs]`` world (berkeley replica, first 90 % of the events by time,
   ``drfs_depth=8``, ``auto_seal=False``, ``executor='fused'``) in ``--mode``:
@@ -41,7 +47,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernel-drfs", "minplus", "warm-drfs")
+PHASES = ("kernel-drfs", "minplus", "segment", "warm-drfs")
 # the summary keys read from each measurement's lines: (tag, key)
 KEYS = {
     "kernel-drfs": [("kernel-drfs", "device_bytes"), ("kernel-drfs", "max_memory_allocated"),
@@ -49,6 +55,9 @@ KEYS = {
                     ("kernel-drfs", "kernel_vs_fused"), ("kernel-drfs", "exact_vs_sps")],
     "minplus": [("minplus", "round_kernel_ms"), ("minplus", "call_s"),
                 ("minplus", "vs_dijkstra_rel")],
+    "segment": [("main-segment", "ms"), ("main-segment", "library_ms"),
+                ("drfs-segment", "ms"), ("drfs-segment", "library_ms"), ("main", "warm_s"),
+                ("drfs", "warm_quantized_s")],
     "warm-drfs": [("warm-drfs", "mode"), ("warm-drfs", "cold_s"), ("warm-drfs", "warm_s")],
 }
 DRFS_FRACS = (0.2, 0.5, 0.8, 0.95, 0.5)  # as chip_smoke.py: one centre duplicated
@@ -132,6 +141,14 @@ def one_run(args):
             del m
         elif phase == "minplus":
             cs.phase_minplus(ns, dev, card)
+        elif phase == "segment":
+            m, ts, _, _, secs = cs.phase_main(ns, dev, card)
+            cs.phase_segment_shapes(m, ts, dev, card)
+            del m, secs
+            cs.free(dev)
+            m, ts, _, _ = cs.phase_drfs(ns, dev, card, inserts=0, compact=False)
+            cs.phase_segment_shapes_drfs(m, ts, dev, card)
+            del m
         else:
             warm_drfs(cs, args, dev)
         cs.free(dev)
