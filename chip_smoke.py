@@ -65,7 +65,23 @@ Table-3 berkeley replica:
   bf16 prefill of 4 × 2 048 tokens with ``attn_impl='kernel'`` (one
   ``flash_attention`` launch per layer) and 32 greedy decode steps; then in
   float32 the kernel against ``attn_impl='dense'`` and prefill + 128
-  teacher-forced decode steps against ``forward``.
+  teacher-forced decode steps against ``forward``;
+* ``[lm-moe]``, ``[lm-rwkv]``, ``[lm-hybrid]``, ``[lm-encdec]``,
+  ``[lm-mrope]`` the other LM families at their published widths with
+  seeded weights: olmoe-1b-7b (16 layers, 4 × 2 048 tokens, top-8 of 64
+  experts with capacity drops), rwkv6-3b (32 layers, 4 × 2 048; the WKV
+  recurrence is plain torch), recurrentgemma-9b (38 layers with its 2-layer
+  tail, 2 × 2 048 = the window, the decode steps wrapping the ring buffer),
+  whisper-tiny (batch 8, 1 536 encoder frames, 384 decoder tokens, decode on
+  the cross cache) and qwen2-vl-72b cut to 4 layers (embeddings of a 32 × 32
+  patch image then text, M-RoPE streams that differ): bf16 prefill cold and
+  warm with ``attn_impl='kernel'`` (``flash_attention`` launched exactly once
+  per attention layer, and no other kernel), 32 greedy decode steps, the
+  seconds and peak memory; then float32 checks at a cut depth (prefill +
+  decode against forward; the kernel against ``'dense'`` where the family
+  runs it; whisper's kernel on all 8 layers' activations against float64).
+  ``flash_attention`` is held against its plain version and timed against
+  SDPA at each of these paths' shapes first.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; ``[*-shapes]`` then holds every block the path gave a kernel against
@@ -2298,16 +2314,40 @@ def phase_flash_kernels(device):
     say("flash-kernels", cases=len(cases), max_abs_err=worst_abs, max_rel_err=worst_rel,
         worst_rel_by_dtype_and_D=json.dumps(worst_dt),
         tol=json.dumps({str(k)[6:]: v for k, v in FLASH_TOL.items()}))
-    B, H, Hkv, S, D = LM_SHAPE
-    shape = dict(B=B, H=H, Hkv=Hkv, S=S, D=D, dtype="bfloat16", causal=True, layout="bshd")
-    bound = flash_bound(B, H, Hkv, S, D, 2)
+    _, _, shape, bound, timing = flash_timed(*LM_SHAPE, True, device)
+    return worst_abs, worst_rel, shape, bound, timing
+
+
+def flash_timed(B, H, Hkv, S, D, causal, device, seed=99):
+    """The bf16 kernel at one path's shape, in the path's layout ([B, S, H,
+    D] viewed as [B, H, S, D]): held against its plain version (FLASH_TOL),
+    then timed against the plain version and, in turns in this call (kernel,
+    SDPA, SDPA, kernel), against scaled_dot_product_attention: over runs of
+    10 back-to-back calls (``ms``, ``library_ms``) and one call a sample
+    (``*_single_call``). Returns (abs, rel, shape, bound, timing); the
+    rehearsal takes no times, at one sequence of at most 128 tokens."""
+    from repro_torch.kernels import ops
+
+    if device == "cpu":
+        B, S = 1, min(S, 128)
+    q, k, v = flash_case(B, H, Hkv, S, D, torch.bfloat16, device, seed, "bshd")
+    got = ops.flash_attention(q, k, v, causal=causal)
+    if got.is_cuda:
+        torch.cuda.synchronize()
+    want = plain_version("flash_attention")(q, k, v, causal=causal)
+    require(bool(torch.isfinite(got).all()), "flash_attention produced non-finite values")
+    abs_err = float((got.float() - want.float()).abs().max())
+    rel = abs_err / float(want.float().abs().max())
+    require(rel <= FLASH_TOL[torch.bfloat16], f"flash_attention disagrees with its plain "
+            f"version at {(B, H, Hkv, S, D, causal)}: {rel}")
+    shape = dict(B=B, H=H, Hkv=Hkv, S=S, D=D, dtype="bfloat16", causal=causal, layout="bshd")
+    bound = flash_bound(B, H, Hkv, S, D, 2, causal)
     timing = dict(ms=None, plain_ms=None, library_ms=None)
-    if not small:
-        q, k, v = flash_case(B, H, Hkv, S, D, torch.bfloat16, device, 99, "bshd")
+    if device != "cpu":
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        kern = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+        kern = lambda: ops.flash_attention(q, k, v, causal=causal)  # noqa: E731
         # the yardstick only, never on the path: one PyTorch call, same function
-        lib = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)  # noqa: E731
+        lib = lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)  # noqa: E731
         # 10 back-to-back calls a sample: the card's time, the host's launch
         # work overlapped. One call a sample: that plus the host's work the
         # card waits for when it is idle (for the kernel, the wrapper's checks
@@ -2318,14 +2358,15 @@ def phase_flash_kernels(device):
             timing["library_ms" + tag] = float(np.median(turns[1] + turns[2]))
             timing["turns_ms" + tag] = [float(np.median(t)) for t in turns]
         timing["plain_ms"] = time_ms(lambda: plain_version("flash_attention")(q, k, v,
-                                                                             causal=True))
-    say("flash-kernels", timed_shape=json.dumps(shape), **timing, **bound)
-    return worst_abs, worst_rel, shape, bound, timing
+                                                                             causal=causal))
+    say("flash-kernels", timed_shape=json.dumps(shape), max_abs_err=abs_err, max_rel_err=rel,
+        **timing, **bound)
+    return abs_err, rel, shape, bound, timing
 
 
 def _leaves(tree):
-    for v in tree.values():
-        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        yield from (_leaves(v) if isinstance(v, (dict, list)) else (v,))
 
 
 def phase_lm(args, device, card):
@@ -2466,11 +2507,13 @@ def lm_kernel_vs_dense(model, params, toks):
 
 def lm_decode_vs_forward(model, params, toks, P, T, impl="kernel"):
     """(b): prefill of P tokens with 'kernel', then T teacher-forced decode
-    steps (the token at P + i written at P + i), against one forward over
-    all P + T tokens with ``impl`` at those positions, relative to
-    max|logit|."""
+    steps (the token at P + i written at P + i; the cache padded for them by
+    ``launch.serve.pad_cache``), against one forward over all P + T tokens
+    with ``impl`` at those positions, relative to max|logit|."""
+    from repro_torch.launch.serve import pad_cache
+
     _, cache = model.prefill(params, {"tokens": toks[:, :P]}, attn_impl="kernel")
-    cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, T)) for k, c in cache.items()}
+    cache = pad_cache(model.cfg, cache, P, T)
     dec = []
     for i in range(T):
         li, cache = model.decode_step(params, toks[:, P + i], cache, P + i)
@@ -2586,15 +2629,16 @@ def lm_cut_readings(model, params, cfg, toks, P, T):
     return out
 
 
-def attention_f64(q, k, v, last_row=False):
-    """Causal attention in float64 on [B, H, S, D] inputs (K/V heads
-    expanded by index): the exact yardstick of the per-layer check. With
-    ``last_row`` the one query row ``q [B, H, 1, D]`` sits at the last key."""
+def attention_f64(q, k, v, last_row=False, causal=True):
+    """Attention in float64 on [B, H, S, D] inputs (K/V heads expanded by
+    index), causal unless asked otherwise: the exact yardstick of the
+    per-layer check. With ``last_row`` the one query row ``q [B, H, 1, D]``
+    sits at the last key."""
     B, H, S, D = q.shape
     rep = H // k.shape[1]
     kk, vv = (t.double().repeat_interleave(rep, dim=1) for t in (k, v))
     s = torch.matmul(q.double(), kk.transpose(-1, -2)) * D ** -0.5
-    if not last_row:
+    if causal and not last_row:
         s = s.masked_fill(~torch.ones((S, S), dtype=torch.bool, device=q.device).tril(),
                           float("-inf"))
     return torch.matmul(torch.softmax(s, dim=-1), vv)
@@ -2652,6 +2696,498 @@ def lm_layerwise(params, cfg, toks):
     top = float(ld.abs().max())
     return worst, dict(kernel_vs_dense_rel=float((lk - ld).abs().max()) / top,
                        perturbed_embed_rel=float((lp_ - ld).abs().max()) / top)
+
+
+# ---------------------------------------------------- the other LM families
+# [lm-moe], [lm-rwkv], [lm-hybrid], [lm-encdec], [lm-mrope]: each family at
+# its published width with seeded weights, served in bf16 (a cold and a warm
+# prefill with attn_impl='kernel', then LM_FAMILY_DECODE greedy steps), then
+# checked in float32 (TF32 off) at the depth each phase names.
+LM_FAMILY_DECODE = 32
+# the flash kernel at each new path's own shape, [B, S, H, D] viewed as
+# [B, H, S, D]: B, H, Hkv, S, D, causal
+FAMILY_FLASH_SHAPES = {
+    "lm-moe": (4, 16, 16, 2048, 128, True),  # olmoe-1b-7b prefill: MHA, rep 1
+    "lm-encdec-encoder": (8, 6, 6, 1536, 64, False),  # whisper-tiny encoder: full
+    "lm-encdec-decoder": (8, 6, 6, 384, 64, True),  # whisper-tiny decoder: causal
+    "lm-mrope": (2, 64, 8, 2048, 128, True),  # qwen2-vl-72b prefill: 64/8 heads
+}
+MROPE_LAYERS = 4  # qwen2-vl-72b at full width is 1.76 GB a layer in bf16: 80 do not fit
+MROPE_GRID = 32  # [lm-mrope]: a 32 x 32 patch image, then text
+WHISPER_FRAMES = 1536  # the first multiple of 128 above Whisper's 1 500 (the kernel tiles S)
+WHISPER_TOKENS = 384  # decoder tokens, within Whisper's 448 positions
+HYBRID_CHECK_LAYERS = 5  # one (rec, rec, attn) period and recurrentgemma-9b's 2-layer tail
+# [lm-encdec] f32 end to end at 1 encoder + 1 decoder layer: with the
+# reference's init scales (attention logits up to ~400) the full 4 + 4 model
+# moved its logits by 0.82 of max|logit| under a 1e-7 change of the frames
+# on an H100 (the phase prints it each run), so it is cut as [lm] cuts
+# qwen2.5-3b; the kernel is checked on all 8 layers' real activations
+# (encdec_layerwise)
+WHISPER_CHECK_LAYERS = 1
+HYBRID_CHECK_STEPS = 64  # [lm-hybrid] f32 decode steps past the full window
+
+
+def sync(device):
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def timed(fn, device):
+    """(fn(), seconds) with the card synchronised on both sides."""
+    sync(device)
+    t1 = time.perf_counter()
+    out = fn()
+    sync(device)
+    return out, time.perf_counter() - t1
+
+
+def family_config(arch, device, **overrides):
+    """The published config, or its reduced miniature in bf16 for the
+    rehearsal, with ``overrides``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+
+    cfg = get_config(arch)
+    if device == "cpu":
+        cfg = dataclasses.replace(reduce_for_smoke(cfg), param_dtype="bfloat16",
+                                  compute_dtype="bfloat16")
+    return dataclasses.replace(cfg, **overrides)
+
+
+def f32_config(cfg, **overrides):
+    import dataclasses
+
+    return dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32", **overrides)
+
+
+def seeded(shape, seed, device, dtype=torch.float32, scale=1.0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+
+
+def lm_family_bf16(args, device, card, tag, cfg, batch, per_prefill):
+    """bf16 serving of ``cfg``: seeded weights on the device; a cold and a
+    warm ``prefill(batch, attn_impl='kernel')``, each launching
+    flash_attention exactly ``per_prefill`` times; LM_FAMILY_DECODE greedy
+    decode steps from the cache ``launch.serve.pad_cache`` made room in. The
+    counts are set to 0 before the first prefill and read after the last
+    step: flash_attention is the only kernel. Prints the seconds and peak
+    memory; returns (model, params, launches, secs, peak)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models.registry import get_model
+
+    card_run = device != "cpu"
+    if card_run:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    params = model.init(args.seed, device=device)
+    sync(device)
+    say(tag, card=card, arch=cfg.arch_id, family=cfg.family, layers=cfg.n_layers,
+        d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv, head_dim=cfg.hd,
+        d_ff=cfg.d_ff, vocab=cfg.vocab, params=sum(t.numel() for t in _leaves(params)),
+        dtype=cfg.param_dtype, init_s=round(time.perf_counter() - t0, 3))
+    B, S = next(iter(batch.values())).shape[:2]
+    reset_launches()
+    secs = {}
+    for step in ("cold", "warm"):
+        n0 = ops.flash_attention.launches
+        (logits, cache), secs[f"prefill_{step}_s"] = timed(
+            lambda: model.prefill(params, batch, attn_impl="kernel"), device)
+        grew = ops.flash_attention.launches - n0
+        require(not card_run or grew == per_prefill, f"[{tag}] prefill launched "
+                f"flash_attention {grew} times, not {per_prefill}")
+    require(tuple(logits.shape) == (B, cfg.vocab) and bool(torch.isfinite(logits).all()),
+            f"[{tag}] prefill logits: shape or non-finite values")
+    cache = pad_cache(cfg, cache, S, LM_FAMILY_DECODE)
+    tok = torch.argmax(logits, -1)
+    finite = torch.isfinite(logits).all()
+    decoded = []
+    t1 = time.perf_counter()
+    for i in range(LM_FAMILY_DECODE):
+        logits, cache = model.decode_step(params, tok, cache, S + i)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits, -1)
+        decoded.append(tok)
+    sync(device)
+    secs["decode_s_per_step"] = (time.perf_counter() - t1) / LM_FAMILY_DECODE
+    counts = read_launches()
+    launches = counts.pop("flash_attention")
+    require(not any(counts.values()), f"[{tag}] launched another kernel: {counts}")
+    require(not card_run or launches == 2 * per_prefill,
+            f"[{tag}] flash_attention launches {launches}, not {2 * per_prefill}")
+    require(bool(finite), f"[{tag}] non-finite decode logits")
+    if args.profile:  # after the counts are read: these launches are not the path's
+        profile_call(lambda: model.prefill(params, batch, attn_impl="kernel"),
+                     f"{args.profile}.{tag}-prefill", f"warm prefill, {B} x {S}", device)
+        profile_call(lambda: model.decode_step(params, tok, cache, S + LM_FAMILY_DECODE - 1),
+                     f"{args.profile}.{tag}-decode", f"one decode step, batch {B}", device)
+    peak = torch.cuda.max_memory_allocated() if card_run else None
+    say(tag, card=card, batch=B, prompt=S, decode_steps=LM_FAMILY_DECODE, launches=launches,
+        **{k: round(v, 4) for k, v in secs.items()}, max_memory_allocated=peak,
+        last_logits_absmax=float(logits.float().abs().max()),
+        decoded_row0=[int(t[0]) for t in decoded[:8]])
+    del cache, logits
+    return model, params, launches, secs, peak
+
+
+def lm_f32_checks(tag, card, model, params, toks, P, T, *, kernel=True, embeds=None):
+    """The float32 checks of one family at the cut depth, relative to
+    max|logit|: (a) last-token prefill logits, 'kernel' against 'dense'
+    (on ``embeds`` = {embeds, mrope_pos} where given, else the tokens),
+    where the family runs the kernel; (b) prefill of P tokens + T
+    teacher-forced decode steps against one forward over P + T tokens."""
+    out = {}
+    if kernel:
+        if embeds is None:
+            out["kernel_vs_dense_rel"] = lm_kernel_vs_dense(model, params, toks)
+        else:
+            lk, _ = model.prefill(params, embeds, attn_impl="kernel")
+            ld, _ = model.prefill(params, embeds, attn_impl="dense")
+            require(bool(torch.isfinite(lk).all()), f"[{tag}] f32 kernel logits not finite")
+            out["kernel_vs_dense_rel"] = float((lk - ld).abs().max()) / float(ld.abs().max())
+    out["prefill_decode_vs_forward_rel"] = lm_decode_vs_forward(
+        model, params, toks, P, T, impl="kernel" if kernel else "dense")
+    for k, v in out.items():
+        require(v <= LM_TOL, f"[{tag}] f32 {k}: {v} > {LM_TOL}")
+    say(tag, card=card, step="float32", layers=model.cfg.n_layers, batch=toks.shape[0],
+        prefill=P, decode_steps=T, **out, tol=LM_TOL)
+    return out
+
+
+def phase_lm_moe(args, device, card):
+    """olmoe-1b-7b at its full 16 layers, 4 × 2 048 tokens (capacity C =
+    320 per row and expert at the default factor 1.25); float32 at 2
+    layers with capacity factor 16, the reference's no-drop setting."""
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_model
+
+    cfg = family_config("olmoe-1b-7b", device)
+    small = device == "cpu"
+    B, S = (2, 128) if small else (4, 2048)
+    toks = torch.as_tensor(np.random.default_rng(args.seed).integers(0, cfg.vocab, (B, S)),
+                           device=device)
+    model, params, launches, secs, peak = lm_family_bf16(
+        args, device, card, "lm-moe", cfg, {"tokens": toks}, cfg.n_layers)
+    C = moe.capacity(cfg, S)
+    say("lm-moe", capacity=C, experts=cfg.n_experts, top_k=cfg.moe_top_k,
+        dispatch_buffer_bytes=B * cfg.n_experts * (C + 1) * cfg.d_model * 2)
+    del model, params
+    free(device)
+    cfg32 = f32_config(cfg, n_layers=min(LM_CHECK_LAYERS, cfg.n_layers), capacity_factor=16.0)
+    model = get_model(cfg32)
+    params = model.init(args.seed + 1, device=device)
+    P, T = (96, 32) if small else (1920, 128)
+    toks = torch.as_tensor(np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab, (2, P + T)), device=device)
+    checks = lm_f32_checks("lm-moe", card, model, params, toks, P, T)
+    del model, params
+    free(device)
+    return dict(launches=launches, secs=secs, peak=peak, checks=checks, arch=cfg.arch_id)
+
+
+def phase_lm_rwkv(args, device, card):
+    """rwkv6-3b at its full 32 layers, 4 × 2 048 tokens (no kernel: the WKV
+    recurrence is plain torch, as the reference's is plain jnp); the time
+    mix of one layer (projections + the WKV loop over the tokens) timed
+    alone and set against the warm prefill; float32 at 2 layers."""
+    from repro_torch.models import rwkv
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import layer_params
+
+    cfg = family_config("rwkv6-3b", device)
+    small = device == "cpu"
+    B, S = (2, 128) if small else (4, 2048)
+    toks = torch.as_tensor(np.random.default_rng(args.seed).integers(0, cfg.vocab, (B, S)),
+                           device=device)
+    model, params, launches, secs, peak = lm_family_bf16(
+        args, device, card, "lm-rwkv", cfg, {"tokens": toks}, 0)
+    x = seeded((B, S, cfg.d_model), args.seed, device, torch.bfloat16)
+    st = rwkv.init_state(cfg, B, torch.bfloat16, device=device)
+    lp = layer_params(params["layers"], 0)
+    tm = lambda: rwkv.time_mix(lp["tm"], x, cfg, (st["tm_x"], st["tm_S"]))  # noqa: E731
+    tm()
+    _, tm_s = timed(tm, device)
+    secs["time_mix_s_per_layer"] = tm_s
+    say("lm-rwkv", step="time-mix", time_mix_s_per_layer=round(tm_s, 4),
+        time_mix_share_of_warm_prefill=round(tm_s * cfg.n_layers / secs["prefill_warm_s"], 4))
+    del model, params, x
+    free(device)
+    cfg32 = f32_config(cfg, n_layers=min(LM_CHECK_LAYERS, cfg.n_layers))
+    model = get_model(cfg32)
+    params = model.init(args.seed + 1, device=device)
+    P, T = (96, 32) if small else (1920, 128)
+    toks = torch.as_tensor(np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab, (2, P + T)), device=device)
+    checks = lm_f32_checks("lm-rwkv", card, model, params, toks, P, T, kernel=False)
+    del model, params
+    free(device)
+    return dict(launches=launches, secs=secs, peak=peak, checks=checks, arch=cfg.arch_id)
+
+
+def phase_lm_hybrid(args, device, card):
+    """recurrentgemma-9b at its full 38 layers (12 periods of (rec, rec,
+    attn) and the 2-layer tail), 2 × 2 048 tokens = the window: the decode
+    steps wrap the ring buffer. No kernel (the pattern blocks take 'dense'
+    up to 4 096 tokens, as the reference's do). One RG-LRU block timed
+    alone and set against the warm prefill. float32 at 5 layers (a period
+    and the tail): prefill of the full window + 64 decode steps past it
+    against the forward."""
+    from repro_torch.models import rglru
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import layer_params
+
+    cfg = family_config("recurrentgemma-9b", device)
+    small = device == "cpu"
+    B, S = 2, cfg.local_window
+    toks = torch.as_tensor(np.random.default_rng(args.seed).integers(0, cfg.vocab, (B, S)),
+                           device=device)
+    model, params, launches, secs, peak = lm_family_bf16(
+        args, device, card, "lm-hybrid", cfg, {"tokens": toks}, 0)
+    pat = cfg.block_pattern
+    n_rec = sum(pat[i % len(pat)] == "rec" for i in range(cfg.n_layers))
+    x = seeded((B, S, cfg.d_model), args.seed, device, torch.bfloat16)
+    lp = layer_params(params["pattern"][0], 0)["rec"]
+    st = rglru.init_rglru_state(cfg, B, torch.bfloat16, device=device)
+    rec = lambda: rglru.rglru_block(lp, x, cfg, st)  # noqa: E731
+    rec()
+    _, rec_s = timed(rec, device)
+    secs["rglru_s_per_layer"] = rec_s
+    say("lm-hybrid", step="rg-lru", tail_layers=len(params["tail"]), rec_layers=n_rec,
+        rglru_s_per_layer=round(rec_s, 4),
+        rglru_share_of_warm_prefill=round(rec_s * n_rec / secs["prefill_warm_s"], 4))
+    del model, params, x
+    free(device)
+    cfg32 = f32_config(cfg, n_layers=HYBRID_CHECK_LAYERS)
+    model = get_model(cfg32)
+    params = model.init(args.seed + 1, device=device)
+    P, T = S, (8 if small else HYBRID_CHECK_STEPS)
+    toks = torch.as_tensor(np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab, (2, P + T)), device=device)
+    checks = lm_f32_checks("lm-hybrid", card, model, params, toks, P, T, kernel=False)
+    del model, params
+    free(device)
+    return dict(launches=launches, secs=secs, peak=peak, checks=checks, arch=cfg.arch_id)
+
+
+def mrope_streams(B, grid, n_text, device):
+    """Qwen2-VL position streams [B, 3, grid² + n_text]: a grid × grid patch
+    image (t = 0, h = row, w = column), then text from the largest image
+    position + 1 on all three streams."""
+    r, c = np.divmod(np.arange(grid * grid), grid)
+    img = np.stack([np.zeros_like(r), r, c])
+    txt = np.broadcast_to(grid + np.arange(n_text), (3, n_text))
+    pos = np.broadcast_to(np.concatenate([img, txt], 1), (B, 3, grid * grid + n_text))
+    return torch.as_tensor(pos.copy(), device=device)
+
+
+def phase_lm_mrope(args, device, card):
+    """qwen2-vl-72b at full width, depth cut to MROPE_LAYERS: embeddings of
+    2 × 2 048 tokens (a 32 × 32 patch image, then text) with M-RoPE streams
+    that differ; decode steps at text positions. float32 at 2 layers: (a)
+    on the image + text embeddings, (b) on text tokens."""
+    from repro_torch.models.registry import get_model
+
+    small = device == "cpu"
+    cfg = family_config("qwen2-vl-72b", device, n_layers=2 if small else MROPE_LAYERS)
+    B, S, grid = (2, 128, 8) if small else (2, 2048, MROPE_GRID)
+    embeds = seeded((B, S, cfg.d_model), args.seed, device, torch.bfloat16, 0.02)
+    pos = mrope_streams(B, grid, S - grid * grid, device)
+    model, params, launches, secs, peak = lm_family_bf16(
+        args, device, card, "lm-mrope", cfg, {"embeds": embeds, "mrope_pos": pos}, cfg.n_layers)
+    del model, params, embeds
+    free(device)
+    cfg32 = f32_config(cfg, n_layers=min(LM_CHECK_LAYERS, cfg.n_layers))
+    model = get_model(cfg32)
+    params = model.init(args.seed + 1, device=device)
+    P, T = (96, 32) if small else (1920, 128)
+    toks = torch.as_tensor(np.random.default_rng(args.seed + 1).integers(
+        0, cfg.vocab, (2, P + T)), device=device)
+    emb = {"embeds": seeded((2, S, cfg.d_model), args.seed + 1, device, scale=0.02),
+           "mrope_pos": pos[:2]}
+    checks = lm_f32_checks("lm-mrope", card, model, params, toks, P, T, embeds=emb)
+    del model, params, emb
+    free(device)
+    return dict(launches=launches, secs=secs, peak=peak, checks=checks, arch=cfg.arch_id)
+
+
+def encdec_layerwise(params, cfg, frames, toks):
+    """The kernel on every encoder and decoder layer's real activations (a
+    dense float32 trunk, as lm_layerwise does for [lm]): each layer's
+    self-attention (non-causal in the encoder, causal in the decoder)
+    through the kernel and its plain f32 version, both against float64; the
+    kernel's error may be at most LAYER_ACCURACY times the plain version's
+    (+1e-6 of max|out|). Returns the worst readings, and how far the whole
+    model's logits move ('kernel' against 'dense', and 'dense' under a 1e-7
+    relative change of the frames): the reason for the end-to-end cut."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    from repro_torch.models.attention import attention, qkv
+    from repro_torch.models.mlp import mlp
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import layer_params
+
+    worst = dict(ratio=0.0, kernel_vs_f64=0.0, plain_vs_f64=0.0)
+
+    def check(lp, h, causal, where):
+        q, k, v = (t.transpose(1, 2) for t in qkv(lp["attn"], h, cfg, None))
+        exact = attention_f64(q, k, v, causal=causal)
+        scale = float(exact.abs().max())
+        e_k = float((ops.flash_attention(q, k, v, causal=causal).double() - exact).abs().max())
+        e_p = float((plain_version("flash_attention")(q, k, v, causal=causal).double()
+                     - exact).abs().max())
+        e_k, e_p = e_k / scale, e_p / scale
+        require(e_k <= LAYER_ACCURACY * e_p + 1e-6,
+                f"[lm-encdec] {where}: kernel {e_k} vs plain {e_p} from the f64 attention")
+        for key, val in (("ratio", e_k / max(e_p, 1e-30)), ("kernel_vs_f64", e_k),
+                         ("plain_vs_f64", e_p)):
+            worst[key] = max(worst[key], val)
+        return attention(lp["attn"], h, cfg, None, causal=causal, impl="dense")[0]
+
+    eps = cfg.norm_eps
+    x = frames + encdec._sinusoid(frames.shape[1], cfg.d_model, frames.dtype, frames.device)
+    for i in range(cfg.n_enc_layers):
+        lp = layer_params(params["enc"], i)
+        x = x + check(lp, encdec._ln(x, lp["ln1"], eps), False, f"encoder layer {i}")
+        x = x + mlp(lp["mlp"], encdec._ln(x, lp["ln2"], eps), cfg)
+    enc = encdec._ln(x, params["enc_ln"], eps)
+    x = params["embed"][toks] + params["dec_pos"][:toks.shape[1]]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["dec"], i)
+        x = x + check(lp, encdec._ln(x, lp["ln1"], eps), True, f"decoder layer {i}")
+        xa = lp["xattn"]
+        k, v = encdec._proj(enc, xa["wk"]), encdec._proj(enc, xa["wv"])
+        x = x + encdec._cross_attention(xa, encdec._ln(x, lp["ln_x"], eps), k, v, cfg)
+        x = x + mlp(lp["mlp"], encdec._ln(x, lp["ln2"], eps), cfg)
+    del x, enc
+    model = get_model(cfg)
+    batch = {"frames": frames, "tokens": toks}
+    ld, _ = model.forward(params, batch, attn_impl="dense")
+    lk, _ = model.forward(params, batch, attn_impl="kernel")
+    lp_, _ = model.forward(params, dict(batch, frames=frames * (1 + 1e-7)), attn_impl="dense")
+    top = float(ld.abs().max())
+    return worst, dict(kernel_vs_dense_rel=float((lk - ld).abs().max()) / top,
+                       perturbed_frames_rel=float((lp_ - ld).abs().max()) / top)
+
+
+def phase_lm_encdec(args, device, card):
+    """whisper-tiny (4 + 4 layers, d 384), batch 8: encode 1 536 frames
+    (non-causal flash_attention, 4 launches) and decode_train 384 tokens
+    (causal, 4 launches), cold and warm, then LM_FAMILY_DECODE greedy decode
+    steps from position 0 on the cross cache (prefill_cross). float32: the
+    kernel on all 8 layers' real activations against float64
+    (encdec_layerwise), then at WHISPER_CHECK_LAYERS + WHISPER_CHECK_LAYERS
+    layers (a) the logits, 'kernel' against 'dense', and (b) 384
+    teacher-forced decode steps against decode_train."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import layer_params
+
+    cfg = family_config("whisper-tiny", device)
+    card_run = device != "cpu"
+    B, F, S = (2, 128, 64) if not card_run else (8, WHISPER_FRAMES, WHISPER_TOKENS)
+    frames = seeded((B, F, cfg.d_model), args.seed, device, torch.bfloat16)
+    toks = torch.as_tensor(np.random.default_rng(args.seed).integers(0, cfg.vocab, (B, S)),
+                           device=device)
+    if card_run:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    params = model.init(args.seed, device=device)
+    sync(device)
+    say("lm-encdec", card=card, arch=cfg.arch_id, enc_layers=cfg.n_enc_layers,
+        dec_layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads, head_dim=cfg.hd,
+        vocab=cfg.vocab, params=sum(t.numel() for t in _leaves(params)),
+        dtype=cfg.param_dtype, init_s=round(time.perf_counter() - t0, 3))
+    reset_launches()
+    secs, n_enc, n_dec = {}, 0, 0
+    for step in ("cold", "warm"):
+        n0 = ops.flash_attention.launches
+        enc, secs[f"encode_{step}_s"] = timed(
+            lambda: encdec.encode(params, cfg, frames, attn_impl="kernel"), device)
+        n1 = ops.flash_attention.launches
+        logits, secs[f"decode_train_{step}_s"] = timed(
+            lambda: encdec.decode_train(params, cfg, toks, enc, attn_impl="kernel"), device)
+        n2 = ops.flash_attention.launches
+        require(not card_run or (n1 - n0, n2 - n1) == (cfg.n_enc_layers, cfg.n_layers),
+                f"[lm-encdec] flash_attention launches {(n1 - n0, n2 - n1)} a run, not "
+                f"{(cfg.n_enc_layers, cfg.n_layers)}")
+        n_enc, n_dec = n_enc + n1 - n0, n_dec + n2 - n1
+    require(tuple(logits.shape) == (B, S, cfg.vocab) and bool(torch.isfinite(logits).all()),
+            "[lm-encdec] decoder logits: shape or non-finite values")
+    cache = model.init_cache(B, LM_FAMILY_DECODE, dtype=torch.bfloat16, enc_seq=F, device=device)
+    cache["xk"], cache["xv"] = encdec.prefill_cross(params, cfg, enc)
+    tok, finite, decoded = toks[:, 0], torch.isfinite(logits).all(), []
+    t1 = time.perf_counter()
+    for i in range(LM_FAMILY_DECODE):
+        logits, cache = model.decode_step(params, tok, cache, i)
+        finite &= torch.isfinite(logits).all()
+        tok = torch.argmax(logits, -1)
+        decoded.append(tok)
+    sync(device)
+    secs["decode_s_per_step"] = (time.perf_counter() - t1) / LM_FAMILY_DECODE
+    counts = read_launches()
+    launches = counts.pop("flash_attention")
+    require(not any(counts.values()), f"[lm-encdec] launched another kernel: {counts}")
+    require(launches == n_enc + n_dec, "[lm-encdec] flash_attention launched in decode")
+    require(bool(finite), "[lm-encdec] non-finite decode logits")
+    if args.profile:  # after the counts are read: these launches are not the path's
+        profile_call(lambda: encdec.decode_train(params, cfg, toks, encdec.encode(
+            params, cfg, frames, attn_impl="kernel"), attn_impl="kernel"),
+            f"{args.profile}.lm-encdec-prefill", f"warm encode + decode_train, batch {B}", device)
+        profile_call(lambda: model.decode_step(params, tok, cache, LM_FAMILY_DECODE - 1),
+                     f"{args.profile}.lm-encdec-decode", f"one decode step, batch {B}", device)
+    peak = torch.cuda.max_memory_allocated() if card_run else None
+    say("lm-encdec", card=card, batch=B, frames=F, tokens=S, decode_steps=LM_FAMILY_DECODE,
+        launches_encoder=n_enc, launches_decoder=n_dec,
+        **{k: round(v, 4) for k, v in secs.items()}, max_memory_allocated=peak,
+        last_logits_absmax=float(logits.float().abs().max()),
+        decoded_row0=[int(t[0]) for t in decoded[:8]])
+    del model, params, cache, enc, logits, frames
+    free(device)
+
+    # float32: the kernel on every layer at full depth, end to end at the cut
+    cfg32 = f32_config(cfg)
+    params = get_model(cfg32).init(args.seed + 1, device=device)
+    frames = seeded((2, F, cfg.d_model), args.seed + 1, device)
+    toks = toks[:2]
+    layer, full_depth = encdec_layerwise(params, cfg32, frames, toks)
+    cut = f32_config(cfg, n_layers=WHISPER_CHECK_LAYERS, n_enc_layers=WHISPER_CHECK_LAYERS)
+    cparams = dict(params, enc=layer_params(params["enc"], slice(0, WHISPER_CHECK_LAYERS)),
+                   dec=layer_params(params["dec"], slice(0, WHISPER_CHECK_LAYERS)))
+    model = get_model(cut)
+    batch = {"frames": frames, "tokens": toks}
+    lk, _ = model.forward(cparams, batch, attn_impl="kernel")
+    ld, _ = model.forward(cparams, batch, attn_impl="dense")
+    require(bool(torch.isfinite(lk).all()), "[lm-encdec] f32 kernel logits not finite")
+    top = float(ld.abs().max())
+    checks = {"kernel_vs_dense_rel": float((lk - ld).abs().max()) / top}
+    lp_, _ = model.forward(cparams, dict(batch, frames=frames * (1 + 1e-7)), attn_impl="dense")
+    checks["perturbed_frames_rel"] = float((lp_ - ld).abs().max()) / top
+    del ld, lp_
+    enc = encdec.encode(cparams, cut, frames, attn_impl="kernel")
+    cache = model.init_cache(2, S, dtype=torch.float32, enc_seq=F, device=device)
+    cache["xk"], cache["xv"] = encdec.prefill_cross(cparams, cut, enc)
+    dec = []
+    for t in range(S):
+        li, cache = model.decode_step(cparams, toks[:, t], cache, t)
+        dec.append(li)
+    checks["decode_vs_decode_train_rel"] = (float((torch.stack(dec, 1) - lk).abs().max())
+                                            / float(lk.abs().max()))
+    for k in ("kernel_vs_dense_rel", "decode_vs_decode_train_rel"):
+        require(checks[k] <= LM_TOL, f"[lm-encdec] f32 {k}: {checks[k]} > {LM_TOL}")
+    say("lm-encdec", card=card, step="float32", layers_checked=cfg.n_enc_layers + cfg.n_layers,
+        **{f"layerwise_{k}": v for k, v in layer.items()},
+        **{f"e2e_{k}_full_depth": v for k, v in full_depth.items()},
+        check_layers=f"{WHISPER_CHECK_LAYERS}+{WHISPER_CHECK_LAYERS}", batch=2, frames=F,
+        decode_steps=S, **checks, tol=LM_TOL)
+    del model, params, cparams, cache, enc, lk, dec
+    free(device)
+    return dict(launches=launches, launches_encoder=n_enc, launches_decoder=n_dec, secs=secs,
+                peak=peak, checks=checks, arch=cfg.arch_id)
 
 
 # ------------------------------------------- the fixed-order scatter
@@ -3268,6 +3804,7 @@ def main():
     kworst = phase_kernel_kernels(device)
     n_minplus_cases = phase_minplus_kernels(device)
     fl_abs, fl_rel, fl_shape, fl_bound, fl_timing = phase_flash_kernels(device)
+    fam_flash = {path: flash_timed(*shape, device) for path, shape in FAMILY_FLASH_SHAPES.items()}
     n_seg_cases = phase_segment_kernels(device)
     say("kernels", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
@@ -3337,6 +3874,17 @@ def main():
     t1 = time.perf_counter()
     lm_launches, lm_secs, lm_checks = phase_lm(args, device, card)
     say("lm", seconds=round(time.perf_counter() - t1, 1))
+    families = {}
+    for tag, phase in (("lm-moe", phase_lm_moe), ("lm-rwkv", phase_lm_rwkv),
+                       ("lm-hybrid", phase_lm_hybrid), ("lm-encdec", phase_lm_encdec),
+                       ("lm-mrope", phase_lm_mrope)):
+        t1 = time.perf_counter()
+        families[tag] = phase(args, device, card)
+        say(tag, seconds=round(time.perf_counter() - t1, 1), peak=families[tag]["peak"])
+    fam_launches = {"lm-moe": families["lm-moe"]["launches"],
+                    "lm-encdec-encoder": families["lm-encdec"]["launches_encoder"],
+                    "lm-encdec-decoder": families["lm-encdec"]["launches_decoder"],
+                    "lm-mrope": families["lm-mrope"]["launches"]}
 
     # each path's launches were read right after that path's queries: the
     # launches made since, to compare a kernel with its plain version, do
@@ -3346,6 +3894,8 @@ def main():
         require(tq_launches > 0, "the rfs kernel path never launched tree_query")
         require(mp_launches > 0, "the shortest-path path never launched minplus_matmul")
         require(lm_launches > 0, "the lm prefill path never launched flash_attention")
+        require(all(n > 0 for n in fam_launches.values()),
+                f"an LM family path never launched flash_attention: {fam_launches}")
         require(all(r["launches"] > 0 for r in main_codec.values()),
                 "a [main-codec] path never launched its fused_walk instantiation")
         require(all(r["launches"] > 0 for r in drfs_codec.values()),
@@ -3415,6 +3965,14 @@ def main():
               fl_timing, "src/repro/kernels/flash_attention.py:72",
               main_path=dict(arch="qwen2.5-3b", **lm_secs, **lm_checks)),
     ]
+    # the other LM families: one flash_attention entry per path that runs it,
+    # timed at that path's own shape (rwkv and the hybrid run no kernel)
+    for path, (ea, er, eshape, ebound, etiming) in fam_flash.items():
+        fam = families[path.removesuffix("-encoder").removesuffix("-decoder")]
+        kernels.append(entry("flash_attention", path, fam_launches[path], ea, er, eshape, ebound,
+                             etiming, "src/repro/kernels/flash_attention.py:72",
+                             main_path=dict(arch=fam["arch"], **fam["secs"], **fam["checks"],
+                                            peak=fam["peak"])))
     # one entry per (kernel, path, table dtype) a table codec ran: the error
     # is the worst of the path's blocks and of the in-place sweep of that dtype
     for codec, dtype in CODEC_DTYPES.items():

@@ -37,7 +37,7 @@ import torch
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.models.registry import get_model
 
-__all__ = ["serve_tnkde", "serve_lm", "main"]
+__all__ = ["serve_tnkde", "serve_lm", "pad_cache", "main"]
 
 
 def serve_tnkde(
@@ -250,21 +250,46 @@ def serve_tnkde(
     return list(rep.latencies)
 
 
+def pad_cache(cfg, cache, prompt_len: int, decode_len: int):
+    """A prefill's cache made room for ``decode_len`` more tokens: every
+    5-D leaf whose sequence axis holds the ``prompt_len`` prompt rows
+    (``[L, B, S, Kv, hd]``) is padded by ``decode_len`` rows, the others (the
+    rwkv and RG-LRU states) stay as they are — the reference's padding. A
+    hybrid's window caches are ring buffers of ``min(local_window, S)`` rows:
+    they grow only while the window is not full, to ``min(local_window,
+    prompt_len + decode_len)`` rows, the tail's per-layer windows with them."""
+    if cfg.family == "hybrid":
+        rows = min(cfg.local_window or prompt_len + decode_len, prompt_len + decode_len)
+
+        def grow(c):
+            return torch.nn.functional.pad(c, (0, 0, 0, 0, 0, rows - c.shape[-3]))
+
+        return {key: ([{n: grow(t) if n in ("k", "v") else t for n, t in st.items()}
+                       for st in sts] if key == "tail"
+                      else {n: grow(t) if n in ("k", "v") else t for n, t in sts.items()})
+                for key, sts in cache.items()}
+    return {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, decode_len))
+            if c.dim() == 5 and c.shape[2] == prompt_len else c for k, c in cache.items()}
+
+
 def serve_lm(*, arch: str = "qwen2.5-3b", prompt_len: int = 32, decode_len: int = 16,
              batch: int = 4, attn_impl: str = "auto", device="cuda", log_fn=print):
     """Prefill ``batch`` prompts of ``prompt_len`` tokens and decode
     ``decode_len`` greedy tokens; returns the decoded tokens, one [batch]
-    array per step."""
+    array per step. Every decoder-only family; the encoder-decoder has no
+    prefill (its ``ModelAPI.prefill`` is None, as in the reference)."""
     cfg = reduce_for_smoke(get_config(arch))
     model = get_model(cfg)
+    if model.prefill is None:
+        raise ValueError(f"serve_lm: {arch} is an encoder-decoder and has no prefill; serve it "
+                         "with models.encdec.encode, prefill_cross and decode_step")
     params = model.init(0, device=device)
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (batch, prompt_len)), dtype=torch.long,
                            device=device)
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, {"tokens": toks}, attn_impl=attn_impl)
-    # pad the cache for decode_len more tokens
-    cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, decode_len)) for k, c in cache.items()}
+    cache = pad_cache(cfg, cache, prompt_len, decode_len)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     log_fn(f"[serve-lm] {arch} prefill {prompt_len} toks x{batch}: {time.perf_counter()-t0:.2f}s")

@@ -148,8 +148,9 @@ def attention(p, x, cfg: ModelConfig, rope, *, causal=True, window=0, impl: str 
         out = _blocked_attn(q, k, v, causal=causal, window=window)
     else:
         if window:
-            raise NotImplementedError("the flash_attention kernel has no sliding window "
-                                      "(the hybrid family, ROADMAP A10b)")
+            raise NotImplementedError("the flash_attention kernel has no sliding window (nor "
+                                      "has the reference's Pallas kernel): use 'dense' or "
+                                      "'blocked'")
         from repro_torch.kernels import ops
 
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),

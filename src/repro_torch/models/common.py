@@ -12,13 +12,20 @@ from typing import Optional
 
 import torch
 
-__all__ = ["dtype_of", "rms_norm", "layer_norm", "rotary", "apply_rope", "Init"]
+__all__ = ["dtype_of", "rms_norm", "layer_norm", "rotary", "apply_rope", "mrope_positions",
+           "Init", "no_training"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def no_training(*args, **kwargs):
+    """Every family's ``loss_fn``: training is not ported yet."""
+    raise NotImplementedError("loss_fn: training is not ported yet (ROADMAP A10c: loss_fn, "
+                              "autograd through the plain paths, train/)")
 
 
 def rms_norm(x, gamma, eps: float):
@@ -55,6 +62,26 @@ def apply_rope(x, cos, sin):
     x1, x2 = x32[..., :half], x32[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dt)
+
+
+def mrope_positions(positions, sections, head_dim: int, theta: float):
+    """Qwen2-VL M-RoPE: the ``head_dim/2`` rotary frequencies are split into
+    ``sections`` (temporal / height / width), each rotated by its own
+    position stream. ``positions [B, 3, S]`` (for pure text the three streams
+    are equal, which gives :func:`rotary`'s tables). Returns cos/sin
+    ``[B, S, 1, head_dim/2]`` in float32."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim/2 = {half}")
+    exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (torch.tensor(theta, dtype=torch.float32, device=positions.device) ** exps)
+    cos, sin, off = [], [], 0
+    for i, sec in enumerate(sections):
+        ang = positions[:, i, :].float()[..., None] * freqs[off:off + sec]  # [B, S, sec]
+        cos.append(torch.cos(ang))
+        sin.append(torch.sin(ang))
+        off += sec
+    return torch.cat(cos, -1)[:, :, None, :], torch.cat(sin, -1)[:, :, None, :]
 
 
 class Init:

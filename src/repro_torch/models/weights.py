@@ -1,12 +1,13 @@
 """Carry the reference's weights and caches into the port.
 
-The JAX package's parameters and decode caches are nested dicts of arrays
-with the same keys, shapes and layer stacking as the port's
-(``models.transformer``). ``params_from_reference`` / ``cache_from_reference``
-take them as numpy arrays — e.g. ``jax.tree.map(np.asarray, params)`` — and
-return the port's tensors with the same dtypes (bfloat16 included), so the
-two packages can be held against each other on one set of weights. On the
-card there is no JAX: weights there come from the port's own seeded init.
+The JAX package's parameters and decode caches are nested dicts (and, for
+the hybrid family, lists) of arrays with the same keys, shapes and layer
+stacking as the port's (``models.transformer``, ``models.encdec``).
+``params_from_reference`` / ``cache_from_reference`` take them as numpy
+arrays — e.g. ``jax.tree.map(np.asarray, params)`` — and return the port's
+tensors with the same dtypes (bfloat16 included), so the two packages can be
+held against each other on one set of weights. On the card there is no JAX:
+weights there come from the port's own seeded init.
 """
 from __future__ import annotations
 
@@ -37,7 +38,27 @@ def params_from_reference(tree, *, device="cuda"):
     return _tree(tree, device)
 
 
-def cache_from_reference(cache, *, device="cuda"):
-    """The reference's dense decode cache ``{'k', 'v'}`` (``[L, B, S, Kv,
-    hd]`` numpy arrays) as the port's, on ``device``."""
-    return _tree(cache, device)
+def cache_from_reference(cache, cfg=None, *, device="cuda"):
+    """The reference's decode cache (numpy arrays) as the port's, on
+    ``device``: every family's tree, the encoder-decoder's ``xk``/``xv``
+    included.
+
+    A hybrid cache (``p0``, ``p1``, …) gains the port's ``tail``. The
+    reference's hybrid prefill and decode leave out the ``n_layers mod
+    len(block_pattern)`` tail layers (ROADMAP Queue C item 11), so its cache
+    has no states for them: for a ``cfg`` with tail layers this raises
+    rather than serve them from zeros, and ``cfg`` is required to tell."""
+    out = _tree(cache, device)
+    if "p0" in out and "tail" not in out:
+        if cfg is None:
+            raise ValueError("cache_from_reference: a hybrid cache needs cfg to tell whether "
+                             "the config has tail layers")
+        n_tail = cfg.n_layers % len(cfg.block_pattern)
+        if n_tail:
+            raise ValueError(
+                f"cache_from_reference: {cfg.arch_id} has {n_tail} tail layer(s) after its "
+                f"{cfg.n_layers // len(cfg.block_pattern)} pattern periods, and the reference's "
+                "hybrid cache holds no state for them (ROADMAP Queue C item 11: the reference's "
+                "prefill and decode skip the tail); prefill with the port instead")
+        out["tail"] = []
+    return out

@@ -8,10 +8,15 @@ reference's ``'dense'``, ``'blocked'`` and ``'pallas'`` (interpret mode), and
 ``decode_step`` (``decode_loop`` ``'scan'`` and ``'fori'``) after a padded
 prefill, all at the reference's own tolerance (rtol = atol = 2e-4; the
 largest error measured was 5.3e-5, on gemma-2b's V cache, whose
-``embed_scale`` makes activations 8x larger). ``flash_attention_ref`` (what the CUDA kernel is held against on the
-card) is checked against the Pallas kernel in interpret mode over the
-reference's own sweep. The CUDA kernel itself is compiled and compared on
-the GPU by ``chip_smoke.py`` (``[flash-kernels]``, ``[lm]``).
+``embed_scale`` makes activations 8x larger). M-RoPE inputs (qwen2-vl-72b:
+``embeds`` with distinct position streams) through forward, prefill and
+text-position decode. ``serve_lm`` on every decoder-only family (the moe,
+rwkv and hybrid families have files of their own:
+``test_torch_lm_{moe,rwkv,hybrid,encdec}.py``). ``flash_attention_ref``
+(what the CUDA kernel is held against on the card) is checked against the
+Pallas kernel in interpret mode over the reference's own sweep. The CUDA
+kernel itself is compiled and compared on the GPU by ``chip_smoke.py``
+(``[flash-kernels]``, ``[lm]``, ``[lm-moe]``, ``[lm-encdec]``, ``[lm-mrope]``).
 """
 import dataclasses
 
@@ -41,6 +46,9 @@ from repro_torch.launch import serve
 from repro_torch.models import transformer
 from repro_torch.models.registry import get_model
 from repro_torch.models.weights import cache_from_reference, params_from_reference
+from torch_lm_common import port_init_matches_reference, ref_decode, ref_forward, ref_prefill
+from torch_lm_common import rel_err
+from torch_lm_common import world as lm_world
 
 DENSE = ["qwen2.5-3b", "granite-8b", "gemma-2b", "starcoder2-15b"]
 TOL = 2e-4  # tests/test_models_smoke.py's serving oracle
@@ -309,17 +317,118 @@ def test_flash_rejects_sequence_lengths_the_pallas_kernel_rejects():
         ops.flash_attention(q, q, q)
 
 
+# ------------------------------------------------------------------- M-RoPE
+MROPE = "qwen2-vl-72b"
+# bf16 forward logits with distinct M-RoPE streams against the reference's
+# bf16 ones, relative to max|logit|, both 'dense': read 2.7e-2
+MROPE_BF16_TOL = 5e-2
+
+
+def vision_text_positions(B, grid, n_text):
+    """Qwen2-VL position streams [B, 3, grid² + n_text]: a grid × grid patch
+    image (t = 0, h = row, w = column), then text continuing from the
+    largest image position + 1 on all three streams."""
+    r, c = np.divmod(np.arange(grid * grid), grid)
+    img = np.stack([np.zeros_like(r), r, c])
+    txt = np.broadcast_to(grid + np.arange(n_text), (3, n_text))
+    return np.broadcast_to(np.concatenate([img, txt], 1), (B, 3, grid * grid + n_text)).copy()
+
+
+@pytest.fixture(scope="module")
+def mrope_world():
+    rcfg, pcfg, params, tp = lm_world(MROPE)
+    assert pcfg.mrope_sections is not None
+    rng = np.random.default_rng(8)
+    embeds = (rng.normal(size=(2, 13, pcfg.d_model)) * 0.02).astype(np.float32)
+    return rcfg, pcfg, params, tp, embeds, vision_text_positions(2, 3, 4)
+
+
+def test_mrope_positions_match_reference():
+    """Distinct streams against repro.models.common.mrope_positions; equal
+    streams give the plain rotary tables."""
+    from repro.models import common as rc
+    from repro_torch.models import common as pc
+
+    pos = vision_text_positions(2, 4, 5)
+    for sections, hd in (((16, 24, 24), 128), ((4, 2, 2), 16)):
+        jc, js = rc.mrope_positions(jnp.asarray(pos), sections, hd, 1e6)
+        tc, ts = pc.mrope_positions(torch.as_tensor(pos), sections, hd, 1e6)
+        assert tuple(tc.shape) == (2, pos.shape[2], 1, hd // 2)
+        np.testing.assert_allclose(_np(tc), np.asarray(jc), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(_np(ts), np.asarray(js), rtol=1e-6, atol=1e-6)
+        text = np.broadcast_to(np.arange(9), (2, 3, 9)).copy()
+        tc, ts = pc.mrope_positions(torch.as_tensor(text), sections, hd, 1e6)
+        c, s_ = pc.rotary(torch.arange(9), hd, 1e6)
+        assert torch.equal(tc, c[None, :, None, :].expand_as(tc))
+        assert torch.equal(ts, s_[None, :, None, :].expand_as(ts))
+    with pytest.raises(ValueError, match="sum to head_dim/2"):
+        pc.mrope_positions(torch.as_tensor(pos), (4, 2, 1), 16, 1e6)
+
+
+def test_mrope_param_tree(mrope_world):
+    _, pcfg, params, _, _, _ = mrope_world
+    port_init_matches_reference(pcfg, params, transformer.init_params)
+
+
+@pytest.mark.parametrize("impl", ["dense", "kernel"])
+def test_mrope_forward_and_prefill_match_reference(mrope_world, impl):
+    """Embeddings with distinct position streams (a 3 × 3 image, then text)
+    through forward and prefill; equal streams equal the plain-rope path."""
+    rcfg, pcfg, params, tp, embeds, pos = mrope_world
+    jb = {"embeds": jnp.asarray(embeds), "mrope_pos": jnp.asarray(pos, jnp.int32)}
+    tb = {"embeds": torch.as_tensor(embeds), "mrope_pos": torch.as_tensor(pos)}
+    model = get_model(pcfg)
+    want, _ = ref_forward(params, rcfg, embeds=jb["embeds"], mrope_pos=jb["mrope_pos"],
+                          attn_impl=IMPLS[impl])
+    got, _ = model.forward(tp, tb, attn_impl=impl)
+    _close(_np(got), want, f"mrope forward {impl}")
+    want_l, want_c = ref_prefill(params, rcfg, embeds=jb["embeds"], mrope_pos=jb["mrope_pos"],
+                                 attn_impl=IMPLS[impl])
+    got_l, got_c = model.prefill(tp, tb, attn_impl=impl)
+    _close(_np(got_l), want_l, f"mrope prefill logits {impl}")
+    for key in ("k", "v"):
+        _close(_np(got_c[key]), want_c[key], f"mrope prefill cache {key} {impl}")
+    text = torch.as_tensor(np.broadcast_to(np.arange(13), (2, 3, 13)).copy())
+    same, _ = model.prefill(tp, {"embeds": tb["embeds"], "mrope_pos": text}, attn_impl=impl)
+    plain, _ = model.prefill(tp, {"embeds": tb["embeds"]}, attn_impl=impl)
+    assert torch.equal(same, plain)
+
+
+def test_mrope_decode_matches_reference(mrope_world):
+    """After an image + text prefill, decode steps take text positions (a
+    plain rope at pos), as the reference's do."""
+    rcfg, pcfg, params, tp, embeds, pos = mrope_world
+    n = 2
+    _, rcache = ref_prefill(params, rcfg, embeds=jnp.asarray(embeds),
+                            mrope_pos=jnp.asarray(pos, jnp.int32), attn_impl="dense")
+    rcache = jax.tree.map(lambda c: jnp.pad(c, ((0, 0), (0, 0), (0, n), (0, 0), (0, 0))), rcache)
+    _, cache = transformer.prefill(tp, pcfg, embeds=torch.as_tensor(embeds),
+                                   mrope_pos=torch.as_tensor(pos), attn_impl="kernel")
+    cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, n)) for k, c in cache.items()}
+    toks = np.random.default_rng(2).integers(0, pcfg.vocab, (2, n))
+    for i in range(n):
+        want, rcache = ref_decode(params, rcfg, jnp.asarray(toks[:, i], jnp.int32), rcache,
+                                  jnp.int32(13 + i))
+        got, cache = transformer.decode_step(tp, pcfg, torch.as_tensor(toks[:, i]), cache, 13 + i)
+        _close(_np(got), want, f"mrope decode step {i}")
+        for k in ("k", "v"):
+            _close(_np(cache[k]), rcache[k], f"mrope decode cache {k}")
+
+
+def test_mrope_bf16_matches_reference_bf16():
+    rcfg, pcfg, params, tp = lm_world(MROPE, param_dtype="bfloat16", compute_dtype="bfloat16")
+    embeds = (np.random.default_rng(8).normal(size=(2, 13, pcfg.d_model)) * 0.02).astype(
+        np.float32)
+    pos = vision_text_positions(2, 3, 4)
+    want, _ = ref_forward(params, rcfg, embeds=jnp.asarray(embeds, jnp.bfloat16),
+                          mrope_pos=jnp.asarray(pos, jnp.int32), attn_impl="dense")
+    got, _ = transformer.forward(tp, pcfg, embeds=torch.as_tensor(embeds).bfloat16(),
+                                 mrope_pos=torch.as_tensor(pos), attn_impl="dense")
+    assert got.dtype == torch.bfloat16
+    assert rel_err(_np(got), np.asarray(want, np.float32)) <= MROPE_BF16_TOL
+
+
 # ----------------------------------------------------------- what is not served
-@pytest.mark.parametrize("arch", sorted(a for a, c in REF_ARCHS.items()
-                                        if c.family != "dense" or c.is_encdec))
-def test_other_families_raise(arch):
-    cfg = configs.reduce_for_smoke(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        get_model(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10b"):
-        transformer.init_params(cfg, device="cpu")
-
-
 def test_unported_inputs_and_names_raise(world):
     cfg = configs.reduce_for_smoke(configs.get_config("qwen2.5-3b"))
     _, _, tp, toks = world["qwen2.5-3b"]
@@ -327,13 +436,44 @@ def test_unported_inputs_and_names_raise(world):
     tt = torch.as_tensor(toks)
     with pytest.raises(ValueError, match="'kernel'"):
         model.prefill(tp, {"tokens": tt}, attn_impl="pallas")
-    with pytest.raises(NotImplementedError, match="M-RoPE"):
-        model.forward(tp, {"tokens": tt, "mrope_pos": torch.zeros((2, 3, 13), dtype=torch.long)})
     with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
         model.loss_fn(tp, {"tokens": tt, "labels": tt})
     with pytest.raises(ValueError, match="decode_loop"):
         transformer.decode_step(tp, dataclasses.replace(cfg, decode_loop="while"), tt[:, 0],
                                 transformer.init_cache(cfg, 2, 4, device="cpu"), 0)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "rwkv6-3b", "recurrentgemma-9b", MROPE])
+def test_serve_lm_every_family(arch):
+    """serve_lm on each decoder-only family beside the dense one (qwen2-vl
+    from tokens: text positions): prefill, the cache padded where its
+    sequence axis holds the prompt (the hybrid's window caches only up to
+    the window), greedy decode; 'kernel' and 'dense' decode the same tokens.
+    The encoder-decoder has no prefill and is refused."""
+    n0 = ops.flash_attention.launches
+    runs = [serve.serve_lm(arch=arch, prompt_len=24, decode_len=12, batch=2, attn_impl=impl,
+                           device="cpu", log_fn=lambda line: None) for impl in ("kernel", "dense")]
+    assert ops.flash_attention.launches == n0
+    assert len(runs[0]) == 12 and all(t.shape == (2,) for t in runs[0])
+    assert all((a == b).all() for a, b in zip(*runs))
+    with pytest.raises(ValueError, match="no prefill"):
+        serve.serve_lm(arch="whisper-tiny", device="cpu")
+
+
+def test_serve_lm_pads_only_prompt_rows():
+    """pad_cache: 5-D caches whose sequence axis holds the prompt grow by
+    decode_len; rwkv states keep their shapes; a hybrid window grows only
+    until it holds local_window rows."""
+    rw = configs.reduce_for_smoke(configs.get_config("rwkv6-3b"))
+    cache = transformer.init_cache(rw, 2, 8, device="cpu")
+    padded = serve.pad_cache(rw, cache, 8, 4)
+    assert all(padded[k].shape == cache[k].shape for k in cache)
+    hy = configs.reduce_for_smoke(configs.get_config("recurrentgemma-9b"))
+    for P, T, rows in ((8, 4, 12), (24, 20, 32), (32, 8, 32)):
+        cache = transformer.init_cache(hy, 2, P, device="cpu")
+        padded = serve.pad_cache(hy, cache, P, T)
+        assert padded["p2"]["k"].shape[2] == rows
+        assert padded["p0"]["h"].shape == cache["p0"]["h"].shape
 
 
 def test_serve_lm_on_cpu():
