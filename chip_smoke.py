@@ -81,7 +81,19 @@ Table-3 berkeley replica:
   decode against forward; the kernel against ``'dense'`` where the family
   runs it; whisper's kernel on all 8 layers' activations against float64).
   ``flash_attention`` is held against its plain version and timed against
-  SDPA at each of these paths' shapes first.
+  SDPA at each of these paths' shapes first;
+* ``[train-check]`` and ``[train]`` training (no hand-written kernel: the
+  reference's Pallas kernel has no backward, and training attends with
+  ``'auto'``): float32 at full width cut to 2 layers, 1 × 512 tokens — the
+  loss and every gradient leaf against the same step in float64, remat
+  ``'full'`` against ``'none'``, the int8 cross-pod mean of two members'
+  gradients within scale/2 of their exact mean and one hierarchical step on
+  a 2-member pod of this card; then qwen2.5-3b at full width trained
+  ``TRAIN_STEPS`` steps through ``launch.train.run_training`` (bf16
+  parameters, float32 AdamW, remat ``'full'``, 2 × 2 048 tokens a step):
+  each step's seconds, tokens/s, loss, ce, grad norm and lr, the model-FLOP
+  rate, the peak memory, no launch of any hand-written kernel; then the
+  cost of the stacked-gradient route the trainer avoids.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; ``[*-shapes]`` then holds every block the path gave a kernel against
@@ -3013,6 +3025,293 @@ def phase_lm_mrope(args, device, card):
     return dict(launches=launches, secs=secs, peak=peak, checks=checks, arch=cfg.arch_id)
 
 
+TRAIN_STEPS = 6  # [train]: steps of full-width qwen2.5-3b through run_training
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+# [train-check]: qwen2.5-3b at full width cut to 2 layers (at 36 the random
+# weights amplify any change of arithmetic, as [lm] finds: their gradients
+# grow ~5x a layer back to the embedding, [train] step=grad-scale), float32
+# against the same step in float64, 1 x 512 tokens. The loss within
+# TRAIN_LOSS_TOL relative; each gradient leaf within TRAIN_GRAD_TOL of its
+# max|g|. Float32 itself reads 7.0e-3 there on an H100 (the embedding; the
+# first layer's wq 6.3e-3: attention logits ~1e3 amplify the rounding of
+# the softmax's backward), so the limit is set by a control, as LM_TOL is:
+# the same step with TF32 matrix products (a 10-bit mantissa) reads 3.09 and
+# must read above it. 'full' against 'none' remat to the same limits (read
+# 0.0 on the card, where the recomputed layer adds in the same order)
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_SEQ = 2, 512
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 2e-2
+
+
+def train_grads(model, params, batch):
+    """(loss, {path: gradient}) of ``model.loss_fn`` the way the train step
+    takes them: one leaf per layer (``train_step.layer_views``)."""
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import layer_views
+
+    views = layer_views(params, lambda t: t.detach().requires_grad_())
+    loss, _ = model.loss_fn(views, batch)
+    leaves = tree_leaves(views)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return loss.detach(), grads
+
+
+def leaf_paths(tree, pre=""):
+    """Leaf paths in ``train.optimizer.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{pre}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in leaf_paths(v, f"{pre}/{i}")]
+    return [pre]
+
+
+def grads_vs(got, want, paths):
+    """{path: max|got - want| / max|want|} (float64), the worst first."""
+    out = {}
+    for name, g, w in zip(paths, got, want):
+        scale = float(w.abs().max())
+        if scale:
+            out[name] = float((g.double() - w.double()).abs().max()) / scale
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def phase_train(args, device, card):
+    """qwen2.5-3b at full width (36 layers, d 2 048, 16/2 heads, d_ff
+    11 008, vocab 151 936, tied; seeded weights) trained TRAIN_STEPS steps
+    through ``launch.train.run_training(device='cuda')``: bf16 parameters,
+    float32 AdamW state, remat 'full', attn_impl 'auto' (dense at 2 048
+    tokens), TokenPipeline batches of TRAIN_BATCH x TRAIN_SEQ, lr 3e-4 with
+    2 warmup steps, no checkpoint directory. The step seconds are read off
+    the trainer's log lines (one per step, each after the step's loss came
+    back to the host): the first from the call, so it holds the init of the
+    parameters and the AdamW state. The counts of every hand-written
+    kernel are set to 0 before and read after: training launches none.
+    Then the cost of the gradient route the trainer avoids: the backward of
+    36 ``stack[i]`` reads of the full-width layer stacks into the stacks'
+    gradient, against per-layer leaves. The rehearsal runs the reduced
+    miniature."""
+    import dataclasses
+
+    from repro_torch.launch.train import run_training
+
+    small = device == "cpu"
+    cfg = dataclasses.replace(family_config("qwen2.5-3b", device), remat="full")
+    B, S = (2, 128) if small else (TRAIN_BATCH, TRAIN_SEQ)
+    if not small:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    stamps, lines = [], []
+
+    def log(line):
+        stamps.append(time.perf_counter())
+        lines.append(line)
+        print(line, flush=True)
+
+    t0 = time.perf_counter()
+    params, opt, losses = run_training(cfg, steps=TRAIN_STEPS, global_batch=B, seq_len=S,
+                                       lr=TRAIN_LR, warmup=TRAIN_WARMUP, seed=args.seed,
+                                       log_every=1, log_fn=log, device=device)
+    counts = read_launches()
+    require(not any(counts.values()), f"[train] launched a hand-written kernel: {counts}")
+    require(int(opt.step) == TRAIN_STEPS and len(losses) == TRAIN_STEPS,
+            f"[train] {int(opt.step)} optimizer steps, {len(losses)} losses")
+    vals = [dict(zip(("loss", "ce", "gnorm", "lr"),
+                     (float(x) for x in line.split()[4:11:2]))) for line in lines]
+    require(all(np.isfinite(v).all() for v in (losses, [list(d.values()) for d in vals])),
+            f"[train] non-finite loss, ce, grad norm or lr: {vals}")
+    require(all(bool(torch.isfinite(t).all()) for t in _leaves(params)),
+            "[train] non-finite parameters after the steps")
+    step_s = [stamps[0] - t0] + [b - a for a, b in zip(stamps, stamps[1:])]
+    warm = step_s[1:]
+    tokens = B * S
+    flops = cfg.flops_per_token_train() * tokens
+    warm_s = sum(warm) / len(warm)
+    peak = torch.cuda.max_memory_allocated() if not small else None
+    for i, (sec, v) in enumerate(zip(step_s, vals)):
+        say("train", card=card, step=i, seconds=round(sec, 4), tokens_per_s=round(tokens / sec, 1),
+            **v, **({"includes": "init"} if i == 0 else {}))
+    out = dict(arch=cfg.arch_id, layers=cfg.n_layers, batch=B, seq=S, steps=TRAIN_STEPS,
+               params=sum(t.numel() for t in _leaves(params)), first_step_incl_init_s=step_s[0],
+               warm_step_s=warm_s, warm_steps_s=warm, tokens_per_s=tokens / warm_s,
+               model_flops_per_step=flops, model_flops_per_s=flops / warm_s,
+               model_flops_share_of_bf16_peak=flops / warm_s / PEAK_BF16_TC_FLOPS,
+               losses=losses, max_memory_allocated=peak, launches=counts)
+    say("train", card=card, **{k: v for k, v in out.items() if k not in ("losses", "launches")})
+    del params, opt
+    free(device)
+    out["grad_scale"] = grad_scale(cfg, device, args.seed)
+    say("train", card=card, step="grad-scale", **out["grad_scale"])
+    if not small:
+        out["select_grad"] = select_grad_cost(cfg, device)
+        say("train", card=card, step="select-gradient", **out["select_grad"])
+    return out
+
+
+def grad_scale(cfg, device, seed):
+    """How large the gradients of ``cfg`` are at its seeded init: one step's
+    (1 x 512 tokens, the trainer's per-layer leaves) float32 sum of squares
+    as the reference's clip takes it (``inf`` once it overflows), the global
+    norm accumulated in float64 as the port's, the largest |g|, and the norm
+    of the ``mlp.w_up`` gradient at five depths."""
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.train_step import layer_views
+
+    model = get_model(cfg)
+    params = model.init(seed, device=device)
+    paths = leaf_paths(layer_views(params))
+    batch = TokenPipeline(cfg.vocab, 64 if device == "cpu" else 512, 1, seed=seed).batch(0, device)
+    _, grads = train_grads(model, params, batch)
+    f64 = lambda g: float(torch.linalg.vector_norm(g, dtype=torch.float64))  # noqa: E731
+    L = cfg.n_layers
+    depths = sorted({0, L // 4, L // 2, 3 * L // 4, L - 1})
+    out = dict(f32_sum_of_squares=float(sum(torch.sum(torch.square(g.float())) for g in grads)),
+               f64_global_norm=sum(f64(g) ** 2 for g in grads) ** 0.5,
+               max_abs_grad=max(float(g.abs().max()) for g in grads),
+               w_up_grad_norm_by_depth={
+                   i: f64(grads[paths.index(f"/layers/{i}/mlp/w_up")]) for i in depths})
+    del params, grads
+    free(device)
+    return out
+
+
+def select_grad_cost(cfg, device):
+    """Seconds of the backward that reading layer i of a stack requiring
+    grad costs (one ``select`` backward per layer, each a zero tensor the
+    size of the stack added into its gradient), over the full-width layer
+    stacks of ``cfg``, against ``torch.unbind`` (one stack of the per-layer
+    gradients) — the trainer's per-layer leaves cost neither. Random bf16
+    per-layer gradients; one timed backward each, after one untimed."""
+    from repro_torch.models.registry import get_model
+
+    stacks = [t for t in _leaves(get_model(cfg).init(0, device=device)["layers"])]
+    grads = [torch.randn(t.shape, device=device).to(t.dtype) for t in stacks]
+    out = {}
+    for name, split in (("select", lambda x: [x[i] for i in range(x.shape[0])]),
+                        ("unbind", torch.unbind)):
+        for timed_run in (False, True):
+            xs = [t.detach().requires_grad_() for t in stacks]
+            outs, gs = [], []
+            for x, g in zip(xs, grads):
+                outs += list(split(x))
+                gs += list(g.unbind(0))
+            sync(device)
+            t1 = time.perf_counter()
+            torch.autograd.backward(outs, gs)
+            sync(device)
+            if timed_run:
+                out[f"{name}_backward_s"] = time.perf_counter() - t1
+            require(all(torch.equal(x.grad, g) for x, g in zip(xs, grads)),
+                    f"[train] {name} backward: wrong stacked gradient")
+            del xs, outs, gs
+    out["stack_bytes"] = sum(t.numel() * t.element_size() for t in stacks)
+    del stacks, grads
+    free(device)
+    return out
+
+
+def phase_train_check(args, device, card):
+    """float32 checks of the training step at full width, 2 layers, 1 x 512
+    tokens (TF32 off): loss and every gradient leaf against the same step in
+    float64; remat 'full' against 'none'; one hierarchical step on a 2-member
+    pod on this device, and its int8 mean of the members' gradients within
+    scale/2 per element of their exact mean."""
+    import dataclasses
+
+    from repro_torch.core.distributed import ShardMesh
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.grad_compression import compressed_tree_allreduce, init_residuals
+    from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
+    from repro_torch.train.train_step import make_train_step
+
+    small = device == "cpu"
+    cfg = f32_config(family_config("qwen2.5-3b", device), n_layers=TRAIN_CHECK_LAYERS,
+                     remat="full")
+    S = 64 if small else TRAIN_CHECK_SEQ
+    t0 = time.perf_counter()
+    model = get_model(cfg)
+    params = model.init(args.seed + 2, device=device)
+    from repro_torch.train.train_step import layer_views
+
+    paths = leaf_paths(layer_views(params))
+    batch = TokenPipeline(cfg.vocab, S, 2, seed=args.seed).batch(0, device)
+    one = {k: v[:1] for k, v in batch.items()}
+    loss, g32 = train_grads(model, params, one)
+    cfg64 = dataclasses.replace(cfg, param_dtype="float64", compute_dtype="float64")
+    p64 = tree_map(lambda t: t.double(), params)
+    loss64, g64 = train_grads(get_model(cfg64), p64, one)
+    del p64
+    loss_rel = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    by_leaf = grads_vs(g32, g64, paths)
+    loss_none, g_none = train_grads(get_model(dataclasses.replace(cfg, remat="none")), params,
+                                    one)
+    remat_loss_rel = abs(float(loss_none) - float(loss)) / abs(float(loss))
+    remat_by_leaf = grads_vs(g_none, g32, paths)
+    del g_none
+    # the control: TF32 matrix products (a 10-bit mantissa) against float64
+    # must read above the limit, or the limit does not tell a change of
+    # arithmetic from float32's own rounding (as [lm]'s controls)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loss_tf32, g_tf32 = train_grads(model, params, one)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    control_by_leaf = grads_vs(g_tf32, g64, paths)
+    control_loss_rel = abs(float(loss_tf32) - float(loss64)) / abs(float(loss64))
+    del g_tf32, g64, g32
+    grad_rel, remat_grad_rel = max(by_leaf.values()), max(remat_by_leaf.values())
+    control_grad_rel = max(control_by_leaf.values())
+    top = lambda d: {k: float(f"{v:.3e}") for k, v in list(d.items())[:6]}  # noqa: E731
+    say("train-check", card=card, step="by-leaf", f32_vs_f64=top(by_leaf),
+        remat_none_vs_full=top(remat_by_leaf), control_tf32_vs_f64=top(control_by_leaf),
+        control_tf32_loss_rel=control_loss_rel)
+    require(loss_rel <= TRAIN_LOSS_TOL and grad_rel <= TRAIN_GRAD_TOL,
+            f"[train-check] f32 vs f64: loss {loss_rel}, gradients {grad_rel}")
+    require(remat_loss_rel <= TRAIN_LOSS_TOL and remat_grad_rel <= TRAIN_GRAD_TOL,
+            f"[train-check] remat 'none' vs 'full': loss {remat_loss_rel}, gradients "
+            f"{remat_grad_rel}")
+    if not small:  # on the CPU the TF32 switch does nothing
+        require(control_grad_rel > TRAIN_GRAD_TOL,
+                f"[train-check] the limit {TRAIN_GRAD_TOL} does not tell TF32 products "
+                f"({control_grad_rel}) from float32's")
+    # the pod: the members' gradients (batch halves) reduced by the int8
+    # error-feedback mean the hierarchical step runs, then the step itself
+    mesh = ShardMesh.on_one_device(2, device, axis="pod")
+    members = [train_grads(model, params, {k: v[i:i + 1] for k, v in batch.items()})[1]
+               for i in range(2)]
+    mean, _ = compressed_tree_allreduce(members, [[torch.zeros_like(g, dtype=torch.float32)
+                                                   for g in m] for m in members],
+                                        mesh.shard_devices(["pod"]))
+    worst = 0.0  # |int8 mean - exact mean| in units of the leaf's scale / 2
+    for m, a, b in zip(mean, *members):
+        scale = float(torch.maximum(a.abs().max(), b.abs().max())) / 127.0 + 1e-12
+        worst = max(worst, float((m - (a.double() + b.double()) / 2).abs().max()) / (scale / 2))
+    require(worst <= 1.0 + 1e-4, f"[train-check] int8 mean off the exact mean by {worst} x "
+            "scale/2")
+    del members, mean
+    step = make_train_step(model.loss_fn, cfg, mesh=mesh, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                           pod_compression=True)
+    before = float(params["layers"]["mlp"]["w_up"].double().sum())
+    params, opt, res, met = step(params, adamw_init(params), [init_residuals(params)] * 2,
+                                 batch)
+    require(int(opt.step) == 1 and all(bool(torch.isfinite(v)) for v in met.values()),
+            f"[train-check] hierarchical step: {met}")
+    require(float(params["layers"]["mlp"]["w_up"].double().sum()) != before,
+            "[train-check] hierarchical step left the parameters as they were")
+    out = dict(layers=cfg.n_layers, tokens=S, loss=float(loss), f32_vs_f64_loss_rel=loss_rel,
+               f32_vs_f64_grad_rel=grad_rel, remat_none_vs_full_loss_rel=remat_loss_rel,
+               remat_none_vs_full_grad_rel=remat_grad_rel, control_tf32_grad_rel=control_grad_rel,
+               control_tf32_loss_rel=control_loss_rel, int8_mean_err_half_scales=worst,
+               hier_loss=float(met["loss"]), hier_grad_norm=float(met["grad_norm"]),
+               tol_loss=TRAIN_LOSS_TOL, tol_grad=TRAIN_GRAD_TOL,
+               seconds=round(time.perf_counter() - t0, 3))
+    say("train-check", card=card, **out)
+    del params, opt, res, model
+    free(device)
+    return out
+
+
 def encdec_layerwise(params, cfg, frames, toks):
     """The kernel on every encoder and decoder layer's real activations (a
     dense float32 trunk, as lm_layerwise does for [lm]): each layer's
@@ -3881,6 +4180,10 @@ def main():
         t1 = time.perf_counter()
         families[tag] = phase(args, device, card)
         say(tag, seconds=round(time.perf_counter() - t1, 1), peak=families[tag]["peak"])
+    t1 = time.perf_counter()
+    train_check = phase_train_check(args, device, card)
+    train = phase_train(args, device, card)
+    say("train", seconds=round(time.perf_counter() - t1, 1), peak=train["max_memory_allocated"])
     fam_launches = {"lm-moe": families["lm-moe"]["launches"],
                     "lm-encdec-encoder": families["lm-encdec"]["launches_encoder"],
                     "lm-encdec-decoder": families["lm-encdec"]["launches_decoder"],

@@ -10,10 +10,12 @@ either package reads the other's checkpoints:
 
 A tree is a dict of arrays, nested dicts, lists or tuples. Leaves are
 numpy arrays, scalars or torch tensors (a tensor on the card is brought to
-the host before the write); ``None`` holds no leaf. Leaves are visited in
-the order the reference's ``jax.tree_util`` walk visits them — dict keys
-sorted, sequences by index — and keyed as its ``keystr`` writes them
-(``"['ptr']"`` for a flat dict, ``"['a'][0]"`` nested).
+the host before the write; bfloat16 stored as the reference stores it);
+``None`` holds no leaf. Leaves are visited in the order the reference's
+``jax.tree_util`` walk visits them — dict keys sorted, sequences by index,
+a NamedTuple's fields in order — and keyed as its ``keystr`` writes them
+(``"['ptr']"`` for a flat dict, ``"['a'][0]"`` nested, ``"['opt'].mu['a']"``
+for a field of a NamedTuple such as the optimizer's ``AdamWState``).
 
 Properties:
   * **atomic**: the COMMIT marker is written after every array lands, and
@@ -54,6 +56,10 @@ def _crash_point(stage: str, detail: int = 0) -> None:
         _CRASH_HOOK(stage, detail)
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
+
 def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     """``[(keystr, leaf), ...]`` in the reference's leaf order."""
     if tree is None:
@@ -62,6 +68,11 @@ def _flatten(tree, prefix: str = "") -> List[Tuple[str, Any]]:
         out = []
         for k in sorted(tree):
             out += _flatten(tree[k], f"{prefix}[{k!r}]")
+        return out
+    if _is_namedtuple(tree):  # fields by name, as keystr writes a GetAttrKey
+        out = []
+        for name, v in zip(tree._fields, tree):
+            out += _flatten(v, f"{prefix}.{name}")
         return out
     if isinstance(tree, (list, tuple)):
         out = []
@@ -76,16 +87,50 @@ def _unflatten(skeleton, leaves):
     if skeleton is None:
         return None
     if isinstance(skeleton, dict):
-        return {k: _unflatten(skeleton[k], leaves) for k in sorted(skeleton)}
+        out = {k: _unflatten(skeleton[k], leaves) for k in sorted(skeleton)}
+        return {k: out[k] for k in skeleton}
+    if _is_namedtuple(skeleton):
+        return type(skeleton)(*(_unflatten(v, leaves) for v in skeleton))
     if isinstance(skeleton, (list, tuple)):
         return type(skeleton)(_unflatten(v, leaves) for v in skeleton)
     return next(leaves)
 
 
+# a bfloat16 leaf is stored as the reference stores one (NumPy has no
+# bfloat16: ml_dtypes' arrays are written as 2-byte records, '<V2', with
+# "bfloat16" in meta.json), so the files are byte for byte the reference's
+_BF16_DESCR = "<V2"
+
+
 def _to_host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        # a copy even on the CPU: the trainer updates its tensors in place
+        # while an async save is still writing the captured arrays
+        x = x.detach().to("cpu", copy=True)
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).numpy().view(_BF16_DESCR)
+        return x.numpy()
     return np.asarray(x)
+
+
+def _dtype_name(v: np.ndarray) -> str:
+    return "bfloat16" if v.dtype == np.dtype(_BF16_DESCR) else str(v.dtype)
+
+
+def _save_leaf(path: str, v: np.ndarray) -> None:
+    if v.dtype != np.dtype(_BF16_DESCR):
+        np.save(path, v)
+        return
+    with open(path, "wb") as f:  # np.save would write the record as '|V2'
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": _BF16_DESCR, "fortran_order": False, "shape": v.shape})
+        f.write(np.ascontiguousarray(v).tobytes())
+
+
+def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":  # the 2-byte records of a bfloat16 leaf
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.as_tensor(arr)
 
 
 def _step_dir(base: str, step: int) -> str:
@@ -147,7 +192,7 @@ def save_checkpoint(
                 "key": key,
                 "file": f"h0_l{idx:04d}.npy",
                 "shape": list(v.shape),
-                "dtype": str(v.dtype),
+                "dtype": _dtype_name(v),
             }
             for idx, (key, v) in enumerate(flat)
         ],
@@ -163,7 +208,7 @@ def save_checkpoint(
         os.makedirs(tmp, exist_ok=True)
         for idx, (_, v) in enumerate(flat):
             _crash_point("array", idx)
-            np.save(os.path.join(tmp, f"h0_l{idx:04d}.npy"), v)
+            _save_leaf(os.path.join(tmp, f"h0_l{idx:04d}.npy"), v)
         _crash_point("meta")
         with open(os.path.join(tmp, "meta.json"), "w") as f:
             json.dump(meta, f)
@@ -203,13 +248,15 @@ def _read_meta(base: str, step: Optional[int]) -> Tuple[str, int, dict]:
 
 
 def restore_checkpoint(
-    base: str, skeleton: Any, *, step: Optional[int] = None
+    base: str, skeleton: Any, *, step: Optional[int] = None, in_place: bool = False
 ) -> tuple[Any, int, dict]:
     """Restore into the structure of ``skeleton`` (a tree whose leaves have
     ``shape`` and ``dtype``: numpy arrays or torch tensors). Each leaf's
     shape is checked; it comes back in the skeleton leaf's dtype — a torch
-    tensor on the skeleton leaf's device, else a numpy array. Returns
-    ``(tree, step, extras)``."""
+    tensor on the skeleton leaf's device, else a numpy array. With
+    ``in_place`` every torch leaf of the skeleton is overwritten (``copy_``)
+    and is itself the restored leaf, so a device never holds two copies of
+    the state. Returns ``(tree, step, extras)``."""
     d, step, meta = _read_meta(base, step)
     by_key = {leaf["key"]: leaf for leaf in meta["leaves"]}
     out = []
@@ -220,7 +267,8 @@ def restore_checkpoint(
         if list(arr.shape) != list(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(leaf.shape)}")
         if isinstance(leaf, torch.Tensor):
-            out.append(torch.as_tensor(arr).to(device=leaf.device, dtype=leaf.dtype))
+            t = _from_host(arr, by_key[key]["dtype"])
+            out.append(leaf.copy_(t) if in_place else t.to(device=leaf.device, dtype=leaf.dtype))
         else:
             out.append(arr.astype(leaf.dtype, copy=False))
     return _unflatten(skeleton, iter(out)), step, meta["extras"]

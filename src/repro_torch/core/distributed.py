@@ -465,7 +465,7 @@ class ShardedForestEngine(_ShardedBase):
         the sharded flush for production meshes without running it). The
         port has no lowering step and no dry-run launcher yet."""
         raise NotImplementedError(
-            "lower_flush (the TPU dry-run of the sharded flush): ROADMAP.md Queue A10c"
+            "lower_flush (the TPU dry-run of the sharded flush): ROADMAP.md Queue A10d"
         )
 
 

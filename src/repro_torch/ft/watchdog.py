@@ -4,8 +4,8 @@ StepWatchdog keeps a rolling window of step wall-times; a step beyond
 ``zmax`` sigmas (or ``hard_timeout``) flags a straggler — the serve tier
 counts it and the router marks the replica SUSPECT. PreemptionHandler turns
 SIGTERM (a cloud's preemption warning) into a final synchronous checkpoint
-and an exit-intent flag, so a restart loses no step; on one card it has no
-caller, and is kept so that ``ft/`` matches the reference.
+and an exit-intent flag, so a restart loses no step; the trainer
+(``launch/train.py``) installs it for the length of a run.
 """
 from __future__ import annotations
 

@@ -619,7 +619,16 @@ def flash_attention(q, k, v, *, causal: bool = True, scale: float | None = None)
     is taken as it is). Returns ``[B, H, S, D]`` of ``q.dtype``, laid out in
     memory as ``[B, S, H, D]`` (so ``.transpose(1, 2)`` of it is
     contiguous). Launches on the current stream and does not synchronise.
+
+    Forward only, on both devices: under autograd (grad enabled and any of
+    q, k, v requiring grad) it raises rather than hand back an output with
+    no gradient — the reference's Pallas kernel has no backward either.
     """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward (nor has the reference's Pallas kernel): "
+            "train with attn_impl='dense' or 'blocked' ('auto' picks one), or call it under "
+            "torch.no_grad()")
     B, H, S, D = q.shape
     check_seq_len(S)
     if q.device.type == "cpu":

@@ -1,0 +1,140 @@
+"""End-to-end trainer: data pipeline -> train step -> checkpoints, with
+auto-resume, preemption and the step watchdog (``repro.launch.train``).
+
+Trains on the card unless asked otherwise; without a CUDA device it raises
+rather than fall back to the CPU (``--device cpu`` / ``device="cpu"``
+trains there).
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
+      --steps 4 --batch 2 --seq 2048            # full width, one H100
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --reduce \\
+      --steps 300 --batch 8 --seq 256 --ckpt-dir runs/train --device cpu
+
+A full-width qwen2.5-3b step at 2 × 2 048 tokens needs ≈ 60-75 GB of the
+card: bf16 parameters and gradients, the float32 master weights and
+moments, the activations of one layer at a time (``remat='full'``).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import signal
+import time
+
+import torch
+
+from repro_torch.ckpt import CheckpointManager, latest_step, restore_checkpoint
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.data.synthetic import TokenPipeline
+from repro_torch.ft.watchdog import PreemptionHandler, StepWatchdog
+from repro_torch.models.registry import get_model
+from repro_torch.train.optimizer import adamw_init
+from repro_torch.train.train_step import make_train_step
+
+__all__ = ["run_training", "main"]
+
+
+def run_training(cfg, *, steps: int, global_batch: int, seq_len: int, lr: float = 3e-4,
+                 warmup: int = 50, ckpt_dir: str | None = None, ckpt_every: int = 100,
+                 mesh=None, seed: int = 0, log_every: int = 10, log_fn=print, device="cuda"):
+    """Train ``cfg`` from seeded weights (or the newest checkpoint under
+    ``ckpt_dir``) up to step ``steps`` on ``device`` -> (params, opt_state,
+    losses of the steps run). Batch ``t`` is ``TokenPipeline(seed).batch(t)``,
+    so a resumed run sees the stream an uninterrupted one would. ``mesh``
+    must be None: sharded training is ROADMAP A10d."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("run_training: no CUDA device; pass device='cpu' to train on the CPU")
+    if mesh is not None:
+        raise NotImplementedError("run_training: sharded training (mesh=) is ROADMAP A10d")
+    model = get_model(cfg)
+    pipe = TokenPipeline(cfg.vocab, seq_len, global_batch, seed=seed)
+    step_fn = make_train_step(model.loss_fn, cfg, lr=lr, warmup=warmup)
+    params = model.init(seed, device=device)
+    opt = adamw_init(params)
+    start = 0
+    mgr = CheckpointManager(ckpt_dir, every=ckpt_every) if ckpt_dir else None
+    if ckpt_dir and latest_step(ckpt_dir) is not None:
+        # into the live tensors: the card never holds the state twice
+        tree, start, _ = restore_checkpoint(ckpt_dir, {"params": params, "opt": opt},
+                                            in_place=True)
+        params, opt = tree["params"], tree["opt"]
+        log_fn(f"[train] resumed from step {start}")
+    wd = StepWatchdog()
+    pre = PreemptionHandler(
+        on_preempt=lambda: mgr and mgr.maybe_save(cur_step, {"params": params, "opt": opt},
+                                                  force=True)
+    )
+    prev_handler = signal.getsignal(signal.SIGTERM)
+    pre.install()
+    losses = []
+    cur_step = start
+    try:
+        for cur_step in range(start, steps):
+            batch = pipe.batch(cur_step, device)  # pure fn of step: restart-deterministic
+            wd.step_start()
+            params, opt, metrics = step_fn(params, opt, batch)
+            loss = float(metrics["loss"])  # waits for the step
+            straggler = wd.step_end()
+            losses.append(loss)
+            if cur_step % log_every == 0 or cur_step == steps - 1:
+                log_fn(
+                    f"[train] step {cur_step} loss {loss:.4f} ce {float(metrics['ce']):.4f} "
+                    f"gnorm {float(metrics['grad_norm']):.3f} lr {float(metrics['lr']):.2e}"
+                    + (" [straggler]" if straggler else "")
+                )
+            if mgr:
+                mgr.maybe_save(cur_step + 1, {"params": params, "opt": opt})
+            if pre.poll():
+                log_fn("[train] preempted — checkpointed and exiting")
+                break
+        if mgr:
+            mgr.maybe_save(cur_step + 1, {"params": params, "opt": opt}, force=True)
+            mgr.wait()
+    finally:
+        signal.signal(signal.SIGTERM, prev_handler)
+    return params, opt, losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduce", action="store_true", help="smoke-size the config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--d-model", type=int, default=None, help="override width")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduce:
+        cfg = reduce_for_smoke(cfg)
+    if args.d_model:
+        cfg = dataclasses.replace(
+            cfg, d_model=args.d_model, head_dim=max(args.d_model // cfg.n_heads, 8)
+        )
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    t0 = time.time()
+    _, _, losses = run_training(
+        cfg,
+        steps=args.steps,
+        global_batch=args.batch,
+        seq_len=args.seq,
+        lr=args.lr,
+        ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every,
+        device=args.device,
+    )
+    print(
+        f"[train] done: {args.steps} steps in {time.time()-t0:.1f}s; "
+        f"loss {losses[0]:.3f} -> {losses[-1]:.3f}"
+    )
+
+
+if __name__ == "__main__":
+    main()

@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import Init, apply_rope, rms_norm
+from repro_torch.models.common import Init, apply_rope, rms_norm, wide
 
 NEG_INF = -1e30
 IMPLS = ("auto", "dense", "blocked", "kernel")
@@ -76,7 +76,7 @@ def _dense_attn(q, k, v, *, causal, window):
     rep = H // Kv
     scale = D ** -0.5
     qh = q.reshape(B, Sq, Kv, rep, D)
-    logits = torch.einsum("bqhrd,bkhd->bhrqk", qh, k).float() * scale
+    logits = wide(torch.einsum("bqhrd,bkhd->bhrqk", qh, k)) * scale
     rows = torch.arange(Sq, device=q.device)[:, None]
     cols = torch.arange(k.shape[1], device=q.device)[None, :]
     mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)

@@ -1,43 +1,99 @@
-"""Shared model plumbing: dtypes, norms, rotary embeddings, seeded init.
+"""Shared model plumbing: dtypes, norms, rotary embeddings, seeded init,
+the training loss and per-layer activation checkpointing.
 
 Parameters are plain nested dicts of tensors with the reference's keys and
 shapes (``repro.models``), layers stacked on a leading axis, so weights
 carry across one-to-one (``models.weights``). There are no logical sharding
-axes and no activation checkpointing here: those belong to sharding and
-training (ROADMAP A10).
+axes here: those belong to sharding (ROADMAP A10d).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
-__all__ = ["dtype_of", "rms_norm", "layer_norm", "rotary", "apply_rope", "mrope_positions",
-           "Init", "no_training"]
+__all__ = ["dtype_of", "wide", "rms_norm", "layer_norm", "rotary", "apply_rope",
+           "mrope_positions", "Init", "cross_entropy", "REMAT_POLICIES", "maybe_remat"]
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+# float64 beside the reference's three: a float64 run of a float32 config is
+# the yardstick its float32 gradients are read against
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16,
+           "float64": torch.float64}
+
+_aten = torch.ops.aten
+#: activation-checkpoint policies applied to each layer (the reference's
+#: ``jax.checkpoint_policies``): ``'none'`` keeps every activation, ``'full'``
+#: keeps only the layer's inputs and recomputes the rest in the backward,
+#: ``'dots'`` also keeps the outputs of the matrix products (``mm``,
+#: ``addmm``, ``bmm``) and ``'dots_no_batch'`` those of the products without
+#: a batch dimension (``mm``, ``addmm``). A policy changes memory and time,
+#: never values.
+REMAT_POLICIES = {
+    "none": None,
+    "full": (),
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default),
+    "dots_no_batch": (_aten.mm.default, _aten.addmm.default),
+}
 
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def no_training(*args, **kwargs):
-    """Every family's ``loss_fn``: training is not ported yet."""
-    raise NotImplementedError("loss_fn: training is not ported yet (ROADMAP A10c: loss_fn, "
-                              "autograd through the plain paths, train/)")
+def wide(x):
+    """``x`` in float32 where the reference widens to float32; a float64
+    ``x`` stays float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
+def maybe_remat(fn, remat: str):
+    """``fn`` run under the activation-checkpoint policy ``remat`` (a key of
+    :data:`REMAT_POLICIES`) whenever autograd records; called as it is
+    otherwise (serving)."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat must be one of {tuple(REMAT_POLICIES)}, got {remat!r}")
+    saved = REMAT_POLICIES[remat]
+    if saved is None:
+        return fn
+    kw = {}
+    if saved:
+        kw["context_fn"] = functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                                             list(saved))
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # the models draw no random numbers: no RNG state to replay
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return run
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token cross entropy in float32 (float64 for float64
+    logits): ``Σ (lse − gold)·mask /
+    max(Σ mask, 1)``, or the plain mean over every position when ``mask`` is
+    None (the reference's ``loss_fn``s)."""
+    lf = wide(logits)
+    nll = torch.logsumexp(lf, dim=-1) - torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(lf.dtype)
+    return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 def rms_norm(x, gamma, eps: float):
     dt = x.dtype
-    x32 = x.float()
+    x32 = wide(x)
     nrm = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
-    return (nrm * (1.0 + gamma.float())).to(dt)
+    return (nrm * (1.0 + gamma.to(x32.dtype))).to(dt)
 
 
 def layer_norm(x, gamma, beta, eps: float):
     dt = x.dtype
-    x32 = x.float()
+    x32 = wide(x)
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
     return ((x32 - mu) * torch.rsqrt(var + eps) * gamma + beta).to(dt)
@@ -57,7 +113,7 @@ def apply_rope(x, cos, sin):
 
     Rotation of the two halves (not interleaved pairs) in fp32, cast back."""
     dt = x.dtype
-    x32 = x.float()
+    x32 = wide(x)
     half = x.shape[-1] // 2
     x1, x2 = x32[..., :half], x32[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

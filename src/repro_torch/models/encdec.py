@@ -14,11 +14,12 @@ neither has the port (``get_model(...).prefill is None``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import _out_proj, _proj, attention, decode_attention
 from repro_torch.models.attention import init_attention
-from repro_torch.models.common import Init, dtype_of, layer_norm, no_training
+from repro_torch.models.common import Init, cross_entropy, dtype_of, layer_norm, wide
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.transformer import layer_params
 
@@ -35,7 +36,7 @@ def _init_ln(init: Init, d: int, stack: int = 0):
 
 
 def _ln(x, p, eps):
-    return layer_norm(x, 1.0 + p["g"].float(), p["b"].float(), eps)
+    return layer_norm(x, 1.0 + wide(p["g"]), wide(p["b"]), eps)
 
 
 def _init_layer(init: Init, cfg: ModelConfig, dtype, n: int, *, cross: bool):
@@ -80,7 +81,7 @@ def _cross_attention(p, x, k, v, cfg: ModelConfig):
         q = q + p["bq"]
     D = q.shape[-1]
     ct = torch.promote_types(q.dtype, k.dtype)  # jnp's promotion of mixed dtypes
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)).float() * (D ** -0.5)
+    logits = wide(torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct))) * (D ** -0.5)
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
     return _out_proj(out.to(q.dtype), p["wo"])
@@ -105,7 +106,7 @@ def _head(params, cfg: ModelConfig, x):
 
 def decode_train(params, cfg: ModelConfig, tokens, enc_out, *, attn_impl: str = "auto"):
     """Teacher-forced decoder over ``tokens [B, S]`` -> logits ``[B, S, V]``."""
-    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    x = F.embedding(tokens, params["embed"]).to(dtype_of(cfg.compute_dtype))  # see transformer
     x = x + params["dec_pos"][:x.shape[1]].to(x.dtype)
     for i in range(cfg.n_layers):
         lp = layer_params(params["dec"], i)
@@ -118,7 +119,14 @@ def decode_train(params, cfg: ModelConfig, tokens, enc_out, *, attn_impl: str = 
     return _head(params, cfg, x)
 
 
-loss_fn = no_training  # ROADMAP A10c
+def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl: str = "auto"):
+    """Training loss of ``{frames [B, S_enc, d], tokens [B, S], labels
+    [B, S]}`` -> (ce, {"ce", "aux"}): the plain mean cross entropy (no mask)
+    and ``aux = 0``, as the reference's."""
+    enc = encode(params, cfg, batch["frames"], attn_impl=attn_impl)
+    ce = cross_entropy(decode_train(params, cfg, batch["tokens"], enc, attn_impl=attn_impl),
+                       batch["labels"])
+    return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, enc_seq: int, dtype=torch.bfloat16,

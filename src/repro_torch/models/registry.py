@@ -7,7 +7,7 @@ to return beside them. ``forward(params, batch)`` returns (logits, aux); for
 the encoder-decoder it is ``decode_train(encode(frames), tokens)``, whose
 ``prefill`` is ``None`` as in the reference (serve it with ``encdec.encode``,
 ``prefill_cross`` and ``decode_step``; ``init_cache`` takes ``enc_seq``).
-``loss_fn`` raises: training is ROADMAP A10c.
+``loss_fn(params, batch, attn_impl=...)`` returns (loss, {"ce", "aux"}).
 """
 from __future__ import annotations
 
@@ -18,7 +18,6 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec, transformer
-from repro_torch.models.common import no_training
 
 __all__ = ["ModelAPI", "get_model"]
 
@@ -45,7 +44,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
             cfg=cfg,
             init=lambda seed=0, device="cuda": encdec.init_params(cfg, seed, device=device),
             forward=lambda p, b, **kw: _encdec_forward(cfg, p, b, **kw),
-            loss_fn=no_training,
+            loss_fn=lambda p, b, **kw: encdec.loss_fn(p, cfg, b, **kw),
             prefill=None,
             decode_step=lambda p, tok, cache, pos: encdec.decode_step(p, cfg, tok, cache, pos),
             init_cache=lambda b, s, dtype=torch.bfloat16, enc_seq=None, device="cuda":
@@ -56,7 +55,7 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         init=lambda seed=0, device="cuda": transformer.init_params(cfg, seed, device=device),
         forward=lambda p, b, **kw: transformer.forward(
             p, cfg, b.get("tokens"), embeds=b.get("embeds"), mrope_pos=b.get("mrope_pos"), **kw),
-        loss_fn=no_training,
+        loss_fn=lambda p, b, **kw: transformer.loss_fn(p, cfg, b, **kw),
         prefill=lambda p, b, **kw: transformer.prefill(
             p, cfg, b.get("tokens"), embeds=b.get("embeds"), mrope_pos=b.get("mrope_pos"), **kw),
         decode_step=lambda p, tok, cache, pos: transformer.decode_step(p, cfg, tok, cache, pos),

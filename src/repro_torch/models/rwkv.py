@@ -17,16 +17,25 @@ the port has no chunks (decode, the reference's ``chunk=1``, is the loop at
 one token). The state is float32; ``k_t^T v_t`` is formed in the
 projections' dtype and promoted where it meets the state, as jnp promotes
 it. Decode carries (last token, S) per layer: O(1) per token.
+
+Under autograd with ``cfg.rwkv_chunk_remat`` the loop runs in chunks of
+``WKV_CHUNK`` tokens, each checkpointed as the reference checkpoints its
+chunk scan: the backward then holds one chunk's per-token states
+(``[B, H, N, N]`` each) at a time, not the whole sequence's. The chunks
+change no number.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Init, rms_norm
 
 __all__ = ["init_time_mix", "init_channel_mix", "time_mix", "channel_mix", "init_state"]
+
+WKV_CHUNK = 256  # tokens per checkpointed chunk of the recurrence (the reference's chunk)
 
 
 def _n_heads(cfg: ModelConfig) -> int:
@@ -76,6 +85,17 @@ def _mix(x, xs, mu):
     return (x + mu * (xs - x)).to(x.dtype)
 
 
+def _wkv(r32, k, v, w, u, St):
+    """The recurrence over ``T`` tokens (``[B, T, H, N]`` each) from the
+    state ``St`` -> (out [B, T, H, N] float32, final state)."""
+    outs = []
+    for t in range(r32.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # [B, H, N, N], the projections' dtype
+        outs.append(torch.matmul(r32[:, t, :, None, :], St + u * kv)[:, :, 0])
+        St = w[:, t, :, :, None] * St + kv
+    return torch.stack(outs, dim=1), St
+
+
 def time_mix(p, x, cfg: ModelConfig, state):
     """``x [B, S, d]``; ``state = (x_last [B, d], S [B, H, N, N])``.
     Returns (out [B, S, d], (x[:, -1], S_final float32))."""
@@ -94,12 +114,14 @@ def time_mix(p, x, cfg: ModelConfig, state):
     u = p["u"][None, :, :, None]
     r32 = r.float()  # r meets the float32 state
     St = S0.float()
+    remat = cfg.rwkv_chunk_remat and torch.is_grad_enabled()
     outs = []
-    for t in range(S):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]  # [B, H, N, N], the projections' dtype
-        outs.append(torch.matmul(r32[:, t, :, None, :], St + u * kv)[:, :, 0])
-        St = w[:, t, :, :, None] * St + kv
-    out = torch.stack(outs, dim=1)  # [B, S, H, N] float32
+    for c in range(0, S, WKV_CHUNK):
+        args = tuple(t[:, c:c + WKV_CHUNK] for t in (r32, k, v, w)) + (u, St)
+        o, St = (checkpoint(_wkv, *args, use_reentrant=False, preserve_rng_state=False)
+                 if remat else _wkv(*args))
+        outs.append(o)
+    out = torch.cat(outs, dim=1)  # [B, S, H, N] float32
     out = rms_norm(out.reshape(B, S, d), p["ln_x"], cfg.norm_eps) * g.to(out.dtype)
     return torch.matmul(out.to(x.dtype), p["wo"]), (x[:, -1], St)
 

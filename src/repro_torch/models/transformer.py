@@ -29,21 +29,32 @@ loop over views of stacks (the reference's ``lax.scan``):
 M-RoPE (``cfg.mrope_sections``): ``forward`` and ``prefill`` take
 ``mrope_pos [B, 3, S]`` beside ``embeds``; decode uses text positions (plain
 rope at ``pos``), as the reference does. There are no sharding constraints
-(one card) and no training (``loss_fn``: ROADMAP A10c).
+(one card).
+
+Training: ``loss_fn`` is the reference's (``ce + aux``), and ``forward``
+runs each layer (the hybrid: each pattern period, then each tail layer)
+under the activation-checkpoint policy ``cfg.remat``
+(``common.maybe_remat``), as the reference's scan bodies do. Wherever a stacked tree is read (``layers``, a
+``pattern`` stack), a list of per-layer trees may stand in for it
+(:func:`layer_params`): the trainer passes per-layer views so that each
+layer's gradient lands in its own leaf.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import rglru as rg
 from repro_torch.models import rwkv as rk
 from repro_torch.models.attention import attention, decode_attention, init_attention
-from repro_torch.models.common import Init, dtype_of, mrope_positions, rms_norm, rotary
+from repro_torch.models.common import (Init, cross_entropy, dtype_of, maybe_remat,
+                                       mrope_positions, rms_norm, rotary)
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_block
 
-__all__ = ["init_params", "forward", "prefill", "init_cache", "decode_step", "layer_params"]
+__all__ = ["init_params", "forward", "loss_fn", "prefill", "init_cache", "decode_step",
+           "layer_params"]
 
 DECODE_LOOPS = ("scan", "fori")
 _LONG = 4096  # the hybrid's pattern blocks: 'dense' attention up to here, 'blocked' above
@@ -106,7 +117,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
 
 
 def layer_params(tree, i):
-    """Views of layer ``i`` of a stacked tree (parameters or cache)."""
+    """Views of layer ``i`` of a stacked tree (parameters or cache), or
+    entry ``i`` of a list of per-layer trees."""
+    if isinstance(tree, list):
+        return tree[i]
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
 
@@ -122,7 +136,9 @@ def _rope_for(cfg: ModelConfig, positions, mrope_pos=None):
 
 def _embed(params, cfg: ModelConfig, tokens, embeds):
     if embeds is None:
-        x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+        # F.embedding: its CPU backward adds the rows in a fixed order (an
+        # indexed read's does not), so training on the CPU is reproducible
+        x = F.embedding(tokens, params["embed"]).to(dtype_of(cfg.compute_dtype))
     else:
         x = embeds.to(dtype_of(cfg.compute_dtype))
     if cfg.embed_scale:
@@ -205,19 +221,55 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, mrope_pos=Non
     x = _embed(params, cfg, tokens, embeds)
     S = x.shape[1]
     if cfg.family == "rwkv":
+        layer = maybe_remat(lambda x, lp: _rwkv_block(lp, x, cfg, _rwkv_zero_state(cfg, x))[0],
+                            cfg.remat)
         for i in range(cfg.n_layers):
-            x, _ = _rwkv_block(layer_params(params["layers"], i), x, cfg, _rwkv_zero_state(cfg, x))
+            x = layer(x, layer_params(params["layers"], i))
         return _head(params, cfg, x), 0.0
     rope = _rope_for(cfg, torch.arange(S, device=x.device), mrope_pos)
     if cfg.family == "hybrid":
-        for _, _, kind, lp, impl in _hybrid_layers(params, cfg, S, attn_impl):
-            x, _ = _hybrid_block(lp, x, cfg, kind, rope, impl)
+        # checkpointed as the reference's scan is: one pattern period at a
+        # time, then each tail layer
+        n_super, tail = _hybrid_split(cfg)
+        impl = "dense" if S <= _LONG else "blocked"
+
+        def period(x, lps):
+            for kind, lp in zip(cfg.block_pattern, lps):
+                x, _ = _hybrid_block(lp, x, cfg, kind, rope, impl)
+            return x
+
+        period = maybe_remat(period, cfg.remat)
+        for s in range(n_super):
+            x = period(x, [layer_params(stack, s) for stack in params["pattern"]])
+        for kind, lp in zip(tail, params["tail"]):
+            x = maybe_remat(lambda x, lp, kind=kind:
+                            _hybrid_block(lp, x, cfg, kind, rope, attn_impl)[0], cfg.remat)(x, lp)
         return _head(params, cfg, x), 0.0
-    aux = torch.zeros((), dtype=torch.float32, device=x.device) if cfg.family == "moe" else 0.0
+    if cfg.family == "moe":
+        layer = maybe_remat(lambda x, lp: _block(lp, x, cfg, rope, attn_impl)[::2], cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(cfg.n_layers):
+            x, a = layer(x, layer_params(params["layers"], i))
+            aux = aux + a
+        return _head(params, cfg, x), aux
+    layer = maybe_remat(lambda x, lp: _block(lp, x, cfg, rope, attn_impl)[0], cfg.remat)
     for i in range(cfg.n_layers):
-        x, _, a = _block(layer_params(params["layers"], i), x, cfg, rope, attn_impl)
-        aux = aux + a
-    return _head(params, cfg, x), aux
+        x = layer(x, layer_params(params["layers"], i))
+    return _head(params, cfg, x), 0.0
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl: str = "auto"):
+    """Training loss of a batch ``{tokens | embeds (+ mrope_pos), labels
+    [B, S], mask [B, S] (optional)}`` -> (ce + aux, {"ce", "aux"}): the
+    masked mean cross entropy (``common.cross_entropy``) plus the moe
+    family's router loss; ``aux`` is a float32 tensor, 0 for the other
+    families."""
+    logits, aux = forward(params, cfg, batch.get("tokens"), embeds=batch.get("embeds"),
+                          mrope_pos=batch.get("mrope_pos"), attn_impl=attn_impl)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.full((), float(aux), dtype=torch.float32, device=ce.device)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 # ------------------------------------------------------------------ serving

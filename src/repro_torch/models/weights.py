@@ -6,15 +6,17 @@ stacking as the port's (``models.transformer``, ``models.encdec``).
 ``params_from_reference`` / ``cache_from_reference`` take them as numpy
 arrays — e.g. ``jax.tree.map(np.asarray, params)`` — and return the port's
 tensors with the same dtypes (bfloat16 included), so the two packages can be
-held against each other on one set of weights. On the card there is no JAX:
-weights there come from the port's own seeded init.
+held against each other on one set of weights. ``opt_state_from_reference``
+does the same for the reference's optimizer state (``AdamWState``), so both
+packages can start a training step from one state. On the card there is no
+JAX: weights there come from the port's own seeded init.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_reference", "cache_from_reference"]
+__all__ = ["params_from_reference", "cache_from_reference", "opt_state_from_reference"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -62,3 +64,13 @@ def cache_from_reference(cache, cfg=None, *, device="cuda"):
                 "prefill and decode skip the tail); prefill with the port instead")
         out["tail"] = []
     return out
+
+
+def opt_state_from_reference(state, *, device="cuda"):
+    """The reference's ``AdamWState(step, mu, nu, master)`` with numpy
+    leaves (e.g. ``jax.tree.map(np.asarray, opt)``) as the port's
+    ``train.optimizer.AdamWState`` on ``device``."""
+    from repro_torch.train.optimizer import AdamWState
+
+    return AdamWState(_tensor(state.step, device), _tree(state.mu, device),
+                      _tree(state.nu, device), _tree(state.master, device))

@@ -408,7 +408,7 @@ def test_lower_flush_names_its_queue_item(world):
     net, ev = world
     m = TNKDE(net, ev, solution="rfs", mesh=_mesh(2), device="cpu", **KW)
     wb = m._fe.window_batch(m.ctx, TS)
-    with pytest.raises(NotImplementedError, match="A10c"):
+    with pytest.raises(NotImplementedError, match="A10d"):
         m._fe.lower_flush(wb, m._host_plan(), m.n_lixels)
 
 

@@ -436,8 +436,9 @@ def test_unported_inputs_and_names_raise(world):
     tt = torch.as_tensor(toks)
     with pytest.raises(ValueError, match="'kernel'"):
         model.prefill(tp, {"tokens": tt}, attn_impl="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-        model.loss_fn(tp, {"tokens": tt, "labels": tt})
+    with pytest.raises(RuntimeError, match="no backward"):  # the kernel under autograd
+        model.loss_fn({k: v.detach().requires_grad_() if k == "embed" else v
+                       for k, v in tp.items()}, {"tokens": tt, "labels": tt}, attn_impl="kernel")
     with pytest.raises(ValueError, match="decode_loop"):
         transformer.decode_step(tp, dataclasses.replace(cfg, decode_loop="while"), tt[:, 0],
                                 transformer.init_cache(cfg, 2, 4, device="cpu"), 0)

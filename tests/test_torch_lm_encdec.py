@@ -115,8 +115,11 @@ def test_registry(w):
     _, pcfg, _, tp, frames, toks = w
     model = get_model(pcfg)
     assert model.prefill is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-        model.loss_fn(tp, {"frames": frames, "tokens": toks, "labels": toks})
+    batch = {"frames": torch.as_tensor(frames), "tokens": torch.as_tensor(toks),
+             "labels": torch.as_tensor(toks)}
+    loss, metrics = model.loss_fn(tp, batch)
+    assert bool(torch.isfinite(loss)) and float(metrics["aux"]) == 0.0
+    assert float(loss) == float(metrics["ce"])
     cache = model.init_cache(2, 5, device="cpu")
     assert cache["k"].dtype == torch.bfloat16 and cache["xk"].shape[2] == 5
 
