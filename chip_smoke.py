@@ -93,7 +93,22 @@ Table-3 berkeley replica:
   parameters, float32 AdamW, remat ``'full'``, 2 × 2 048 tokens a step):
   each step's seconds, tokens/s, loss, ce, grad norm and lr, the model-FLOP
   rate, the peak memory, no launch of any hand-written kernel; then the
-  cost of the stacked-gradient route the trainer avoids.
+  cost of the stacked-gradient route the trainer avoids;
+* ``[dryrun]`` the dry-run (``launch.dryrun.main(['--all', '--mesh',
+  'both'])``: every (arch x shape) cell accounted on meta tensors on the
+  reference's two logical production meshes, all ``ok``, and the roofline
+  tables against the H100's peaks), then its one-card check: qwen2.5-3b at
+  ``[train]``'s shape on a 1 x 1 mesh — parameter, gradient and AdamW bytes
+  equal to the live tensors', step FLOPs within DRYRUN_FLOPS_TOL of
+  ``FlopCounterMode`` on a real step, bytes_per_device within
+  DRYRUN_BYTES_TOL of ``[train]``'s peak — and ``[lm]``'s prefill and
+  decode step against their peaks, each beside its roofline bound;
+* ``[dryrun-kde]`` ``ShardedForestEngine.lower_flush`` (the account of the
+  sharded flush) on both production meshes for the reference's
+  ``kde_cell`` world and the berkeley world, then the berkeley account at
+  16 slabs on this card held against a real cold and warm query:
+  ``segment_add`` launches and each shard's device bytes equal to the
+  account's, the answer within PACKED_TOL of ``[main]``'s.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after; ``[*-shapes]`` then holds every block the path gave a kernel against
@@ -2467,7 +2482,11 @@ def phase_lm(args, device, card):
         last_logits_row0=[round(float(x), 4) for x in logits[0, :4]],
         last_logits_absmax=float(logits.float().abs().max()),
         decoded_row0=[int(t[0]) for t in decoded[:8]])
-    del params, cache, logits, model
+    del cache, logits
+    free(device)
+    peaks = lm_account_readings(model, params, toks, S, n_dec, small)
+    say("lm", card=card, step="account-readings", **peaks)
+    del params, model
     free(device)
 
     # ---- float32 at full width (TF32 off)
@@ -2505,7 +2524,42 @@ def phase_lm(args, device, card):
     del params, cut, model
     free(device)
     return launches, secs, dict(layerwise=layer, kernel_vs_dense=err_a, decode_vs_forward=err_b,
-                                peak=peak)
+                                peak=peak, account_readings=peaks)
+
+
+def lm_account_readings(model, params, toks, S, n_dec, small):
+    """What ``[dryrun]``'s one-card check holds its [lm] accounts against,
+    read after the path's counts and peak, with only the parameters live:
+    the peak of one bf16 prefill (``attn_impl='kernel'``, cold cache) and of
+    one decode step on the padded ``S + n_dec`` cache, and the FLOPs
+    ``FlopCounterMode`` counts in a prefill with ``'dense'`` attention (the
+    kernel's FLOPs are no aten op) and in that decode step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    def peak_of(fn):
+        if not small:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        if not small:
+            torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() if not small else None)
+
+    (logits, cache), peak_prefill = peak_of(
+        lambda: model.prefill(params, {"tokens": toks}, attn_impl="kernel"))
+    cache = {k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, n_dec)) for k, c in cache.items()}
+    tok = torch.argmax(logits, -1)
+    del logits
+    _, peak_decode = peak_of(lambda: model.decode_step(params, tok, cache, S))
+    with FlopCounterMode(display=False) as fc:
+        model.decode_step(params, tok, cache, S)
+    decode_flops = fc.get_total_flops()
+    del cache
+    with FlopCounterMode(display=False) as fc:
+        model.prefill(params, {"tokens": toks}, attn_impl="dense")
+    return dict(peak_prefill=peak_prefill, peak_decode=peak_decode,
+                prefill_flops_dense=fc.get_total_flops(), decode_flops=decode_flops,
+                cache_rows=S + n_dec)
 
 
 def lm_kernel_vs_dense(model, params, toks):
@@ -3137,6 +3191,8 @@ def phase_train(args, device, card):
                model_flops_share_of_bf16_peak=flops / warm_s / PEAK_BF16_TC_FLOPS,
                losses=losses, max_memory_allocated=peak, launches=counts)
     say("train", card=card, **{k: v for k, v in out.items() if k not in ("losses", "launches")})
+    out["state_nbytes"] = train_state_nbytes(cfg, params, opt, B, S, args.seed, device)
+    say("train", card=card, step="state-and-flops", **out["state_nbytes"])
     del params, opt
     free(device)
     out["grad_scale"] = grad_scale(cfg, device, args.seed)
@@ -3144,6 +3200,26 @@ def phase_train(args, device, card):
     if not small:
         out["select_grad"] = select_grad_cost(cfg, device)
         say("train", card=card, step="select-gradient", **out["select_grad"])
+    return out
+
+
+def train_state_nbytes(cfg, params, opt, B, S, seed, device):
+    """What ``[dryrun]``'s one-card check holds its account against, read
+    after ``[train]``'s steps and peak: the bytes of the live parameters and
+    AdamW state, and of one step's gradients (per-layer leaves, as the step
+    takes them) with the FLOPs ``FlopCounterMode`` counts in that step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.models.registry import get_model
+
+    nbytes = lambda leaves: sum(t.numel() * t.element_size() for t in leaves)  # noqa: E731
+    batch = TokenPipeline(cfg.vocab, S, B, seed=seed).batch(0, device)
+    with FlopCounterMode(display=False) as fc:
+        _, grads = train_grads(get_model(cfg), params, batch)
+    out = dict(params=nbytes(_leaves(params)), opt=nbytes(_leaves(tuple(opt))),
+               grads=nbytes(grads), step_flops=fc.get_total_flops())
+    del grads
     return out
 
 
@@ -3961,6 +4037,236 @@ def phase_sharded_serve(args, device, card):
     return max(errs)
 
 
+# ------------------------------------------------ dry-run accounting
+DRYRUN_CELLS = 64  # --all on both production meshes: 32 runnable cells x 2
+DRYRUN_FLOPS_TOL = 0.01  # the account's step FLOPs against FlopCounterMode on the card
+DRYRUN_BYTES_TOL = 0.15  # the account's bytes_per_device against max_memory_allocated
+DRYRUN_JOBS = 4  # cells traced at once, one host process each (the machine has 8 cores)
+
+
+def one_card_account(cfg, B, S, kind, attn_impl, device):
+    """The dry-run's record of one step of ``cfg`` on a 1 x 1 ``ShardMesh``
+    of this card, with its roofline row (one chip)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.distributed import ShardMesh
+    from repro_torch.launch import dryrun, roofline
+
+    shape = ShapeSpec(f"{kind}_{B}x{S}", S, B, kind)
+    mesh = ShardMesh([device], shape=(1, 1), axis_names=("data", "model"))
+    rec = dryrun.lower_cell(cfg, shape, mesh, remat=cfg.remat, attn_impl=attn_impl)
+    rec["ok"] = True
+    return rec, roofline.roofline_row(rec, 1, shape=shape)
+
+
+def account_check(tag, card, rec, row, *, flops, peak, seconds, state=None):
+    """Hold one account against the card's readings: FLOPs within
+    DRYRUN_FLOPS_TOL, bytes_per_device within DRYRUN_BYTES_TOL of the peak,
+    and (``state``: {key: live bytes}) the state bytes exactly."""
+    mem = rec["memory"]
+    out = dict(account_flops=rec["cost"]["flops_global"], card_flops=flops,
+               account_bytes_per_device=mem["bytes_per_device"], card_peak=peak,
+               bound_s=max(row["t_compute_s"], row["t_memory_s"], row["t_collective_s"]),
+               bound_by=row["dominant"], measured_s=seconds)
+    if state is not None:
+        for key, live in state.items():
+            require(mem[key] == live, f"[dryrun] {tag}: account {key} {mem[key]} != live {live}")
+            out[f"account_{key}"] = mem[key]
+    if flops is not None:
+        out["flops_rel"] = out["account_flops"] / flops - 1.0
+        require(abs(out["flops_rel"]) <= DRYRUN_FLOPS_TOL,
+                f"[dryrun] {tag}: FLOPs {out['account_flops']} vs the card's {flops}")
+    if peak is not None:
+        out["bytes_rel"] = mem["bytes_per_device"] / peak - 1.0
+        require(abs(out["bytes_rel"]) <= DRYRUN_BYTES_TOL,
+                f"[dryrun] {tag}: bytes_per_device {mem['bytes_per_device']} vs peak {peak}")
+    say("dryrun", card=card, check=tag, **out,
+        **{k: mem[k] for k in ("param_bytes", "grad_bytes", "opt_bytes", "cache_bytes",
+                               "activation_bytes")})
+    return out
+
+
+def phase_dryrun(args, device, card, train, lm_secs, lm_checks):
+    """``[dryrun]``: ``launch.dryrun.main(['--all', '--mesh', 'both'])`` on
+    the host in DRYRUN_JOBS processes (meta tensors; it launches and
+    allocates nothing on the card):
+    every one of the DRYRUN_CELLS cells ``ok``, the roofline tables of both
+    meshes printed. Then the one-card check: qwen2.5-3b accounted at
+    ``[train]``'s shape (TRAIN_BATCH x TRAIN_SEQ, remat 'full', profile
+    'train') on a 1 x 1 mesh — parameter, gradient and AdamW bytes equal to
+    the live tensors' exactly, step FLOPs within DRYRUN_FLOPS_TOL of
+    FlopCounterMode on one real step, bytes_per_device within
+    DRYRUN_BYTES_TOL of ``[train]``'s peak, the roofline bound beside the
+    measured step — and the same for ``[lm]``'s bf16 prefill (4 x 2 048,
+    'kernel') and one decode step against their peaks (``[lm]``'s
+    ``account-readings``). The rehearsal accounts the reduced miniatures."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.launch import dryrun, roofline
+
+    small = device == "cpu"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        tmp = getattr(args, "dryrun_out", None) or tmp
+        rc = dryrun.main(["--all", "--mesh", "both", "--out", tmp, "--jobs",
+                          str(DRYRUN_JOBS)])
+        recs = [json.load(open(os.path.join(tmp, f))) for f in sorted(os.listdir(tmp))]
+        secs = time.perf_counter() - t0
+        require(rc == 0 and len(recs) == DRYRUN_CELLS and all(r["ok"] for r in recs),
+                f"[dryrun] {sum(r['ok'] for r in recs)} of {len(recs)} cells ok (rc {rc})")
+        tables = {}
+        for mesh in ("pod1", "pod2"):
+            rows, n_chips, _ = roofline.rows_of(tmp, mesh)
+            tables[mesh] = roofline.render_table(rows, title=f"Roofline ({mesh}, {n_chips} "
+                                                 "H100s; the reference's logical mesh)")
+            print(tables[mesh], flush=True)
+    say("dryrun", card=card, cells=len(recs), ok=sum(r["ok"] for r in recs),
+        seconds=round(secs, 1), max_trace_s=round(max(r["trace_s"] for r in recs), 1))
+
+    # ---- the one-card check against [train] and [lm]
+    cfg = dataclasses.replace(family_config("qwen2.5-3b", device), remat="full")
+    B, S = (2, 128) if small else (TRAIN_BATCH, TRAIN_SEQ)
+    live = train["state_nbytes"]
+    rec, row = one_card_account(cfg, B, S, "train", "auto", device)
+    checks = {"train": account_check(
+        "train", card, rec, row, flops=live["step_flops"], peak=train["max_memory_allocated"],
+        seconds=train["warm_step_s"],
+        state=dict(param_bytes=live["params"], grad_bytes=live["grads"],
+                   opt_bytes=live["opt"]))}
+    reads = lm_checks["account_readings"]
+    B, S, n_dec = (2, 128, 4) if small else (4, 2048, 32)
+    rec, row = one_card_account(cfg, B, S, "prefill", "kernel", device)
+    checks["prefill"] = account_check("lm-prefill", card, rec, row,
+                                      flops=reads["prefill_flops_dense"],
+                                      peak=reads["peak_prefill"], seconds=lm_secs["prefill_warm_s"])
+    rec, row = one_card_account(cfg, B, S + n_dec, "decode", "auto", device)
+    checks["decode"] = account_check("lm-decode", card, rec, row, flops=reads["decode_flops"],
+                                     peak=reads["peak_decode"],
+                                     seconds=lm_secs["decode_s_per_step"])
+    return dict(cells=len(recs), seconds=secs, checks=checks)
+
+
+def phase_segment_shapes_sharded(fe, m, ts, device, card, tag):
+    """segment_add at the shapes a sharded flush gave it: every shard's walk
+    output of every atom block onto a seeded [L, W] delta (half-window rows,
+    as ``ShardedForestEngine.flush_plan`` hands them over), bitwise against
+    the plain version; the shard block with the most rows is timed."""
+    from repro_torch.core.torch_engine import eval_atoms_packed
+
+    tabs = fe.window_tables(fe.window_batch(m.ctx, ts), tuple(float(t) for t in ts))
+    heat = torch.as_tensor(np.random.default_rng(7).normal(size=(m.n_lixels, len(ts))),
+                           device=device)
+    big, big_n, n = None, -1, 0
+    for entry in fe._atom_packs(m._host_plan()):
+        for s, sh in enumerate(entry["shards"]):
+            if sh["seg"].n_rows == 0:
+                continue
+            vals = eval_atoms_packed(tabs[s], fe._nbl[s], sh["fa"], sh["r_lo"], sh["r_hi"],
+                                     max_levels=fe.max_levels)
+            segment_bitwise(heat, vals.T, sh["seg"], True)
+            n += 1
+            if sh["seg"].n_rows > big_n:
+                big, big_n = (vals.T, sh["seg"]), sh["seg"].n_rows
+    src, index = big
+    shape = dict(L=m.n_lixels, W=len(ts), src_rows=int(src.shape[0]), rows=index.n_rows,
+                 lixels=index.n_segs, longest_segment=index.max_len, halves=True)
+    bound = segment_bound(heat, src, index, True)
+    timing = segment_timing(heat, src, index, True, device)
+    say(tag, card=card, shard_blocks=n, bitwise=True, timed_shape=json.dumps(shape),
+        grid=index.n_blocks, **timing, **bound)
+    return 0.0, 0.0, shape, bound, timing
+
+
+KDE_DRYRUN_SHARDS = 16  # [dryrun-kde]: the berkeley account held against a real query
+
+
+def phase_dryrun_kde(args, device, card, ts, F_main):
+    """``[dryrun-kde]``: ``ShardedForestEngine.lower_flush`` on both
+    production meshes (16 shards over ``data``, 32 over ``(pod, data)``; meta
+    positions, nothing allocated) for the reference's ``kde_cell`` world
+    (``launch.dryrun.kde_cell``, with the CUDA library the flush launches
+    loaded and its argument and temporary bytes) and for the berkeley world
+    ``[main]`` builds. Then the berkeley account at S = KDE_DRYRUN_SHARDS on this card
+    (``ShardMesh.on_one_device``) taken before a cold and a warm query
+    (counts set to 0 just before, read just after): ``segment_add``
+    launches equal to the account's (one per block and shard with rows,
+    per query), each shard's device bytes equal to its account, the answer
+    within PACKED_TOL of ``[main]``'s."""
+    from repro_torch.core import TNKDE
+    from repro_torch.core.distributed import ShardedForestEngine, ShardMesh
+    from repro_torch.core.rfs import _device_nbytes
+    from repro_torch.data.spatial import make_dataset
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+
+    out = {}
+    for mp in (False, True):
+        cell = dryrun.kde_cell(mp, compile_prog=device != "cpu")
+        lo = cell.pop("lowered")
+        require(cell["n_shards"] == (32 if mp else 16) and lo.launches > 0,
+                f"[dryrun-kde] kde_cell: {cell}")
+        say("dryrun-kde", card=card, world="kde_cell", **{k: (json.dumps(v) if isinstance(
+            v, dict) else v) for k, v in cell.items()})
+        out[f"kde_cell_{'pod2' if mp else 'pod1'}"] = cell
+    t0 = time.perf_counter()
+    net, ev, _ = make_dataset("berkeley", scale=args.scale, seed=args.seed)
+    span = float(ev.time.max() - ev.time.min())
+    S = KDE_DRYRUN_SHARDS
+    mesh = ShardMesh.on_one_device(S, device=device)
+    m = TNKDE(net, ev, g=50.0, b_s=800.0, b_t=0.2 * span, solution="rfs", mesh=mesh,
+              device=device)
+    require(m.engine_desc == f"torch/packed@shards={S}", m.engine_desc)
+    plan = m._host_plan()
+    build_s = time.perf_counter() - t0
+    for mp in (False, True):
+        axes = ("pod", "data") if mp else ("data",)
+        fe = ShardedForestEngine(m.index, make_production_mesh(multi_pod=mp), axes)
+        t1 = time.perf_counter()
+        lo = fe.lower_flush(fe.window_batch(m.ctx, ts), plan, m.n_lixels)
+        tag = f"berkeley_{'pod2' if mp else 'pod1'}"
+        out[tag] = dict(n_shards=lo.n_shards, bytes_per_shard=lo.slab_bytes_per_shard,
+                        flush_bytes_per_shard=lo.bytes_per_shard, launches=lo.launches,
+                        lower_s=time.perf_counter() - t1)
+        say("dryrun-kde", card=card, world="berkeley", scale=args.scale, mesh=tag, **out[tag])
+        del fe
+    fe = m._fe
+    lo = fe.lower_flush(fe.window_batch(m.ctx, ts), plan, m.n_lixels)
+    reset_launches()
+    t1 = time.perf_counter()
+    F_cold = m.query(ts)
+    sync()
+    cold_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    F = m.query(ts)
+    sync()
+    warm_s = time.perf_counter() - t1
+    counts = read_launches()
+    seg = take_segment(counts, "dryrun-kde")
+    require(not any(counts.values()), f"[dryrun-kde] launched another kernel: {counts}")
+    if device != "cpu":
+        require(seg == 2 * lo.launches, f"[dryrun-kde] segment_add launched {seg} times, the "
+                f"account says {lo.launches} a query")
+    real = [_device_nbytes(fe._shard_parts(s)) for s in range(S)]
+    want = [sh["bytes"] for sh in lo.shards]
+    require(real == want, f"[dryrun-kde] per-shard bytes {real} != the account's {want}")
+    require(np.array_equal(F, F_cold), "[dryrun-kde] warm query differs from the cold one")
+    err = float(np.abs(F - F_main).max()) / float(np.abs(F_main).max())
+    require(err <= PACKED_TOL, f"[dryrun-kde] S={S} vs [main]: {err}")
+    out["berkeley_card"] = dict(shards=S, launches=seg, account_launches_per_query=lo.launches,
+                                bytes_per_shard=max(real),
+                                account_bytes_per_shard=lo.bytes_per_shard, vs_main=err,
+                                build_s=build_s, cold_s=cold_s, warm_s=warm_s)
+    say("dryrun-kde", card=card, world="berkeley", scale=args.scale, **out["berkeley_card"])
+    shapes = phase_segment_shapes_sharded(fe, m, ts, device, card, "dryrun-kde-segment")
+    del m, fe
+    free(device)
+    return out, shapes
+
+
 def ptxas_report(log):
     """Per kernel function in an ``nvcc -Xptxas -v`` log: registers and
     spill bytes (stores, loads)."""
@@ -4069,6 +4375,9 @@ def main():
                          "PATH.drfs-quantized / PATH.drfs-exact and "
                          "PATH.kernel-drfs-quantized / PATH.kernel-drfs-exact, and of the LM's "
                          "warm prefill and one decode step to PATH.lm-prefill / PATH.lm-decode")
+    ap.add_argument("--dryrun-out", metavar="DIR", default=None,
+                    help="keep [dryrun]'s cell files in DIR (default: a temporary directory, "
+                         "removed)")
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="walk the control flow on the CPU (no card, no result, exit code 3)")
     args = ap.parse_args()
@@ -4184,6 +4493,12 @@ def main():
     train_check = phase_train_check(args, device, card)
     train = phase_train(args, device, card)
     say("train", seconds=round(time.perf_counter() - t1, 1), peak=train["max_memory_allocated"])
+    t1 = time.perf_counter()
+    dry = phase_dryrun(args, device, card, train, lm_secs, lm_checks)
+    say("dryrun", seconds=round(time.perf_counter() - t1, 1))
+    t1 = time.perf_counter()
+    dry_kde, seg_kde = phase_dryrun_kde(args, device, card, ts, F_main)
+    say("dryrun-kde", seconds=round(time.perf_counter() - t1, 1))
     fam_launches = {"lm-moe": families["lm-moe"]["launches"],
                     "lm-encdec-encoder": families["lm-encdec"]["launches_encoder"],
                     "lm-encdec-decoder": families["lm-encdec"]["launches_decoder"],
@@ -4330,7 +4645,11 @@ def main():
              dict(launches_by_path=dict(SEGMENT_LAUNCHES), bitwise_cases=n_seg_cases,
                   search=search, sharded_rfs={str(k): v for k, v in sharded.items()},
                   sharded_drfs_vs_single=sharded_drfs, sharded_serve_vs_single=sharded_serve)),
-            ("drfs", SEGMENT_LAUNCHES["drfs"], seg_drfs, {})):
+            ("drfs", SEGMENT_LAUNCHES["drfs"], seg_drfs, {}),
+            ("dryrun-kde", SEGMENT_LAUNCHES["dryrun-kde"], seg_kde,
+             dict(dryrun_kde=dry_kde, dryrun=dict(cells=dry["cells"],
+                                                  seconds=dry["seconds"],
+                                                  checks=dry["checks"])))):
         kernels.append(entry("segment_add", path, n, ea, er, eshape, ebound, etiming,
                              seg_replaces, main_path=dict(scale=args.scale), **extra))
     say("done", seconds=round(time.perf_counter() - t_start, 1))

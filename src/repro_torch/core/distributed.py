@@ -67,6 +67,7 @@ __all__ = [
     "build_sharded_packed",
     "ShardedForestEngine",
     "ShardedDynamicEngine",
+    "LoweredFlush",
 ]
 
 
@@ -293,9 +294,10 @@ class _ShardedBase(_DeviceEngine):
         self._shard_wbs = PlanCache(8 * len(set(self.shard_devices)))
         self._mesh_key = (tuple(sorted(mesh.shape.items())), self.axes)
 
-    def _put(self, x, s, dtype=None):
-        """Host array → a tensor on shard ``s``'s device (non-blocking)."""
-        t = torch.as_tensor(np.ascontiguousarray(x)).to(self.shard_devices[s],
+    def _put(self, x, s, dtype=None, device=None):
+        """Host array → a tensor on shard ``s``'s device, or on ``device``
+        (non-blocking)."""
+        t = torch.as_tensor(np.ascontiguousarray(x)).to(device or self.shard_devices[s],
                                                        non_blocking=True)
         return t if dtype is None else t.to(dtype)
 
@@ -312,26 +314,29 @@ class _ShardedBase(_DeviceEngine):
             self._shard_wbs.put(key, hit)
         return hit
 
-    def _route(self, atoms, shard_of, edge_slot):
+    def _route(self, atoms, shard_of, edge_slot, device=None):
         """A plan block routed to its shards: per shard the device FlatAtoms
-        (local edge ids) and the segment index of its real rows."""
+        (local edge ids) and the segment index of its real rows (on
+        ``device`` instead of the shards' own when given)."""
         fields = route_atoms_by_shard(atoms, shard_of, edge_slot, self.n_shards)
         out = []
         for s in range(self.n_shards):
             f = {k: v[s] for k, v in fields.items()}
+            put = lambda k, dt: self._put(f[k], s, dt, device)  # noqa: E731
             fa = FlatAtoms(
-                lixel=self._put(f["lixel"], s, torch.int64),
-                edge=self._put(f["edge"], s, torch.int64),
-                side_feat=self._put(f["side_feat"], s, torch.int32),
-                qs=self._put(f["qs"], s, torch.float64),
-                pos_hi=self._put(f["pos_hi"], s, torch.float64),
-                pos_lo1=self._put(f["pos_lo1"], s, torch.float64),
-                lo1_right=self._put(f["lo1_right"], s, torch.bool),
-                pos_lo2=self._put(f["pos_lo2"], s, torch.float64),
-                valid=self._put(f["valid"], s, torch.bool),
+                lixel=put("lixel", torch.int64),
+                edge=put("edge", torch.int64),
+                side_feat=put("side_feat", torch.int32),
+                qs=put("qs", torch.float64),
+                pos_hi=put("pos_hi", torch.float64),
+                pos_lo1=put("pos_lo1", torch.float64),
+                lo1_right=put("lo1_right", torch.bool),
+                pos_lo2=put("pos_lo2", torch.float64),
+                valid=put("valid", torch.bool),
             )
             slots = np.flatnonzero(f["valid"])
-            seg = ops.segment_index(f["lixel"][slots], slots, device=self.shard_devices[s])
+            seg = ops.segment_index(f["lixel"][slots], slots,
+                                    device=device or self.shard_devices[s])
             out.append(dict(fa=fa, seg=seg))
         return out
 
@@ -386,25 +391,29 @@ class ShardedForestEngine(_ShardedBase):
         self.search_steps = sf.search_steps
         self._pf, self._nbl, self._node_starts = [], [], []
         for s in range(self.n_shards):
-            nbl = self._put(sf.node_base_lvl[s], s, torch.int64)
-            self._nbl.append(nbl)
-            self._pf.append(PackedForest(
-                pm_pos=self._put(sf.pm_pos[s], s),
-                pos_base=self._put(sf.pos_base[s], s),
-                pm_time=self._put(sf.pm_time[s], s),
-                pm_cum=self._put(sf.pm_cum[s], s),
-                edge_base=self._put(sf.edge_base[s], s),
-                n_pad=self._put(sf.n_pad[s], s),
-                n_lev=self._put(sf.n_lev[s], s),
-                # no sharded step reads pf.node_base (the walk takes the
-                # level-major node bases): the one buffer serves both, and
-                # the accounting counts it once
-                node_base=nbl,
-            ))
-            self._node_starts.append(
-                tuple(self._put(ns[s], s, torch.int64) for ns in sf.node_starts))
+            pf, ns = self._slab(s)
+            self._nbl.append(pf.node_base)
+            self._pf.append(pf)
+            self._node_starts.append(ns)
         self._tab_cache = PlanCache(2)
         self._pack_cache = PlanCache(2)
+
+    def _slab(self, s, device=None):
+        """Shard ``s``'s slab on its device (or on ``device``): the
+        ``PackedForest`` and the per-level node starts."""
+        sf = self.sf
+        put = lambda a, dt=None: self._put(a[s], s, dt, device)  # noqa: E731
+        nbl = put(sf.node_base_lvl, torch.int64)
+        pf = PackedForest(
+            pm_pos=put(sf.pm_pos), pos_base=put(sf.pos_base), pm_time=put(sf.pm_time),
+            pm_cum=put(sf.pm_cum), edge_base=put(sf.edge_base), n_pad=put(sf.n_pad),
+            n_lev=put(sf.n_lev),
+            # no sharded step reads pf.node_base (the walk takes the
+            # level-major node bases): the one buffer serves both, and the
+            # accounting counts it once
+            node_base=nbl,
+        )
+        return pf, tuple(put(ns, torch.int64) for ns in sf.node_starts)
 
     def _shard_parts(self, s):
         return [self._pf[s], list(self._node_starts[s]),
@@ -460,13 +469,90 @@ class ShardedForestEngine(_ShardedBase):
             self.counters["moment_gathers"] += 2 * self.max_levels * entry["m"]
         return heat
 
-    def lower_flush(self, wb, plan, n_lixels: int):
-        """The reference's TPU dry-run hook (``launch/dryrun.py --kde`` lowers
-        the sharded flush for production meshes without running it). The
-        port has no lowering step and no dry-run launcher yet."""
-        raise NotImplementedError(
-            "lower_flush (the TPU dry-run of the sharded flush): ROADMAP.md Queue A10d"
-        )
+    def lower_flush(self, wb, plan, n_lixels: int) -> "LoweredFlush":
+        """Account :meth:`flush_plan` of ``plan`` over the windows of ``wb``
+        without running it (the reference's dry-run hook, which lowers the
+        sharded flush for the production meshes): per shard the slab, the
+        window table at this ``wb``'s W, every block's routed atom pack with
+        its root ranks and segment index, and the ``[L, W]`` delta; the
+        ``segment_add`` launches the flush makes (one per block and shard
+        with rows). Built from the host slabs (``self.sf``, bitwise the
+        reference's) and the plan on the meta device: no device work and no
+        table is allocated, so it also serves a mesh of meta positions
+        (``launch.mesh.make_production_mesh``). Each shard's bytes equal
+        ``_device_nbytes(self._shard_parts(s))`` after a real flush of the
+        plan. Against the reference's stacked arrays over S, the slab
+        differs in two arrays: ``node_base_lvl`` and ``node_starts`` are
+        int64 here (the walk and the table builder add them to int64 edge,
+        rank and row indices), int32 there."""
+        meta = torch.device("meta")
+        W = int(wb.t_lo.shape[0]) // 2
+        k_s = int(self.rf.ctx.k_s)
+        table = torch.empty((self.sf.n_nodes * 2, W, 2 * k_s), dtype=torch.float64, device=meta)
+        blocks = [self._route(atoms, self.sf.shard_of_edge, self.sf.edge_slot, device=meta)
+                  for atoms in plan.blocks]
+        shards = []
+        for s in range(self.n_shards):
+            pf, ns = self._slab(s, meta)
+            packs = []
+            for b in blocks:
+                sh = dict(b[s])
+                M = sh["fa"].edge.shape[0]
+                sh["r_lo"] = torch.empty(M, dtype=torch.int32, device=meta)
+                sh["r_hi"] = torch.empty(M, dtype=torch.int32, device=meta)
+                packs.append(sh)
+            shards.append(dict(slab=(pf, ns), table=table, packs=packs))
+        return LoweredFlush(shards, n_lixels=int(n_lixels), n_windows=W)
+
+
+class LoweredFlush:
+    """The account of one sharded flush (``ShardedForestEngine.lower_flush``):
+    per shard ``args`` — name → (shape, dtype, bytes) of every tensor the
+    flush reads (the slab, the window table, each block's atom pack, root
+    ranks and segment index) — and ``slab_bytes``, ``table_bytes``,
+    ``pack_bytes``, ``bytes`` (their sum: the shard's device bytes after the
+    flush) and ``delta_bytes`` (its ``[L, W]`` float64 delta, temporary);
+    ``n_shards``; ``bytes_per_shard`` and ``slab_bytes_per_shard`` (the
+    heaviest shard's); ``argument_bytes`` (the heaviest shard's bytes and
+    the ``[L, W]`` heatmap) and ``temp_bytes`` (one shard's delta), the
+    reference's memory analysis; ``launches`` (``segment_add``, one per
+    block and shard with rows); ``collectives``: the shard-order sum of the
+    deltas, the stand-in for the reference's ``psum`` (its result: one
+    ``[L, W]`` float64)."""
+
+    def __init__(self, shards, *, n_lixels: int, n_windows: int):
+        from .rfs import _device_nbytes
+
+        self.n_shards = len(shards)
+        self.n_lixels, self.n_windows = n_lixels, n_windows
+        self.shards = []
+        for sh in shards:
+            pf, ns = sh["slab"]
+            args = {f"slab.{k}": v for k, v in pf._asdict().items() if k != "node_base"}
+            args["slab.node_base_lvl"] = pf.node_base  # one buffer serves both
+            args.update({f"slab.node_starts[{i}]": t for i, t in enumerate(ns)})
+            args["window_table"] = sh["table"]
+            for b, pack in enumerate(sh["packs"]):
+                args.update({f"pack[{b}].fa.{k}": v for k, v in pack["fa"]._asdict().items()})
+                args.update({f"pack[{b}].{k}": pack[k] for k in ("r_lo", "r_hi")})
+                args.update({f"pack[{b}].seg.{k}": getattr(pack["seg"], k)
+                             for k in ("rows", "seg_ptr", "lixel", "blk_seg", "blk_row")})
+            slab = _device_nbytes([pf, list(ns)])
+            table = _device_nbytes(sh["table"])
+            packs = _device_nbytes(sh["packs"])
+            self.shards.append(dict(
+                args={k: (tuple(t.shape), str(t.dtype).removeprefix("torch."),
+                          t.numel() * t.element_size()) for k, t in args.items()},
+                slab_bytes=slab, table_bytes=table, pack_bytes=packs,
+                bytes=slab + table + packs, delta_bytes=n_lixels * n_windows * 8,
+                launches=sum(p["seg"].n_rows > 0 for p in sh["packs"])))
+        self.bytes_per_shard = max(s["bytes"] for s in self.shards)
+        self.slab_bytes_per_shard = max(s["slab_bytes"] for s in self.shards)
+        self.launches = sum(s["launches"] for s in self.shards)
+        heat = n_lixels * n_windows * 8
+        self.argument_bytes = self.bytes_per_shard + heat
+        self.temp_bytes = max(s["delta_bytes"] for s in self.shards)
+        self.collectives = {"all-reduce": heat, "total": heat}
 
 
 class _ShardedSealed:

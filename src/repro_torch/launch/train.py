@@ -28,6 +28,7 @@ from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.synthetic import TokenPipeline
 from repro_torch.ft.watchdog import PreemptionHandler, StepWatchdog
 from repro_torch.models.registry import get_model
+from repro_torch.sharding.rules import PROFILES
 from repro_torch.train.optimizer import adamw_init
 from repro_torch.train.train_step import make_train_step
 
@@ -36,20 +37,22 @@ __all__ = ["run_training", "main"]
 
 def run_training(cfg, *, steps: int, global_batch: int, seq_len: int, lr: float = 3e-4,
                  warmup: int = 50, ckpt_dir: str | None = None, ckpt_every: int = 100,
-                 mesh=None, seed: int = 0, log_every: int = 10, log_fn=print, device="cuda"):
+                 mesh=None, profile: str = "train", seed: int = 0, log_every: int = 10,
+                 log_fn=print, device="cuda"):
     """Train ``cfg`` from seeded weights (or the newest checkpoint under
     ``ckpt_dir``) up to step ``steps`` on ``device`` -> (params, opt_state,
     losses of the steps run). Batch ``t`` is ``TokenPipeline(seed).batch(t)``,
-    so a resumed run sees the stream an uninterrupted one would. ``mesh``
-    must be None: sharded training is ROADMAP A10d."""
+    so a resumed run sees the stream an uninterrupted one would. With
+    ``mesh`` (a ``ShardMesh`` whose positions are all ``device``) the step
+    resolves every parameter's spec under ``PROFILES[profile]``, as the
+    reference's; a mesh over several devices raises (ROADMAP A12)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_training: no CUDA device; pass device='cpu' to train on the CPU")
-    if mesh is not None:
-        raise NotImplementedError("run_training: sharded training (mesh=) is ROADMAP A10d")
     model = get_model(cfg)
     pipe = TokenPipeline(cfg.vocab, seq_len, global_batch, seed=seed)
-    step_fn = make_train_step(model.loss_fn, cfg, lr=lr, warmup=warmup)
+    rules = PROFILES[profile] if mesh is not None else None
+    step_fn = make_train_step(model.loss_fn, cfg, mesh=mesh, rules=rules, lr=lr, warmup=warmup)
     params = model.init(seed, device=device)
     opt = adamw_init(params)
     start = 0

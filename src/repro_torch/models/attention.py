@@ -27,18 +27,18 @@ IMPLS = ("auto", "dense", "blocked", "kernel")
 def init_attention(init: Init, cfg: ModelConfig, dtype, *, stack: int = 0):
     d, H, Kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
     p = {
-        "wq": init((d, H, hd), dtype=dtype, stack=stack),
-        "wk": init((d, Kv, hd), dtype=dtype, stack=stack),
-        "wv": init((d, Kv, hd), dtype=dtype, stack=stack),
-        "wo": init((H, hd, d), dtype=dtype, stack=stack),
+        "wq": init((d, H, hd), ("embed_fsdp", "heads", "head_dim"), dtype=dtype, stack=stack),
+        "wk": init((d, Kv, hd), ("embed_fsdp", "kv_heads", "head_dim"), dtype=dtype, stack=stack),
+        "wv": init((d, Kv, hd), ("embed_fsdp", "kv_heads", "head_dim"), dtype=dtype, stack=stack),
+        "wo": init((H, hd, d), ("heads", "head_dim", "embed_fsdp"), dtype=dtype, stack=stack),
     }
     if cfg.qkv_bias:
-        p["bq"] = init((H, hd), dtype=dtype, zeros=True, stack=stack)
-        p["bk"] = init((Kv, hd), dtype=dtype, zeros=True, stack=stack)
-        p["bv"] = init((Kv, hd), dtype=dtype, zeros=True, stack=stack)
+        p["bq"] = init((H, hd), ("heads", "head_dim"), dtype=dtype, zeros=True, stack=stack)
+        p["bk"] = init((Kv, hd), ("kv_heads", "head_dim"), dtype=dtype, zeros=True, stack=stack)
+        p["bv"] = init((Kv, hd), ("kv_heads", "head_dim"), dtype=dtype, zeros=True, stack=stack)
     if cfg.qk_norm:
-        p["q_norm"] = init((hd,), dtype=torch.float32, zeros=True, stack=stack)
-        p["k_norm"] = init((hd,), dtype=torch.float32, zeros=True, stack=stack)
+        p["q_norm"] = init((hd,), ("head_dim",), dtype=torch.float32, zeros=True, stack=stack)
+        p["k_norm"] = init((hd,), ("head_dim",), dtype=torch.float32, zeros=True, stack=stack)
     return p
 
 

@@ -3,8 +3,9 @@ the training loss and per-layer activation checkpointing.
 
 Parameters are plain nested dicts of tensors with the reference's keys and
 shapes (``repro.models``), layers stacked on a leading axis, so weights
-carry across one-to-one (``models.weights``). There are no logical sharding
-axes here: those belong to sharding (ROADMAP A10d).
+carry across one-to-one (``models.weights``). :class:`Init` records each
+parameter's logical sharding axes beside it (``models.registry.abstract_params``,
+``sharding.rules``).
 """
 from __future__ import annotations
 
@@ -149,22 +150,50 @@ class Init:
     reference draws in f32 and casts before scaling, a bf16 parameter may
     differ from it by one rounding; the numbers differ anyway (another
     generator). Weights that must equal the reference's come from
-    ``models.weights.params_from_reference``."""
+    ``models.weights.params_from_reference``.
 
-    def __init__(self, seed: int, device="cpu"):
+    Each call names the parameter's logical sharding axes, one per
+    dimension, as the reference's ``mk`` does; :meth:`axes` returns them as
+    a tree beside the parameters (``"layers"`` leading on stacks), which
+    ``sharding.rules`` resolves against a mesh. On ``device="meta"`` nothing
+    is drawn and nothing is allocated: every parameter is an empty meta
+    tensor of its shape and dtype (the dry-run's abstract parameters; a meta
+    device has no generator)."""
+
+    def __init__(self, seed: int, device):
         self.device = torch.device(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        self.gen = None
+        if self.device.type != "meta":
+            self.gen = torch.Generator(device=self.device)
+            self.gen.manual_seed(int(seed))
+        self._axes = {}  # id(tensor) -> (tensor, logical axes)
 
-    def __call__(self, shape, *, dtype, scale: Optional[float] = None, zeros: bool = False,
-                 stack: int = 0):
-        """One parameter of per-layer ``shape``; with ``stack`` = L, the L
-        layers' copies stacked on a leading axis (the scale still comes from
-        the per-layer shape)."""
+    def __call__(self, shape, axes, *, dtype, scale: Optional[float] = None,
+                 zeros: bool = False, stack: int = 0):
+        """One parameter of per-layer ``shape`` with logical ``axes``; with
+        ``stack`` = L, the L layers' copies stacked on a leading axis (the
+        scale still comes from the per-layer shape)."""
+        if len(axes) != len(shape):
+            raise ValueError(f"Init: {len(axes)} logical axes {tuple(axes)} for shape "
+                             f"{tuple(shape)}")
         full = (stack, *shape) if stack else tuple(shape)
-        if zeros:
-            return torch.zeros(full, dtype=dtype, device=self.device)
-        fan_in = shape[0] if len(shape) == 1 else shape[-2]
-        s = scale if scale is not None else fan_in ** -0.5
-        w = torch.randn(full, generator=self.gen, dtype=torch.float32, device=self.device)
-        return w.mul_(s).to(dtype)
+        if self.gen is None:
+            w = torch.empty(full, dtype=dtype, device=self.device)
+        elif zeros:
+            w = torch.zeros(full, dtype=dtype, device=self.device)
+        else:
+            fan_in = shape[0] if len(shape) == 1 else shape[-2]
+            s = scale if scale is not None else fan_in ** -0.5
+            w = torch.randn(full, generator=self.gen, dtype=torch.float32, device=self.device)
+            w = w.mul_(s).to(dtype)
+        self._axes[id(w)] = (w, (("layers",) if stack else ()) + tuple(axes))
+        return w
+
+    def axes(self, tree):
+        """The logical axes of every parameter of ``tree`` (dicts and lists
+        of tensors this factory made), in the same structure."""
+        if isinstance(tree, dict):
+            return {k: self.axes(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self.axes(v) for v in tree]
+        return self._axes[id(tree)][1]

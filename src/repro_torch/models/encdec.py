@@ -23,16 +23,16 @@ from repro_torch.models.common import Init, cross_entropy, dtype_of, layer_norm,
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.transformer import layer_params
 
-__all__ = ["init_params", "encode", "decode_train", "init_cache", "prefill_cross",
-           "decode_step", "loss_fn"]
+__all__ = ["init_params", "build_params", "cache_axes", "encode", "decode_train", "init_cache",
+           "prefill_cross", "decode_step", "loss_fn"]
 
 DEC_POS = 32768  # learned decoder positions, sized for the largest shape (32k)
 
 
 def _init_ln(init: Init, d: int, stack: int = 0):
     f32 = torch.float32
-    return {"g": init((d,), dtype=f32, scale=0.0, stack=stack),
-            "b": init((d,), dtype=f32, zeros=True, stack=stack)}
+    return {"g": init((d,), ("embed",), dtype=f32, scale=0.0, stack=stack),
+            "b": init((d,), ("embed",), dtype=f32, zeros=True, stack=stack)}
 
 
 def _ln(x, p, eps):
@@ -53,12 +53,17 @@ def _init_layer(init: Init, cfg: ModelConfig, dtype, n: int, *, cross: bool):
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     """Seeded random parameters on ``device``: the reference's tree and
     scales, another generator."""
-    init = Init(seed, device)
+    return build_params(cfg, Init(seed, device))
+
+
+def build_params(cfg: ModelConfig, init: Init):
+    """The parameter tree, each leaf made by ``init`` (which records its
+    logical axes: ``init.axes(params)``)."""
     dtype = dtype_of(cfg.param_dtype)
     d = cfg.d_model
     return {
-        "embed": init((cfg.vocab, d), dtype=dtype, scale=d ** -0.5),
-        "dec_pos": init((DEC_POS, d), dtype=dtype, scale=0.02),
+        "embed": init((cfg.vocab, d), ("vocab", "embed_fsdp"), dtype=dtype, scale=d ** -0.5),
+        "dec_pos": init((DEC_POS, d), (None, "embed_fsdp"), dtype=dtype, scale=0.02),
         "enc": _init_layer(init, cfg, dtype, cfg.n_enc_layers, cross=False),
         "dec": _init_layer(init, cfg, dtype, cfg.n_layers, cross=True),
         "enc_ln": _init_ln(init, d),
@@ -138,6 +143,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, enc_seq: int, dtype=t
     return {n: torch.zeros(s, dtype=dtype, device=device)
             for n, s in (("k", self_shape), ("v", self_shape), ("xk", cross_shape),
                          ("xv", cross_shape))}
+
+
+def cache_axes(cfg: ModelConfig):
+    """The logical axes of :func:`init_cache`'s tree (the reference's)."""
+    ax = ("layers", "cache_batch", "cache_seq", "kv_heads", "head_dim")
+    return {"k": ax, "v": ax, "xk": ax, "xv": ax}
 
 
 def prefill_cross(params, cfg: ModelConfig, enc_out):

@@ -12,11 +12,11 @@ from repro_torch.models.common import Init
 def init_mlp(init: Init, cfg: ModelConfig, dtype, *, stack: int = 0):
     d, f = cfg.d_model, cfg.d_ff
     p = {
-        "w_up": init((d, f), dtype=dtype, stack=stack),
-        "w_down": init((f, d), dtype=dtype, stack=stack),
+        "w_up": init((d, f), ("embed_fsdp", "mlp"), dtype=dtype, stack=stack),
+        "w_down": init((f, d), ("mlp", "embed_fsdp"), dtype=dtype, stack=stack),
     }
     if cfg.mlp_gated:
-        p["w_gate"] = init((d, f), dtype=dtype, stack=stack)
+        p["w_gate"] = init((d, f), ("embed_fsdp", "mlp"), dtype=dtype, stack=stack)
     return p
 
 

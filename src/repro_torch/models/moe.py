@@ -29,11 +29,13 @@ __all__ = ["init_moe", "moe_block", "route", "capacity", "dispatch"]
 
 def init_moe(init: Init, cfg: ModelConfig, dtype, *, stack: int = 0):
     d, E, f = cfg.d_model, cfg.n_experts, cfg.d_expert
+    up = ("experts", "embed_fsdp", "expert_mlp")
     return {
-        "router": init((d, E), dtype=torch.float32, stack=stack),
-        "w_gate": init((E, d, f), dtype=dtype, stack=stack),
-        "w_up": init((E, d, f), dtype=dtype, stack=stack),
-        "w_down": init((E, f, d), dtype=dtype, stack=stack),
+        "router": init((d, E), ("embed_fsdp", "experts"), dtype=torch.float32, stack=stack),
+        "w_gate": init((E, d, f), up, dtype=dtype, stack=stack),
+        "w_up": init((E, d, f), up, dtype=dtype, stack=stack),
+        "w_down": init((E, f, d), ("experts", "expert_mlp", "embed_fsdp"), dtype=dtype,
+                       stack=stack),
     }
 
 

@@ -37,16 +37,16 @@ def init_rglru(init: Init, cfg: ModelConfig, dtype, *, stack: int = 0):
     d, r, W = cfg.d_model, cfg.d_rnn, cfg.conv_width
     f32 = torch.float32
     return {
-        "w_in": init((d, r), dtype=dtype, stack=stack),
-        "w_gate": init((d, r), dtype=dtype, stack=stack),
-        "w_out": init((r, d), dtype=dtype, stack=stack),
-        "conv_w": init((W, r), dtype=dtype, scale=0.3, stack=stack),
-        "conv_b": init((r,), dtype=dtype, zeros=True, stack=stack),
-        "w_a": init((r, r), dtype=dtype, stack=stack),
-        "b_a": init((r,), dtype=f32, zeros=True, stack=stack),
-        "w_x": init((r, r), dtype=dtype, stack=stack),
-        "b_x": init((r,), dtype=f32, zeros=True, stack=stack),
-        "lam": init((r,), dtype=f32, scale=0.65, stack=stack),
+        "w_in": init((d, r), ("embed_fsdp", "rnn"), dtype=dtype, stack=stack),
+        "w_gate": init((d, r), ("embed_fsdp", "rnn"), dtype=dtype, stack=stack),
+        "w_out": init((r, d), ("rnn", "embed_fsdp"), dtype=dtype, stack=stack),
+        "conv_w": init((W, r), (None, "rnn"), dtype=dtype, scale=0.3, stack=stack),
+        "conv_b": init((r,), ("rnn",), dtype=dtype, zeros=True, stack=stack),
+        "w_a": init((r, r), ("rnn", None), dtype=dtype, stack=stack),
+        "b_a": init((r,), ("rnn",), dtype=f32, zeros=True, stack=stack),
+        "w_x": init((r, r), ("rnn", None), dtype=dtype, stack=stack),
+        "b_x": init((r,), ("rnn",), dtype=f32, zeros=True, stack=stack),
+        "lam": init((r,), ("rnn",), dtype=f32, scale=0.65, stack=stack),
     }
 
 

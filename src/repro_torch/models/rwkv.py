@@ -51,27 +51,27 @@ def init_time_mix(init: Init, cfg: ModelConfig, dtype, *, stack: int = 0):
     lora = max(d // 16, 16)
     f32 = torch.float32
     return {
-        "mu": init((5, d), dtype=f32, zeros=True, stack=stack),  # r, k, v, g, w
-        "wr": init((d, d), dtype=dtype, stack=stack),
-        "wk": init((d, d), dtype=dtype, stack=stack),
-        "wv": init((d, d), dtype=dtype, stack=stack),
-        "wg": init((d, d), dtype=dtype, stack=stack),
-        "wo": init((d, d), dtype=dtype, stack=stack),
-        "w_base": init((d,), dtype=f32, zeros=True, stack=stack),
-        "w_a": init((d, lora), dtype=dtype, stack=stack),
-        "w_b": init((lora, d), dtype=dtype, stack=stack),
-        "u": init((H, N), dtype=f32, zeros=True, stack=stack),
-        "ln_x": init((d,), dtype=f32, zeros=True, stack=stack),
+        "mu": init((5, d), (None, "embed"), dtype=f32, zeros=True, stack=stack),  # r, k, v, g, w
+        "wr": init((d, d), ("embed_fsdp", "heads"), dtype=dtype, stack=stack),
+        "wk": init((d, d), ("embed_fsdp", "heads"), dtype=dtype, stack=stack),
+        "wv": init((d, d), ("embed_fsdp", "heads"), dtype=dtype, stack=stack),
+        "wg": init((d, d), ("embed_fsdp", "heads"), dtype=dtype, stack=stack),
+        "wo": init((d, d), ("heads", "embed_fsdp"), dtype=dtype, stack=stack),
+        "w_base": init((d,), ("embed",), dtype=f32, zeros=True, stack=stack),
+        "w_a": init((d, lora), ("embed_fsdp", None), dtype=dtype, stack=stack),
+        "w_b": init((lora, d), (None, "embed_fsdp"), dtype=dtype, stack=stack),
+        "u": init((H, N), ("heads", None), dtype=f32, zeros=True, stack=stack),
+        "ln_x": init((d,), ("embed",), dtype=f32, zeros=True, stack=stack),
     }
 
 
 def init_channel_mix(init: Init, cfg: ModelConfig, dtype, *, stack: int = 0):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "mu": init((2, d), dtype=torch.float32, zeros=True, stack=stack),
-        "wk": init((d, f), dtype=dtype, stack=stack),
-        "wv": init((f, d), dtype=dtype, stack=stack),
-        "wr": init((d, d), dtype=dtype, stack=stack),
+        "mu": init((2, d), (None, "embed"), dtype=torch.float32, zeros=True, stack=stack),
+        "wk": init((d, f), ("embed_fsdp", "mlp"), dtype=dtype, stack=stack),
+        "wv": init((f, d), ("mlp", "embed_fsdp"), dtype=dtype, stack=stack),
+        "wr": init((d, d), ("embed_fsdp", "embed"), dtype=dtype, stack=stack),
     }
 
 

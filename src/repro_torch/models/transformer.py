@@ -53,8 +53,8 @@ from repro_torch.models.common import (Init, cross_entropy, dtype_of, maybe_rema
 from repro_torch.models.mlp import init_mlp, mlp
 from repro_torch.models.moe import init_moe, moe_block
 
-__all__ = ["init_params", "forward", "loss_fn", "prefill", "init_cache", "decode_step",
-           "layer_params"]
+__all__ = ["init_params", "build_params", "forward", "loss_fn", "prefill", "init_cache",
+           "cache_axes", "decode_step", "layer_params"]
 
 DECODE_LOOPS = ("scan", "fori")
 _LONG = 4096  # the hybrid's pattern blocks: 'dense' attention up to here, 'blocked' above
@@ -63,8 +63,8 @@ _LONG = 4096  # the hybrid's pattern blocks: 'dense' attention up to here, 'bloc
 # --------------------------------------------------------------------- init
 def _init_position(init: Init, cfg: ModelConfig, dtype, kind, stack=0):
     f32 = torch.float32
-    p = {"ln1": init((cfg.d_model,), dtype=f32, zeros=True, stack=stack),
-         "ln2": init((cfg.d_model,), dtype=f32, zeros=True, stack=stack),
+    p = {"ln1": init((cfg.d_model,), ("embed",), dtype=f32, zeros=True, stack=stack),
+         "ln2": init((cfg.d_model,), ("embed",), dtype=f32, zeros=True, stack=stack),
          "mlp": init_mlp(init, cfg, dtype, stack=stack)}
     if kind == "rec":
         p["rec"] = rg.init_rglru(init, cfg, dtype, stack=stack)
@@ -83,22 +83,27 @@ def _hybrid_split(cfg: ModelConfig):
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
     """Seeded random parameters on ``device`` (the card unless asked
     otherwise): the reference's tree and scales, another generator."""
-    init = Init(seed, device)
+    return build_params(cfg, Init(seed, device))
+
+
+def build_params(cfg: ModelConfig, init: Init):
+    """The parameter tree, each leaf made by ``init`` (which records its
+    logical axes: ``init.axes(params)``)."""
     dtype = dtype_of(cfg.param_dtype)
     f32 = torch.float32
     L, d = cfg.n_layers, cfg.d_model
     params = {
-        "embed": init((cfg.vocab, d), dtype=dtype, scale=d ** -0.5),
-        "final_norm": init((d,), dtype=f32, zeros=True),
+        "embed": init((cfg.vocab, d), ("vocab", "embed_fsdp"), dtype=dtype, scale=d ** -0.5),
+        "final_norm": init((d,), ("embed",), dtype=f32, zeros=True),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = init((d, cfg.vocab), dtype=dtype)
+        params["lm_head"] = init((d, cfg.vocab), ("embed_fsdp", "vocab"), dtype=dtype)
     if cfg.family == "rwkv":
-        params["ln0"] = init((d,), dtype=f32, zeros=True)
+        params["ln0"] = init((d,), ("embed",), dtype=f32, zeros=True)
         params["layers"] = {
-            "ln1": init((d,), dtype=f32, zeros=True, stack=L),
+            "ln1": init((d,), ("embed",), dtype=f32, zeros=True, stack=L),
             "tm": rk.init_time_mix(init, cfg, dtype, stack=L),
-            "ln2": init((d,), dtype=f32, zeros=True, stack=L),
+            "ln2": init((d,), ("embed",), dtype=f32, zeros=True, stack=L),
             "cm": rk.init_channel_mix(init, cfg, dtype, stack=L),
         }
     elif cfg.family == "hybrid":
@@ -108,9 +113,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
         params["tail"] = [_init_position(init, cfg, dtype, kind) for kind in tail]
     else:
         params["layers"] = {
-            "ln1": init((d,), dtype=f32, zeros=True, stack=L),
+            "ln1": init((d,), ("embed",), dtype=f32, zeros=True, stack=L),
             "attn": init_attention(init, cfg, dtype, stack=L),
-            "ln2": init((d,), dtype=f32, zeros=True, stack=L),
+            "ln2": init((d,), ("embed",), dtype=f32, zeros=True, stack=L),
             "mlp": (init_moe if cfg.family == "moe" else init_mlp)(init, cfg, dtype, stack=L),
         }
     return params
@@ -342,6 +347,33 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
         cache["tail"] = [state(kind) for kind in tail]
         return cache
     return {"k": z(L, batch, max_seq, Kv, hd), "v": z(L, batch, max_seq, Kv, hd)}
+
+
+_KV_AXES = ("cache_batch", "cache_seq", "kv_heads", "head_dim")
+
+
+def cache_axes(cfg: ModelConfig):
+    """The logical axes of :func:`init_cache`'s tree, leaf for leaf (the
+    reference's ``init_cache`` returns them beside the cache): ``"layers"``
+    leading on stacks; the hybrid's tail layers have none."""
+    kv = {"k": ("layers",) + _KV_AXES, "v": ("layers",) + _KV_AXES}
+    if cfg.family == "rwkv":
+        return {"tm_x": ("layers", "cache_batch", "embed"),
+                "tm_S": ("layers", "cache_batch", "heads", None, None),
+                "cm_x": ("layers", "cache_batch", "embed")}
+    if cfg.family == "hybrid":
+        _, tail = _hybrid_split(cfg)
+
+        def state(kind, lead):
+            if kind == "rec":
+                return {"conv": lead + ("cache_batch", None, "rnn"),
+                        "h": lead + ("cache_batch", "rnn")}
+            return {"k": lead + _KV_AXES, "v": lead + _KV_AXES}
+
+        axes = {f"p{i}": state(kind, ("layers",)) for i, kind in enumerate(cfg.block_pattern)}
+        axes["tail"] = [state(kind, ()) for kind in tail]
+        return axes
+    return kv
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, pos):

@@ -19,6 +19,7 @@ stays the one format of parameters, optimizer state and checkpoints.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -98,10 +99,21 @@ def make_train_step(loss_fn: Callable, cfg: ModelConfig, *, mesh=None, rules=Non
     As the reference's, the update leaves every parameter in
     ``cfg.param_dtype``: a leaf of another dtype (the float32 norms of a
     bfloat16 model) is replaced by its master weights in that dtype.
+
+    With a ``mesh``, at the first call every position of the mesh is checked
+    to be the parameters' device; the step is then the one above, as the
+    reference's math is the same under any sharding. ``step.specs()``
+    resolves every parameter's spec under ``rules`` (``sharding.rules``)
+    against the mesh (path → spec; None without both), once, when asked. A
+    mesh over more than one device raises ``NotImplementedError``:
+    data-parallel training over cards is ROADMAP A12.
     """
-    if rules is not None:
-        raise NotImplementedError("sharding rules have no counterpart in the port yet "
-                                  "(ROADMAP A10d): pass rules=None")
+    n_dev = len({_canon(d) for d in mesh.devices}) if mesh is not None else 0
+    if n_dev > 1:
+        raise NotImplementedError(
+            f"train step: a mesh over {n_dev} devices; data-parallel training over cards is "
+            "ROADMAP A12 (one device, or every position on it, only)")
+    specs = functools.cache(lambda: _resolve_specs(cfg, mesh, rules))
     lr_fn = wsd_schedule(lr, warmup=warmup)
     pdt = dtype_of(cfg.param_dtype)
 
@@ -119,18 +131,30 @@ def make_train_step(loss_fn: Callable, cfg: ModelConfig, *, mesh=None, rules=Non
         _recast(params, opt_state.master, pdt)
         return AdamWState(st.step, *opt_state[1:]), om
 
+    placed = []
+
+    def check_placement(params):
+        if mesh is None or placed:
+            return
+        dev = tree_leaves(params)[0].device
+        off = [d for d in mesh.devices if _canon(d) != dev]
+        if off:
+            raise ValueError(f"train step: mesh positions on {off[0]}, the parameters on {dev}")
+        placed.append(True)
+
     def train_step(params, opt_state: AdamWState, batch):
+        check_placement(params)
         loss, metrics, grads = grads_of(params, batch)
         opt_state, om = update(params, opt_state, grads)
         return params, opt_state, dict(metrics, loss=loss, **om)
 
     if not pod_compression or mesh is None or pod_axis not in mesh.shape:
+        train_step.specs = specs
         return train_step
 
     def hier_step(params, opt_state: AdamWState, residuals, batch):
         dev = tree_leaves(params)[0].device
-        # 'cuda' names the current card, as the parameters' 'cuda:0' does
-        members = [torch.empty(0, device=d).device for d in mesh.shard_devices([pod_axis])]
+        members = [_canon(d) for d in mesh.shard_devices([pod_axis])]
         if any(d != dev for d in members):
             raise ValueError(f"hierarchical step: the pod members' devices {members} must all "
                              f"be the parameters' device {dev} (one replica serves every "
@@ -155,4 +179,38 @@ def make_train_step(loss_fn: Callable, cfg: ModelConfig, *, mesh=None, rules=Non
         return params, opt_state, residuals, dict(metrics, loss=avg([l for l, _, _ in parts]),
                                                   **om)
 
+    hier_step.specs = specs
     return hier_step
+
+
+def _canon(d):
+    """``d`` with the current card's index where it names ``cuda`` alone."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None and torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _resolve_specs(cfg: ModelConfig, mesh, rules):
+    """{leaf path: spec} of every parameter under ``rules`` on ``mesh`` (None
+    without a mesh or rules)."""
+    if mesh is None or rules is None:
+        return None
+    from repro_torch.models.registry import abstract_params
+    from repro_torch.sharding.rules import logical_spec
+
+    params, axes = abstract_params(cfg)
+    out = {}
+
+    def walk(t, ax, path):
+        if isinstance(t, dict):
+            for k in t:
+                walk(t[k], ax[k], f"{path}/{k}")
+        elif isinstance(t, list):
+            for i, (u, a) in enumerate(zip(t, ax)):
+                walk(u, a, f"{path}/{i}")
+        else:
+            out[path] = logical_spec(tuple(t.shape), ax, mesh, rules)
+
+    walk(params, axes, "")
+    return out

@@ -405,11 +405,18 @@ def test_mesh_refuses_what_the_sharded_path_does_not_run(world, kwargs):
 
 
 def test_lower_flush_names_its_queue_item(world):
+    """The queue item this once named (A10d) is done: ``lower_flush`` returns
+    the flush's account, which a real query then matches shard for shard
+    (``tests/test_torch_lower_flush.py`` holds it against the reference)."""
     net, ev = world
     m = TNKDE(net, ev, solution="rfs", mesh=_mesh(2), device="cpu", **KW)
     wb = m._fe.window_batch(m.ctx, TS)
-    with pytest.raises(NotImplementedError, match="A10d"):
-        m._fe.lower_flush(wb, m._host_plan(), m.n_lixels)
+    lo = m._fe.lower_flush(wb, m._host_plan(), m.n_lixels)
+    assert lo.n_shards == 2 and lo.launches > 0 and (lo.n_lixels, lo.n_windows) == \
+        (m.n_lixels, len(TS))
+    assert m._fe.bytes_per_shard == lo.slab_bytes_per_shard < lo.bytes_per_shard
+    m.query(TS)
+    assert m._fe.bytes_per_shard == lo.bytes_per_shard
 
 
 def test_sharded_bytes_scale_with_shards(world):
