@@ -103,6 +103,18 @@ Table-3 berkeley replica:
   ``FlopCounterMode`` on a real step, bytes_per_device within
   DRYRUN_BYTES_TOL of ``[train]``'s peak — and ``[lm]``'s prefill and
   decode step against their peaks, each beside its roofline bound;
+* ``[train-dp]`` training over several processes
+  (``sharding.process.ProcessMesh``, one process a rank): (a)
+  ``run_training`` on a world of 1 under NCCL at ``[train]``'s full width,
+  steps and batch, its losses within 1e-6 of ``[train]``'s; then one
+  spawned group of 2 ranks on this card under gloo (NCCL takes one rank a
+  device; gloo's collectives go through host memory):
+  (c) the int8 pod step at ``[train-check]``'s 2-layer cut bitwise the
+  one-card ``hier_step``, (d) a checkpoint of the ranks' blocks restored on
+  the 2 ranks and on this process bitwise, (b) qwen2.5-3b at full width
+  (cut, ``cut=``, only if the pair does not fit by the printed reckoning)
+  on ``('data',)`` = 2, its step's loss and grad norm against ``[train]``'s
+  first within TRAIN_GRAD_TOL, the bytes staged and the step seconds;
 * ``[dryrun-kde]`` ``ShardedForestEngine.lower_flush`` (the account of the
   sharded flush) on both production meshes for the reference's
   ``kde_cell`` world and the berkeley world, then the berkeley account at
@@ -3189,8 +3201,10 @@ def phase_train(args, device, card):
                warm_step_s=warm_s, warm_steps_s=warm, tokens_per_s=tokens / warm_s,
                model_flops_per_step=flops, model_flops_per_s=flops / warm_s,
                model_flops_share_of_bf16_peak=flops / warm_s / PEAK_BF16_TC_FLOPS,
-               losses=losses, max_memory_allocated=peak, launches=counts)
-    say("train", card=card, **{k: v for k, v in out.items() if k not in ("losses", "launches")})
+               losses=losses, grad_norms=[v["gnorm"] for v in vals],
+               max_memory_allocated=peak, launches=counts)
+    say("train", card=card, **{k: v for k, v in out.items()
+                               if k not in ("losses", "grad_norms", "launches")})
     out["state_nbytes"] = train_state_nbytes(cfg, params, opt, B, S, args.seed, device)
     say("train", card=card, step="state-and-flops", **out["state_nbytes"])
     del params, opt
@@ -3386,6 +3400,314 @@ def phase_train_check(args, device, card):
     del params, opt, res, model
     free(device)
     return out
+
+
+# [train-dp]: the train step over several processes (sharding.process). Part
+# (a) runs in this process, (b)-(d) in one spawned group of 2 ranks on this
+# card under gloo (NCCL takes one rank a device), whose collectives go
+# through host memory and loopback TCP.
+TRAIN_DP_WORLD = 2
+TRAIN_DP_STEPS = 1  # (b): the step held against [train]'s first (~22 s on the card)
+TRAIN_DP_TIMEOUT = 420.0  # s the spawned group may take before it is stopped
+TRAIN_DP_CONTEXT_BYTES = 2 << 30  # a CUDA context and allocator slack per process (reckoned)
+
+
+def _rel(a, b):
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def _digest(t, index):
+    """blake2b of the bytes of ``t[index]`` (a tensor's block, on the host)."""
+    import hashlib
+
+    block = t[index].detach().to("cpu").contiguous()
+    if block.dtype == torch.bfloat16:
+        block = block.view(torch.int16)
+    return hashlib.blake2b(block.numpy().tobytes(), digest_size=16).hexdigest()
+
+
+def train_dp_reckon(cfg, layers, B, world, train):
+    """Bytes one rank of ``world`` needs to train ``cfg`` cut to ``layers``
+    on ``B`` global rows: its blocks of the bf16 parameters and their
+    gradients, of the float32 master weights and moments (logical_sharding on
+    ``('data',)`` = world), the gathered embedding and its gradient, and the
+    activations of its rows as [train]'s peak gives them per row."""
+    import dataclasses
+
+    from repro_torch.core.distributed import ShardMesh
+    from repro_torch.models.registry import abstract_params
+    from repro_torch.sharding.rules import PROFILES, logical_sharding
+    from repro_torch.train.optimizer import tree_leaves
+
+    meta = ShardMesh(["meta"] * world, axis_names=("data",))
+    params, axes = abstract_params(dataclasses.replace(cfg, n_layers=layers))
+    state = 0
+    for p, ax in zip(tree_leaves(params), _axes_leaves(axes)):
+        blk = logical_sharding(tuple(p.shape), ax, meta, PROFILES["train"], p.dtype)
+        state += 2 * blk.shard_nbytes + 3 * blk.shard_nbytes * 4 // p.element_size()
+    st = train["state_nbytes"]
+    per_row = (train["max_memory_allocated"] - st["params"] - st["opt"] - st["grads"]) / B
+    embed = params["embed"].numel() * params["embed"].element_size()
+    return int(state + 2 * embed + per_row * B / world)
+
+
+def _axes_leaves(axes):
+    if isinstance(axes, dict):
+        return [a for k in sorted(axes) for a in _axes_leaves(axes[k])]
+    if isinstance(axes, list):
+        return [a for v in axes for a in _axes_leaves(v)]
+    return [axes]
+
+
+def stepped_init(model, seed, device):
+    """``model.init`` with every leaf in the parameter dtype, as a step
+    leaves them (a bf16 model's norms start in float32)."""
+    from repro_torch.models.common import dtype_of
+    from repro_torch.train.optimizer import tree_map
+
+    pdt = dtype_of(model.cfg.param_dtype)
+    return tree_map(lambda t: t.to(pdt), model.init(seed, device=device))
+
+
+def train_dp_ranks(rank, world, address, spec):
+    """One rank of [train-dp]'s group (``spawn_ranks``): (c) the pod step
+    on ``('pod',)`` = world at [train-check]'s cut, held bitwise against the
+    one-card ``hier_step`` run here too; (d) one data-parallel step at the
+    same cut in bf16 on ``('data',)`` = world, checkpointed (blocks digested
+    for the parent's restore, and restored here on this world, bitwise); (b)
+    ``spec['steps']`` steps of [train]'s model, cut to ``spec['layers']``,
+    on ``('data',)`` = world."""
+    import dataclasses
+
+    from repro_torch.ckpt.checkpoint import _flatten, restore_checkpoint, save_checkpoint
+    from repro_torch.core.distributed import ShardMesh
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding.process import (ProcessMesh, init_group, state_blocks,
+                                              take_blocks, tree_nbytes)
+    from repro_torch.sharding.rules import PROFILES
+    from repro_torch.train.grad_compression import init_residuals
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the host's cores, shared
+    device, seed = spec["device"], spec["seed"]
+    dev = init_group(address=address, rank=rank, world=world, backend="gloo", device=device,
+                     timeout_s=spec["timeout"])
+    pod = ProcessMesh((world,), ("pod",), device=dev)
+    data = ProcessMesh((world,), ("data",), device=dev)
+    rules = PROFILES["train"]
+    out = {}
+
+    # (c) the pod step at [train-check]'s cut, against the one-card hier_step
+    cfg = f32_config(family_config("qwen2.5-3b", device), n_layers=TRAIN_CHECK_LAYERS,
+                     remat="full")
+    model = get_model(cfg)
+    batch = TokenPipeline(cfg.vocab, spec["check_seq"], world, seed=seed).batch(0, dev)
+    step = make_train_step(model.loss_fn, cfg, mesh=pod, rules=rules, lr=TRAIN_LR,
+                           warmup=TRAIN_WARMUP, pod_compression=True)
+    params = take_blocks(model.init(seed + 2, device=dev), step.blocks)
+    params, opt, res, met = step(params, adamw_init(params), init_residuals(params), batch)
+    del opt
+    one = ShardMesh.on_one_device(world, dev, axis="pod")
+    step1 = make_train_step(model.loss_fn, cfg, mesh=one, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                            pod_compression=True)
+    p1 = model.init(seed + 2, device=dev)
+    p1, o1, r1, met1 = step1(p1, adamw_init(p1), [init_residuals(p1)] * world, batch)
+    differ = [k for (k, a), (_, b) in zip(_flatten(params), _flatten(p1)) if not torch.equal(a, b)]
+    differ += [f"residual{k}" for (k, a), (_, b) in zip(_flatten(res), _flatten(r1[rank]))
+               if not torch.equal(a, b)]
+    out["c"] = dict(differ=differ, loss=float(met["loss"]), one_card_loss=float(met1["loss"]),
+                    grad_norm=float(met["grad_norm"]), host_staged_bytes=pod.host_staged_bytes)
+    del params, res, p1, o1, r1, step, step1
+    free(device)
+
+    # (d) a checkpoint of world blocks, restored here and (by the parent) on one process
+    cfg = dataclasses.replace(family_config("qwen2.5-3b", device), n_layers=TRAIN_CHECK_LAYERS,
+                              remat="full")
+    model = get_model(cfg)
+    step = make_train_step(model.loss_fn, cfg, mesh=data, rules=rules, lr=TRAIN_LR,
+                           warmup=TRAIN_WARMUP)
+    params = take_blocks(model.init(seed, device=dev), step.blocks)
+    params, opt, _ = step(params, adamw_init(params), batch)
+    state, blocks = {"params": params, "opt": opt}, state_blocks(step.blocks)
+    t1 = time.perf_counter()
+    save_checkpoint(spec["ckpt"], 1, state, shardings=blocks)
+    save_s = time.perf_counter() - t1
+    index = {k: b.index() for k, b in _flatten(blocks)}
+    digests = {k: _digest(v, tuple(slice(None) for _ in index[k])) for k, v in _flatten(state)}
+    skel = take_blocks(stepped_init(model, seed + 9, dev), step.blocks)
+    back, at, _ = restore_checkpoint(spec["ckpt"], {"params": skel, "opt": adamw_init(skel)},
+                                     shardings=blocks)
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(_flatten(back), _flatten(state)))
+    out["d"] = dict(index=index, digests=digests, restored_bitwise=same, at=at,
+                    save_s=save_s, state_bytes=tree_nbytes(state))
+    del params, opt, state, skel, back, step
+    free(device)
+
+    # (b) [train]'s model on ('data',) = world: its first step against [train]'s
+    cfg = dataclasses.replace(family_config("qwen2.5-3b", device), remat="full",
+                              n_layers=spec["layers"])
+    model = get_model(cfg)
+    step = make_train_step(model.loss_fn, cfg, mesh=data, rules=rules, lr=TRAIN_LR,
+                           warmup=TRAIN_WARMUP)
+    staged0 = data.host_staged_bytes
+    params = take_blocks(model.init(seed, device=dev), step.blocks)
+    free(device)
+    opt = adamw_init(params)
+    pipe = TokenPipeline(cfg.vocab, spec["seq"], spec["batch"], seed=seed)
+    steps = []
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    for t in range(spec["steps"]):
+        b = pipe.batch(t, dev)
+        sync(device)
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        steps.append(dict(seconds=time.perf_counter() - t1, loss=loss, grad_norm=norm))
+    out["b"] = dict(steps=steps, state_bytes=tree_nbytes(params) + tree_nbytes(tuple(opt)[1:]),
+                    host_staged_bytes=data.host_staged_bytes - staged0,
+                    peak=torch.cuda.max_memory_allocated() if device != "cpu" else None)
+    return out
+
+
+def phase_train_dp(args, device, card, train, tmp):
+    """The port's train step over several processes, one per rank
+    (``sharding.process.ProcessMesh``): (a) ``run_training`` on a world of 1
+    under NCCL at [train]'s full width, steps and batch, its losses against
+    [train]'s; then one spawned group of TRAIN_DP_WORLD ranks on this card
+    under gloo: (c) the pod step at [train-check]'s cut bitwise against the
+    one-card ``hier_step``; (d) a checkpoint of the group's blocks, restored
+    on the group and on this process (one process, whole leaves) bitwise;
+    (b) [train]'s model on ``('data',)`` = 2 — at full width if the pair
+    fits the card by the reckoning printed, else cut (``cut=``) — its first
+    step's loss and grad norm against [train]'s within TRAIN_GRAD_TOL, the
+    bytes gloo moved through host memory and the step seconds.
+    Training launches no hand-written kernel."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.ckpt.checkpoint import _flatten, restore_checkpoint
+    from repro_torch.launch.train import run_training
+    from repro_torch.models.registry import get_model
+    from repro_torch.sharding.process import ProcessMesh, free_address, init_group, spawn_ranks
+    from repro_torch.train.optimizer import adamw_init
+
+    small = device == "cpu"
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(family_config("qwen2.5-3b", device), remat="full")
+    B, S = (2, 128) if small else (TRAIN_BATCH, TRAIN_SEQ)
+
+    # (a) a world of 1 under NCCL (gloo on the CPU): [train]'s run
+    init_group(address=free_address(), rank=0, world=1, backend="gloo" if small else "nccl",
+               device=device)
+    try:
+        mesh = ProcessMesh((1, 1), ("data", "model"), device=device)
+        reset_launches()
+        t1 = time.perf_counter()
+        _, opt, losses = run_training(cfg, steps=TRAIN_STEPS, global_batch=B, seq_len=S,
+                                      lr=TRAIN_LR, warmup=TRAIN_WARMUP, seed=args.seed,
+                                      mesh=mesh, log_fn=lambda line: None)
+        a_s = time.perf_counter() - t1
+        counts = read_launches()
+    finally:
+        dist.destroy_process_group()
+    del opt
+    free(device)
+    a_rel = max(_rel(a, b) for a, b in zip(losses, train["losses"]))
+    say("train-dp", card=card, part="a", world=1, backend="gloo" if small else "nccl",
+        layers=cfg.n_layers, steps=TRAIN_STEPS, losses=losses, vs_train_max_rel=a_rel,
+        seconds=round(a_s, 3))
+    require(not any(counts.values()), f"[train-dp] launched a hand-written kernel: {counts}")
+    require(a_rel <= 1e-6, f"[train-dp] (a) world 1 losses {losses} against [train]'s "
+            f"{train['losses']}: {a_rel}")
+
+    # (b)'s depth: the pair at full width if it fits beside this process
+    free_bytes = torch.cuda.mem_get_info()[0] if not small else None
+    layers = cfg.n_layers
+    need = lambda n: TRAIN_DP_WORLD * (train_dp_reckon(cfg, n, B, TRAIN_DP_WORLD, train)  # noqa
+                                       + TRAIN_DP_CONTEXT_BYTES)
+    if not small:
+        while need(layers) > free_bytes and layers > 1:
+            layers -= 1
+    want = dict(loss=train["losses"][0], grad_norm=train["grad_norms"][0])
+    if layers != cfg.n_layers:  # the one-process step at the cut depth
+        _, _, cut_losses = run_training(dataclasses.replace(cfg, n_layers=layers), steps=1,
+                                        global_batch=B, seq_len=S, lr=TRAIN_LR,
+                                        warmup=TRAIN_WARMUP, seed=args.seed, device=device,
+                                        log_every=1, log_fn=lambda line: want.update(
+                                            grad_norm=float(line.split()[8])))
+        want["loss"] = cut_losses[0]
+        free(device)
+    say("train-dp", card=card, part="reckon", world=TRAIN_DP_WORLD, layers=layers,
+        reckon_bytes=need(layers) if not small else None, free_bytes=free_bytes)
+
+    ckpt = os.path.join(tmp, "train-dp-ckpt")
+    spec = dict(device=device, seed=args.seed, timeout=TRAIN_DP_TIMEOUT / 2, ckpt=ckpt,
+                check_seq=64 if small else TRAIN_CHECK_SEQ, layers=layers, batch=B, seq=S,
+                steps=TRAIN_DP_STEPS)
+    t1 = time.perf_counter()
+    ranks = spawn_ranks(train_dp_ranks, TRAIN_DP_WORLD, (spec,), timeout_s=TRAIN_DP_TIMEOUT)
+    group_s = time.perf_counter() - t1
+
+    # (c)
+    for r, out in enumerate(ranks):
+        c = out["c"]
+        say("train-dp", card=card, part="c", rank=r, layers=TRAIN_CHECK_LAYERS,
+            bitwise=not c["differ"], loss=c["loss"], one_card_loss=c["one_card_loss"],
+            grad_norm=c["grad_norm"], host_staged_bytes=c["host_staged_bytes"])
+        require(not c["differ"], f"[train-dp] (c) rank {r}: the pod step differs from the "
+                f"one-card hier_step in {c['differ'][:8]}")
+
+    # (d): restore the group's checkpoint whole in this process
+    dcfg = dataclasses.replace(cfg, n_layers=TRAIN_CHECK_LAYERS)
+    skel = stepped_init(get_model(dcfg), args.seed + 9, device)
+    t1 = time.perf_counter()
+    whole, at, _ = restore_checkpoint(ckpt, {"params": skel, "opt": adamw_init(skel)},
+                                      in_place=True)
+    restore_s = time.perf_counter() - t1
+    bad = [(r, k) for r, out in enumerate(ranks) for k, v in _flatten(whole)
+           if _digest(v, out["d"]["index"][k]) != out["d"]["digests"][k]]
+    d = ranks[0]["d"]
+    say("train-dp", card=card, part="d", world=TRAIN_DP_WORLD, layers=TRAIN_CHECK_LAYERS,
+        restored_on_world=[out["d"]["restored_bitwise"] for out in ranks],
+        restored_on_one_process=not bad, at=at, state_bytes_per_rank=d["state_bytes"],
+        save_s=round(d["save_s"], 3), restore_one_process_s=round(restore_s, 3))
+    require(all(out["d"]["restored_bitwise"] for out in ranks) and not bad and at == 1,
+            f"[train-dp] (d) checkpoint of {TRAIN_DP_WORLD} ranks restored: "
+            f"{[out['d']['restored_bitwise'] for out in ranks]}, one process differs in "
+            f"{bad[:8]}")
+    del whole, skel
+    free(device)
+
+    # (b)
+    b = [out["b"] for out in ranks]
+    first = b[0]["steps"][0]
+    loss_rel, norm_rel = _rel(first["loss"], want["loss"]), _rel(first["grad_norm"],
+                                                                 want["grad_norm"])
+    for r, out in enumerate(b):
+        say("train-dp", card=card, part="b", rank=r, world=TRAIN_DP_WORLD, backend="gloo",
+            layers=layers, **({"cut": layers} if layers != cfg.n_layers else {}),
+            batch=B, seq=S, step_seconds=[round(s["seconds"], 4) for s in out["steps"]],
+            losses=[s["loss"] for s in out["steps"]],
+            grad_norms=[s["grad_norm"] for s in out["steps"]],
+            state_bytes=out["state_bytes"], host_staged_bytes=out["host_staged_bytes"],
+            peak=out["peak"])
+    say("train-dp", card=card, part="b", vs_one_process_loss_rel=loss_rel,
+        vs_one_process_grad_norm_rel=norm_rel, one_process=want, tol=TRAIN_GRAD_TOL)
+    require(all(_rel(o["steps"][0]["loss"], first["loss"]) == 0.0 for o in b),
+            "[train-dp] (b) the ranks report different losses")
+    require(loss_rel <= TRAIN_GRAD_TOL and norm_rel <= TRAIN_GRAD_TOL,
+            f"[train-dp] (b) world {TRAIN_DP_WORLD} against one process: loss {loss_rel}, "
+            f"grad norm {norm_rel}")
+    require(all(np.isfinite([s["loss"], s["grad_norm"]]).all() for o in b for s in o["steps"]),
+            "[train-dp] (b) non-finite loss or grad norm")
+    say("train-dp", card=card, seconds=round(time.perf_counter() - t0, 3),
+        group_seconds=round(group_s, 3))
 
 
 def encdec_layerwise(params, cfg, frames, toks):
@@ -4499,6 +4821,9 @@ def main():
     t1 = time.perf_counter()
     dry_kde, seg_kde = phase_dryrun_kde(args, device, card, ts, F_main)
     say("dryrun-kde", seconds=round(time.perf_counter() - t1, 1))
+    free(device)
+    with tempfile.TemporaryDirectory(prefix="train-dp-") as tmp:
+        phase_train_dp(args, device, card, train, tmp)
     fam_launches = {"lm-moe": families["lm-moe"]["launches"],
                     "lm-encdec-encoder": families["lm-encdec"]["launches_encoder"],
                     "lm-encdec-decoder": families["lm-encdec"]["launches_decoder"],

@@ -17,6 +17,15 @@ a NamedTuple's fields in order — and keyed as its ``keystr`` writes them
 (``"['ptr']"`` for a flat dict, ``"['a'][0]"`` nested, ``"['opt'].mu['a']"``
 for a field of a NamedTuple such as the optimizer's ``AdamWState``).
 
+A tree held in blocks over several processes (``shardings=``: a tree of
+``sharding.process.Blocks`` shaped like the tree) is saved in the same
+layout, each leaf whole: gathered leaf by leaf to rank 0, which writes it
+and drops it (the host never holds the whole state), then commits after a
+barrier. ``restore_checkpoint(..., shardings=)`` reads only this rank's
+block of each leaf (``np.load(mmap_mode='r')``), so a checkpoint taken on
+one mesh restores onto another, or whole in one process: the reference's
+reshard-on-restore.
+
 Properties:
   * **atomic**: the COMMIT marker is written after every array lands, and
     only ``os.replace`` of the staging dir commits — a killed save can never
@@ -173,6 +182,43 @@ def _gc_uncommitted(base: str) -> int:
     return removed
 
 
+def _meta(step: int, extras: Optional[dict], leaves) -> dict:
+    """meta.json of ``leaves``: ``(key, shape, dtype name)`` in file order."""
+    return {
+        "step": step,
+        "extras": extras or {},
+        "leaves": [
+            {"key": key, "file": f"h0_l{idx:04d}.npy", "shape": list(shape), "dtype": dtype}
+            for idx, (key, shape, dtype) in enumerate(leaves)
+        ],
+        "treedef": None,  # structure is re-derived from the restore skeleton
+        "time": time.time(),
+    }
+
+
+def _stage(base: str, step: int) -> str:
+    """A fresh staging directory for ``step`` (old debris removed first)."""
+    tmp = _step_dir(base, step) + ".tmp"
+    _gc_uncommitted(base)
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp, exist_ok=True)
+    return tmp
+
+
+def _commit(base: str, step: int, tmp: str, meta: dict, keep_last: int) -> None:
+    _crash_point("meta")
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump(meta, f)
+    _crash_point("commit")
+    with open(os.path.join(tmp, "COMMIT"), "w") as f:
+        f.write("ok")
+    _crash_point("replace")
+    d = _step_dir(base, step)
+    shutil.rmtree(d, ignore_errors=True)
+    os.replace(tmp, d)
+    _prune(base, keep_last)
+
+
 def save_checkpoint(
     base: str,
     step: int,
@@ -181,44 +227,27 @@ def save_checkpoint(
     extras: Optional[dict] = None,
     blocking: bool = True,
     keep_last: int = 3,
+    shardings: Any = None,
 ) -> threading.Thread | None:
-    """Capture ``tree`` on the host and persist it for ``step``."""
+    """Capture ``tree`` on the host and persist it for ``step``. With
+    ``shardings`` (the ``Blocks`` of every leaf of ``tree``, which holds this
+    rank's blocks) every rank calls this; it gathers each leaf whole to rank
+    0 and writes it there, blocking (the gathers are collectives)."""
+    if shardings is not None:
+        if not blocking:
+            raise ValueError("save_checkpoint: a tree in blocks is saved blocking (its gathers "
+                             "are collectives)")
+        _save_blocks(base, step, tree, shardings, extras, keep_last)
+        return None
     flat = [(key, _to_host(v)) for key, v in _flatten(tree)]
-    meta = {
-        "step": step,
-        "extras": extras or {},
-        "leaves": [
-            {
-                "key": key,
-                "file": f"h0_l{idx:04d}.npy",
-                "shape": list(v.shape),
-                "dtype": _dtype_name(v),
-            }
-            for idx, (key, v) in enumerate(flat)
-        ],
-        "treedef": None,  # structure is re-derived from the restore skeleton
-        "time": time.time(),
-    }
+    meta = _meta(step, extras, [(key, v.shape, _dtype_name(v)) for key, v in flat])
 
     def write():
-        d = _step_dir(base, step)
-        tmp = d + ".tmp"
-        _gc_uncommitted(base)
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp, exist_ok=True)
+        tmp = _stage(base, step)
         for idx, (_, v) in enumerate(flat):
             _crash_point("array", idx)
             _save_leaf(os.path.join(tmp, f"h0_l{idx:04d}.npy"), v)
-        _crash_point("meta")
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump(meta, f)
-        _crash_point("commit")
-        with open(os.path.join(tmp, "COMMIT"), "w") as f:
-            f.write("ok")
-        _crash_point("replace")
-        shutil.rmtree(d, ignore_errors=True)
-        os.replace(tmp, d)
-        _prune(base, keep_last)
+        _commit(base, step, tmp, meta, keep_last)
 
     if blocking:
         write()
@@ -226,6 +255,32 @@ def save_checkpoint(
     t = threading.Thread(target=write, daemon=True)
     t.start()
     return t
+
+
+def _save_blocks(base, step, tree, shardings, extras, keep_last):
+    flat, blocks = _flatten(tree), [b for _, b in _flatten(shardings)]
+    if len(flat) != len(blocks):
+        raise ValueError(f"save_checkpoint: {len(flat)} leaves, {len(blocks)} shardings")
+    mesh = blocks[0].mesh
+    lead = mesh.rank == 0
+    tmp = _stage(base, step) if lead else None
+    leaves = []
+    for idx, ((key, v), b) in enumerate(zip(flat, blocks)):
+        if tuple(v.shape) != b.block_shape:
+            raise ValueError(f"save_checkpoint: {key} holds {tuple(v.shape)}, its block is "
+                             f"{b.block_shape}")
+        leaves.append((key, b.shape, _dtype_name(_to_host(v.reshape(-1)[:0]))))
+        if not b.owner():
+            continue  # a copy of a block its first holder sends
+        whole = b.gather_first(v)
+        if lead:
+            _crash_point("array", idx)
+            _save_leaf(os.path.join(tmp, f"h0_l{idx:04d}.npy"), _to_host(whole))
+        del whole
+    mesh.barrier()
+    if lead:
+        _commit(base, step, tmp, _meta(step, extras, leaves), keep_last)
+    mesh.barrier()
 
 
 def _prune(base: str, keep_last: int):
@@ -248,7 +303,8 @@ def _read_meta(base: str, step: Optional[int]) -> Tuple[str, int, dict]:
 
 
 def restore_checkpoint(
-    base: str, skeleton: Any, *, step: Optional[int] = None, in_place: bool = False
+    base: str, skeleton: Any, *, step: Optional[int] = None, in_place: bool = False,
+    shardings: Any = None,
 ) -> tuple[Any, int, dict]:
     """Restore into the structure of ``skeleton`` (a tree whose leaves have
     ``shape`` and ``dtype``: numpy arrays or torch tensors). Each leaf's
@@ -256,14 +312,28 @@ def restore_checkpoint(
     tensor on the skeleton leaf's device, else a numpy array. With
     ``in_place`` every torch leaf of the skeleton is overwritten (``copy_``)
     and is itself the restored leaf, so a device never holds two copies of
-    the state. Returns ``(tree, step, extras)``."""
+    the state. With ``shardings`` (a tree of ``sharding.process.Blocks``
+    shaped like ``skeleton``) each leaf is this rank's block of the saved
+    leaf, whatever mesh saved it, read from the file in place (the
+    skeleton's leaves are blocks). Returns ``(tree, step, extras)``."""
     d, step, meta = _read_meta(base, step)
     by_key = {leaf["key"]: leaf for leaf in meta["leaves"]}
+    flat = _flatten(skeleton)
+    blocks = [None] * len(flat) if shardings is None else [b for _, b in _flatten(shardings)]
+    if len(blocks) != len(flat):
+        raise ValueError(f"restore_checkpoint: {len(flat)} leaves, {len(blocks)} shardings")
     out = []
-    for key, leaf in _flatten(skeleton):
+    for (key, leaf), b in zip(flat, blocks):
         if key not in by_key:
             raise KeyError(f"checkpoint missing leaf {key}")
-        arr = np.load(os.path.join(d, by_key[key]["file"]))
+        path = os.path.join(d, by_key[key]["file"])
+        if b is None:
+            arr = np.load(path)
+        else:
+            arr = np.load(path, mmap_mode="r")
+            if tuple(arr.shape) != b.shape:
+                raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {b.shape}")
+            arr = np.array(arr[b.index()])  # this rank's block alone, copied
         if list(arr.shape) != list(leaf.shape):
             raise ValueError(f"shape mismatch for {key}: {arr.shape} vs {tuple(leaf.shape)}")
         if isinstance(leaf, torch.Tensor):
@@ -295,12 +365,14 @@ def load_checkpoint_arrays(
 
 
 class CheckpointManager:
-    """Step-cadenced async checkpointing with a single in-flight writer."""
+    """Step-cadenced async checkpointing with a single in-flight writer; a
+    tree in blocks (``shardings``) is saved blocking, by every rank."""
 
-    def __init__(self, base: str, every: int = 100, keep_last: int = 3):
+    def __init__(self, base: str, every: int = 100, keep_last: int = 3, shardings: Any = None):
         self.base = base
         self.every = every
         self.keep_last = keep_last
+        self.shardings = shardings
         self._inflight: Optional[threading.Thread] = None
         os.makedirs(base, exist_ok=True)
 
@@ -309,7 +381,8 @@ class CheckpointManager:
             return False
         self.wait()
         self._inflight = save_checkpoint(
-            self.base, step, tree, extras=extras, blocking=False, keep_last=self.keep_last
+            self.base, step, tree, extras=extras, blocking=self.shardings is not None,
+            keep_last=self.keep_last, shardings=self.shardings,
         )
         return True
 

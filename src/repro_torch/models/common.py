@@ -72,13 +72,24 @@ def maybe_remat(fn, remat: str):
     return run
 
 
-def cross_entropy(logits, labels, mask=None):
+def cross_entropy(logits, labels, mask=None, batch_sum=None):
     """Mean next-token cross entropy in float32 (float64 for float64
     logits): ``Σ (lse − gold)·mask /
     max(Σ mask, 1)``, or the plain mean over every position when ``mask`` is
-    None (the reference's ``loss_fn``s)."""
+    None (the reference's ``loss_fn``s).
+
+    With ``batch_sum`` (``x`` → ``x`` summed over every rank's rows of the
+    global batch, no gradient: the data-parallel train step's) the
+    denominator is the global batch's and the sum this rank's rows': the
+    ranks' losses add up to the global batch's, and so do their gradients."""
     lf = wide(logits)
     nll = torch.logsumexp(lf, dim=-1) - torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    if batch_sum is not None:
+        if mask is None:
+            count = torch.full((), float(nll.numel()), dtype=nll.dtype, device=nll.device)
+            return torch.sum(nll) / batch_sum(count)
+        mask = mask.to(lf.dtype)
+        return torch.sum(nll * mask) / torch.clamp(batch_sum(mask.sum().detach()), min=1.0)
     if mask is None:
         return torch.mean(nll)
     mask = mask.to(lf.dtype)

@@ -124,13 +124,14 @@ def decode_train(params, cfg: ModelConfig, tokens, enc_out, *, attn_impl: str = 
     return _head(params, cfg, x)
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl: str = "auto"):
+def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl: str = "auto", batch_sum=None):
     """Training loss of ``{frames [B, S_enc, d], tokens [B, S], labels
     [B, S]}`` -> (ce, {"ce", "aux"}): the plain mean cross entropy (no mask)
-    and ``aux = 0``, as the reference's."""
+    and ``aux = 0``, as the reference's; with ``batch_sum``
+    (``common.cross_entropy``'s) this rank's share of the global batch's."""
     enc = encode(params, cfg, batch["frames"], attn_impl=attn_impl)
     ce = cross_entropy(decode_train(params, cfg, batch["tokens"], enc, attn_impl=attn_impl),
-                       batch["labels"])
+                       batch["labels"], batch_sum=batch_sum)
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
 

@@ -72,9 +72,12 @@ def dispatch(top_e, B: int, S: int, cfg: ModelConfig):
     return order, slot, keep
 
 
-def moe_block(p, x, cfg: ModelConfig):
+def moe_block(p, x, cfg: ModelConfig, batch_sum=None):
     """``x [B, S, d]`` -> (out [B, S, d] in ``x.dtype``, aux f32 scalar):
-    ``aux = router_aux_coef · load_balance + 1e-3 · z``."""
+    ``aux = router_aux_coef · load_balance + 1e-3 · z``. With ``batch_sum``
+    (``common.cross_entropy``'s) the router's statistics are the global
+    batch's — the expert fractions summed over every rank's tokens, the means
+    over the global token count — and ``aux`` this rank's share of them."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.moe_top_k
     C = capacity(cfg, S)
@@ -82,8 +85,14 @@ def moe_block(p, x, cfg: ModelConfig):
 
     # ---- aux losses (switch load balance + router z-loss)
     hit = torch.zeros_like(probs).scatter_(1, top_e, 1.0) > 0
-    lb = E * torch.sum(hit.float().mean(0) * probs.mean(0))
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    if batch_sum is None:
+        lb = E * torch.sum(hit.float().mean(0) * probs.mean(0))
+        z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    else:
+        tokens = batch_sum(torch.full((), float(probs.shape[0]), device=probs.device))
+        frac = batch_sum(hit.float().sum(0)) / tokens
+        lb = E * torch.sum(frac * (probs.sum(0) / tokens))
+        z = torch.sum(torch.logsumexp(logits, dim=-1) ** 2) / tokens
     aux = cfg.router_aux_coef * lb + 1e-3 * z
 
     # ---- dispatch into [B, E, C (+ sink), d]

@@ -159,21 +159,21 @@ def _head(params, cfg: ModelConfig, x):
     return torch.matmul(x, head)
 
 
-def _ffn(lp, x, cfg: ModelConfig):
+def _ffn(lp, x, cfg: ModelConfig, batch_sum=None):
     """The block's second half: x + MLP (or MoE) of its norm -> (x, aux)."""
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
-        m, aux = moe_block(lp["mlp"], h, cfg)
+        m, aux = moe_block(lp["mlp"], h, cfg, batch_sum)
         return x + m, aux
     return x + mlp(lp["mlp"], h, cfg), 0.0
 
 
-def _block(lp, x, cfg: ModelConfig, rope, attn_impl):
+def _block(lp, x, cfg: ModelConfig, rope, attn_impl, batch_sum=None):
     """dense / moe block -> (x, (k, v), aux)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, kv = attention(lp["attn"], h, cfg, rope, causal=cfg.attn_kind == "causal",
                       impl=attn_impl)
-    x, aux = _ffn(lp, x + a, cfg)
+    x, aux = _ffn(lp, x + a, cfg, batch_sum)
     return x, kv, aux
 
 
@@ -220,9 +220,10 @@ def _rwkv_zero_state(cfg: ModelConfig, x):
 
 
 def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, mrope_pos=None,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", batch_sum=None):
     """Full-sequence forward -> (logits [B, S, V], aux): the moe family's
-    summed router loss in float32, 0.0 for the others."""
+    summed router loss in float32 (its statistics over the global batch
+    with ``batch_sum``, ``common.cross_entropy``'s), 0.0 for the others."""
     x = _embed(params, cfg, tokens, embeds)
     S = x.shape[1]
     if cfg.family == "rwkv":
@@ -251,7 +252,8 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, mrope_pos=Non
                             _hybrid_block(lp, x, cfg, kind, rope, attn_impl)[0], cfg.remat)(x, lp)
         return _head(params, cfg, x), 0.0
     if cfg.family == "moe":
-        layer = maybe_remat(lambda x, lp: _block(lp, x, cfg, rope, attn_impl)[::2], cfg.remat)
+        layer = maybe_remat(lambda x, lp: _block(lp, x, cfg, rope, attn_impl, batch_sum)[::2],
+                            cfg.remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_layers):
             x, a = layer(x, layer_params(params["layers"], i))
@@ -263,15 +265,17 @@ def forward(params, cfg: ModelConfig, tokens=None, *, embeds=None, mrope_pos=Non
     return _head(params, cfg, x), 0.0
 
 
-def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl: str = "auto"):
+def loss_fn(params, cfg: ModelConfig, batch, *, attn_impl: str = "auto", batch_sum=None):
     """Training loss of a batch ``{tokens | embeds (+ mrope_pos), labels
     [B, S], mask [B, S] (optional)}`` -> (ce + aux, {"ce", "aux"}): the
     masked mean cross entropy (``common.cross_entropy``) plus the moe
     family's router loss; ``aux`` is a float32 tensor, 0 for the other
-    families."""
+    families. With ``batch_sum`` the batch is this rank's rows of a global
+    batch and the loss this rank's share of the global batch's."""
     logits, aux = forward(params, cfg, batch.get("tokens"), embeds=batch.get("embeds"),
-                          mrope_pos=batch.get("mrope_pos"), attn_impl=attn_impl)
-    ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+                          mrope_pos=batch.get("mrope_pos"), attn_impl=attn_impl,
+                          batch_sum=batch_sum)
+    ce = cross_entropy(logits, batch["labels"], batch.get("mask"), batch_sum)
     if not isinstance(aux, torch.Tensor):
         aux = torch.full((), float(aux), dtype=torch.float32, device=ce.device)
     return ce + aux, {"ce": ce, "aux": aux}

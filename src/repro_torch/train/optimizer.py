@@ -29,7 +29,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 __all__ = ["AdamWState", "adamw_init", "adamw_update", "clip_by_global_norm", "wsd_schedule",
-           "tree_leaves", "tree_map", "tree_fill"]
+           "sum_of_squares", "tree_leaves", "tree_map", "tree_fill"]
 
 
 class AdamWState(NamedTuple):
@@ -77,14 +77,19 @@ def adamw_init(params) -> AdamWState:
     )
 
 
+def sum_of_squares(leaves):
+    """``Σ_leaf Σ g²`` in float64, one leaf at a time (None for no leaf)."""
+    total = None
+    for g in leaves:
+        s = torch.square(torch.linalg.vector_norm(g, dtype=torch.float64))
+        total = s if total is None else total + s
+    return total
+
+
 def _global_norm(grads):
     """``sqrt(Σ_leaf Σ g²)`` as float32, accumulated in float64 one leaf at
     a time (module docstring: the reference's float32 sum overflows)."""
-    total = None
-    for g in tree_leaves(grads):
-        s = torch.square(torch.linalg.vector_norm(g, dtype=torch.float64))
-        total = s if total is None else total + s
-    return torch.sqrt(total).to(torch.float32)
+    return torch.sqrt(sum_of_squares(tree_leaves(grads))).to(torch.float32)
 
 
 def _clip_scale(gn, max_norm: float):
@@ -118,7 +123,7 @@ def wsd_schedule(base_lr: float, warmup: int = 200, stable: int = 10_000,
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, *, lr_fn: Callable, params, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
-                 max_grad_norm: float = 1.0):
+                 max_grad_norm: float = 1.0, norm_of: Callable | None = None):
     """One AdamW step -> (params, state, {"lr", "grad_norm"}).
 
     ``grads``, ``params``, ``state.mu``, ``state.nu`` and ``state.master``
@@ -126,9 +131,11 @@ def adamw_update(grads, state: AdamWState, *, lr_fn: Callable, params, b1: float
     overwritten in place (module docstring) and the new parameters written
     into ``params`` with ``copy_``, each leaf in its own dtype (the train step
     casts a leaf not in the config's parameter dtype, as the reference casts
-    every leaf). The step counter is a new tensor.
+    every leaf). The step counter is a new tensor. ``norm_of(grads)`` gives
+    the global norm the clip reads (default: of ``grads`` alone; the
+    data-parallel step's takes every rank's blocks).
     """
-    gn = _global_norm(grads)
+    gn = (norm_of or _global_norm)(grads)
     scale = _clip_scale(gn, max_grad_norm)
     step = state.step + 1
     lr = lr_fn(step)

@@ -19,8 +19,8 @@ against the JAX package.
 * ``make_train_step(mesh=ShardMesh 1 × 1, rules=PROFILES['train'])`` at the
   reduced size equals the reference's step under ``make_local_mesh()`` and
   the same rules, to ``test_torch_train_step.py``'s tolerances;
-  ``run_training(mesh=)`` equals the run without a mesh; a mesh over two
-  devices raises.
+  ``run_training(mesh=)`` equals the run without a mesh; a ``ShardMesh``
+  over two devices in one process raises, naming ``ProcessMesh``.
 """
 import math
 
@@ -272,9 +272,9 @@ def test_run_training_takes_a_mesh():
     with pytest.raises(KeyError):
         run_training(cfg, mesh=mesh, profile="no-such-profile", **kw)
     two = ShardMesh([torch.device("cpu", 0), torch.device("cpu", 1)])
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="ProcessMesh"):
         run_training(cfg, mesh=two, **kw)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="ProcessMesh"):
         make_train_step(get_model(cfg).loss_fn, cfg, mesh=two, rules=PROFILES["train"])
     meta = ShardMesh(["meta"], shape=(1, 1), axis_names=("data", "model"))
     step = make_train_step(get_model(cfg).loss_fn, cfg, mesh=meta, rules=PROFILES["train"])
