@@ -114,7 +114,10 @@ Table-3 berkeley replica:
   the 2 ranks and on this process bitwise, (b) qwen2.5-3b at full width
   (cut, ``cut=``, only if the pair does not fit by the printed reckoning)
   on ``('data',)`` = 2, its step's loss and grad norm against ``[train]``'s
-  first within TRAIN_GRAD_TOL, the bytes staged and the step seconds;
+  first within TRAIN_GRAD_TOL, the bytes staged and the step seconds; (e)
+  one row of 512 tokens at that cut on ``('data', 'model')`` = (1, 2), a
+  batch that does not divide by the world (both ranks run it whole), its
+  loss and grad norm within 1e-6 / 1e-5 of the one-process step's;
 * ``[dryrun-kde]`` ``ShardedForestEngine.lower_flush`` (the account of the
   sharded flush) on both production meshes for the reference's
   ``kde_cell`` world and the berkeley world, then the berkeley account at
@@ -3410,6 +3413,7 @@ TRAIN_DP_WORLD = 2
 TRAIN_DP_STEPS = 1  # (b): the step held against [train]'s first (~22 s on the card)
 TRAIN_DP_TIMEOUT = 420.0  # s the spawned group may take before it is stopped
 TRAIN_DP_CONTEXT_BYTES = 2 << 30  # a CUDA context and allocator slack per process (reckoned)
+TRAIN_DP_ROWS_LOSS_TOL, TRAIN_DP_ROWS_NORM_TOL = 1e-6, 1e-5  # (e) against one process
 
 
 def _rel(a, b):
@@ -3476,7 +3480,9 @@ def train_dp_ranks(rank, world, address, spec):
     same cut in bf16 on ``('data',)`` = world, checkpointed (blocks digested
     for the parent's restore, and restored here on this world, bitwise); (b)
     ``spec['steps']`` steps of [train]'s model, cut to ``spec['layers']``,
-    on ``('data',)`` = world."""
+    on ``('data',)`` = world; (e) one step at [train-check]'s cut on
+    ``('data', 'model')`` = (1, world) of one row, which every rank runs
+    whole (``train_step.row_axes``)."""
     import dataclasses
 
     from repro_torch.ckpt.checkpoint import _flatten, restore_checkpoint, save_checkpoint
@@ -3498,6 +3504,7 @@ def train_dp_ranks(rank, world, address, spec):
                      timeout_s=spec["timeout"])
     pod = ProcessMesh((world,), ("pod",), device=dev)
     data = ProcessMesh((world,), ("data",), device=dev)
+    data_model = ProcessMesh((1, world), ("data", "model"), device=dev)
     rules = PROFILES["train"]
     out = {}
 
@@ -3522,6 +3529,22 @@ def train_dp_ranks(rank, world, address, spec):
     out["c"] = dict(differ=differ, loss=float(met["loss"]), one_card_loss=float(met1["loss"]),
                     grad_norm=float(met["grad_norm"]), host_staged_bytes=pod.host_staged_bytes)
     del params, res, p1, o1, r1, step, step1
+    free(device)
+
+    # (e) one row of the check's tokens on ('data', 'model') = (1, world): a
+    # global batch that does not divide by the world, held by the parent
+    # against the one-process step
+    batch = TokenPipeline(cfg.vocab, spec["check_seq"], 1, seed=seed).batch(0, dev)
+    step = make_train_step(model.loss_fn, cfg, mesh=data_model, rules=rules, lr=TRAIN_LR,
+                           warmup=TRAIN_WARMUP)
+    params = take_blocks(model.init(seed + 3, device=dev), step.blocks)
+    sync(device)
+    t1 = time.perf_counter()
+    params, opt, met = step(params, adamw_init(params), batch)
+    loss, norm = float(met["loss"]), float(met["grad_norm"])
+    out["e"] = dict(loss=loss, grad_norm=norm, seconds=time.perf_counter() - t1,
+                    host_staged_bytes=data_model.host_staged_bytes)
+    del params, opt, step
     free(device)
 
     # (d) a checkpoint of world blocks, restored here and (by the parent) on one process
@@ -3585,17 +3608,22 @@ def phase_train_dp(args, device, card, train, tmp):
     (b) [train]'s model on ``('data',)`` = 2 — at full width if the pair
     fits the card by the reckoning printed, else cut (``cut=``) — its first
     step's loss and grad norm against [train]'s within TRAIN_GRAD_TOL, the
-    bytes gloo moved through host memory and the step seconds.
+    bytes gloo moved through host memory and the step seconds; (e) one row
+    of [train-check]'s cut on ``('data', 'model')`` = (1, 2), a batch that
+    does not divide by the world, against the one-process step here (loss
+    within 1e-6, grad norm within 1e-5, the same loss on both ranks).
     Training launches no hand-written kernel."""
     import dataclasses
 
     import torch.distributed as dist
 
     from repro_torch.ckpt.checkpoint import _flatten, restore_checkpoint
+    from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.launch.train import run_training
     from repro_torch.models.registry import get_model
     from repro_torch.sharding.process import ProcessMesh, free_address, init_group, spawn_ranks
     from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_step import make_train_step
 
     small = device == "cpu"
     t0 = time.perf_counter()
@@ -3683,6 +3711,38 @@ def phase_train_dp(args, device, card, train, tmp):
             f"{bad[:8]}")
     del whole, skel
     free(device)
+
+    # (e): the one-process step on the row every rank ran whole
+    ecfg = f32_config(family_config("qwen2.5-3b", device), n_layers=TRAIN_CHECK_LAYERS,
+                      remat="full")
+    emodel = get_model(ecfg)
+    seq = 64 if small else TRAIN_CHECK_SEQ
+    batch = TokenPipeline(ecfg.vocab, seq, 1, seed=args.seed).batch(0, device)
+    params = emodel.init(args.seed + 3, device=device)
+    t1 = time.perf_counter()
+    _, _, met = make_train_step(emodel.loss_fn, ecfg, lr=TRAIN_LR, warmup=TRAIN_WARMUP)(
+        params, adamw_init(params), batch)
+    e_want = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]))
+    one_s = time.perf_counter() - t1
+    del params, met
+    free(device)
+    e = [out["e"] for out in ranks]
+    e_loss = max(_rel(o["loss"], e_want["loss"]) for o in e)
+    e_norm = max(_rel(o["grad_norm"], e_want["grad_norm"]) for o in e)
+    for r, o in enumerate(e):
+        say("train-dp", card=card, part="e", rank=r, mesh="data1 x model2", rows=1, seq=seq,
+            layers=TRAIN_CHECK_LAYERS, loss=o["loss"], grad_norm=o["grad_norm"],
+            step_seconds=round(o["seconds"], 4), host_staged_bytes=o["host_staged_bytes"])
+    say("train-dp", card=card, part="e", one_process=e_want, vs_one_process_loss_rel=e_loss,
+        vs_one_process_grad_norm_rel=e_norm, tol_loss=TRAIN_DP_ROWS_LOSS_TOL,
+        tol_grad_norm=TRAIN_DP_ROWS_NORM_TOL, one_process_seconds=round(one_s, 4))
+    require(all(o["loss"] == e[0]["loss"] for o in e),
+            f"[train-dp] (e) the ranks report different losses: {[o['loss'] for o in e]}")
+    require(e_loss <= TRAIN_DP_ROWS_LOSS_TOL and e_norm <= TRAIN_DP_ROWS_NORM_TOL,
+            f"[train-dp] (e) one row on {TRAIN_DP_WORLD} ranks against one process: loss "
+            f"{e_loss}, grad norm {e_norm}")
+    require(all(np.isfinite([o["loss"], o["grad_norm"]]).all() for o in e),
+            "[train-dp] (e) non-finite loss or grad norm")
 
     # (b)
     b = [out["b"] for out in ranks]

@@ -20,32 +20,43 @@ stays the one format of parameters, optimizer state and checkpoints.
 Over several processes (a ``sharding.process.ProcessMesh``, one process per
 device) each rank holds the block of every parameter and AdamW leaf its
 spec gives it (``sharding.rules.logical_spec`` under the rules), takes its
-rows of the global batch (split over all the mesh's axes, in rank order),
-and hands the loss a tree that all-gathers a layer's blocks when the layer
-reads them (``sharding.process.gather_leaf``: the backward reduce-scatters
-the gradient onto the block). Gathering every sharded axis makes ``model``
-one more FSDP axis: the answer is the reference's, and each rank runs the
+rows of the global batch (:func:`row_axes`), and hands the loss a tree
+that all-gathers a layer's blocks when the layer reads them
+(``sharding.process.gather_leaf``: the backward reduce-scatters the
+gradient onto the block). Gathering every sharded axis makes ``model`` one
+more FSDP axis: the answer is the reference's. When the rows divide by the
+world they are split over every rank, in rank order, and each rank runs the
 tokens the reference's ``act_batch`` × ``act_seq`` split gives a device.
-The loss stays the global batch's (its statistics summed over the ranks
-by the ``batch_sum`` of ``models.common.cross_entropy`` and the moe
-router), so the ranks' gradients add up to the one-process step's.
+Otherwise they are split over the axes the rules give ``act_batch`` (the
+reference's fallback drops an axis that does not divide), and the ``r``
+ranks of a row group each run its rows whole, with the full sequence: ``r``
+times the reference's share of tokens a rank (a sequence-parallel forward
+over ``model`` would cut that back with the same answer). The loss stays
+the global batch's: each of its batch-wide statistics is this rank's sum
+over the sum of the ranks' counts (the ``batch_sum`` of
+``models.common.cross_entropy`` and the moe router), and the gradients and
+metrics are summed over every batch axis, so an ``r``-fold copy of a row
+scales each numerator and each denominator alike, and the ranks' gradients
+add up to the one-process step's.
 """
 from __future__ import annotations
 
 import functools
 from collections.abc import Mapping
+from types import SimpleNamespace
 from typing import Callable
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dtype_of
-from repro_torch.sharding.process import ProcessMesh, gather_leaf, param_blocks
+from repro_torch.sharding.process import Blocks, ProcessMesh, gather_leaf, param_blocks
+from repro_torch.sharding.rules import logical_spec, spec_axes
 from repro_torch.train.grad_compression import compressed_tree_allreduce
 from repro_torch.train.optimizer import (AdamWState, adamw_update, sum_of_squares, tree_leaves,
                                          tree_map, wsd_schedule)
 
-__all__ = ["make_train_step", "layer_views"]
+__all__ = ["make_train_step", "layer_views", "row_axes"]
 
 _STACKS = ("layers", "enc", "dec")  # layer stacks of the decoder-only and encdec trees
 
@@ -254,7 +265,10 @@ def _process_step(loss_fn, cfg, mesh: ProcessMesh, rules, lr_fn, pdt, attn_impl,
     ``train_step(params, opt_state, batch)`` and ``hier_step(params,
     opt_state, residuals, batch)`` take this rank's blocks (``step.blocks``:
     the ``Blocks`` of every parameter; AdamW's leaves in the same blocks,
-    ``residuals`` this rank's, in the stacked blocks) and the global batch.
+    ``residuals`` this rank's, in the stacked blocks) and the global batch,
+    of which this rank runs the rows :func:`row_axes` gives it: any row
+    count the reference takes (the hierarchical step: any that divides by
+    the pods).
     Their ``loss``, ``ce`` and ``aux`` are the global batch's (the hierarchical
     step: the pods' mean) on every rank; the clip's global norm sums each
     block once over the world, in float64. ``step.grads(params, batch)`` ->
@@ -275,11 +289,8 @@ def _process_step(loss_fn, cfg, mesh: ProcessMesh, rules, lr_fn, pdt, attn_impl,
         batch_sum=lambda x: mesh.all_reduce(x.detach().clone(), batch_axes))
 
     def local_rows(batch):
-        for k, v in batch.items():
-            if v.shape[0] % mesh.world:
-                raise ValueError(f"train step: batch {k!r} of {v.shape[0]} rows does not split "
-                                 f"over {mesh.world} ranks")
-        return {k: v.tensor_split(mesh.world)[mesh.rank] for k, v in batch.items()}
+        return {k: v[Blocks(mesh, (row_axes(mesh, rules, v.shape[0], pod),),
+                            (v.shape[0],)).index()] for k, v in batch.items()}
 
     def grads_of(params, batch):
         dev = tree_leaves(params)[0].device
@@ -324,6 +335,28 @@ def _process_step(loss_fn, cfg, mesh: ProcessMesh, rules, lr_fn, pdt, attn_impl,
     return step
 
 
+def row_axes(mesh: ProcessMesh, rules, rows: int, pod=None) -> tuple:
+    """The axes of ``mesh`` the global batch's ``rows`` are split over (a
+    ``Blocks`` spec entry: the block index is the coordinate over them,
+    row-major in this order): every axis, so in rank order, when ``rows``
+    divide by the world; else those ``logical_spec`` gives ``act_batch``
+    under ``rules``, an axis that does not divide dropped. Under the
+    hierarchical step ``pod`` splits the rows first (``ValueError`` when
+    they do not divide by it: the reference's ``shard_map`` cannot split
+    them either) and the rule applies to each pod's rows over the other
+    axes."""
+    if rows % mesh.world == 0:
+        return tuple(mesh.axis_names)
+    if pod is None:
+        return spec_axes(logical_spec((rows,), ("act_batch",), mesh, rules)[0])
+    if rows % mesh.shape[pod]:
+        raise ValueError(f"hierarchical step: a batch of {rows} rows does not split over "
+                         f"{mesh.shape[pod]} pods")
+    inner = SimpleNamespace(shape={a: n for a, n in mesh.shape.items() if a != pod})
+    return (pod, *spec_axes(logical_spec((rows // mesh.shape[pod],), ("act_batch",), inner,
+                                         rules)[0]))
+
+
 def _canon(d):
     """``d`` with the current card's index where it names ``cuda`` alone."""
     d = torch.device(d)
@@ -338,7 +371,6 @@ def _resolve_specs(cfg: ModelConfig, mesh, rules):
     if mesh is None or rules is None:
         return None
     from repro_torch.models.registry import abstract_params
-    from repro_torch.sharding.rules import logical_spec
 
     params, axes = abstract_params(cfg)
     out = {}

@@ -1,9 +1,9 @@
-"""What each rank runs in ``tests/test_torch_train_dp.py`` (the port only,
-no JAX: every spawned process imports this module). Each function is
-``fn(rank, world, address, *args)`` for ``sharding.process.spawn_ranks``:
-it joins a gloo group on the CPU, one torch thread, and returns numpy
-arrays for the test to hold against the one-process step and the
-reference."""
+"""What each rank runs in ``tests/test_torch_train_dp.py`` and
+``tests/test_torch_train_dp_rows.py`` (the port only, no JAX: every
+spawned process imports this module). Each function is ``fn(rank, world,
+address, *args)`` for ``sharding.process.spawn_ranks``: it joins a gloo
+group on the CPU, one torch thread, and returns numpy arrays for the test
+to hold against the one-process step and the reference."""
 import numpy as np
 import torch
 
@@ -150,3 +150,63 @@ def rank1_fails(rank, world, address):
         raise RuntimeError("rank 1 fails on purpose")
     torch.distributed.barrier()
     return rank
+
+
+# the meshes of the rows run (tests/test_torch_train_dp_rows.py), in the
+# order every rank builds them
+MESHES_ROWS = {"data2x2": ((2, 2), ("data", "model")), "pod2x2": ((2, 2), ("pod", "data"))}
+# case -> (arch, global rows, steps taken): rows that do not divide by the world
+ROWS_CASES = {"rows2": ("qwen2.5-3b", 2, 2), "rows3": ("qwen2.5-3b", 3, 2),
+              "moe2": ("olmoe-1b-7b", 2, 0)}
+
+
+def rows_batch(cfg, rows, t):
+    return TokenPipeline(cfg.vocab, S, rows, seed=0).batch(t, "cpu")
+
+
+def ranks_rows(rank, world, address, paths):
+    """The rows run: for each of ``ROWS_CASES`` on ``data2x2`` the gradients
+    of batch 0 (whole) and the losses and grad norms of its steps; on
+    ``pod2x2`` one hierarchical step on 2 rows (its metrics, this rank's
+    residuals and the pod-local gradients of batch 0, whole) and the error
+    a 1-row batch raises. ``paths``: arch -> its parameters' npz."""
+    _join(rank, world, address)
+    meshes = {k: ProcessMesh(shape, names, device="cpu")
+              for k, (shape, names) in MESHES_ROWS.items()}
+    out = {}
+    for name, (arch, rows, steps) in ROWS_CASES.items():
+        cfg = config(arch)
+        p0 = load_params(cfg, paths[arch])
+        step = make_train_step(get_model(cfg).loss_fn, cfg, mesh=meshes["data2x2"], rules=RULES,
+                               lr=LR, warmup=WARMUP)
+        loss, met, grads = step.grads(take_blocks(p0, step.blocks), rows_batch(cfg, rows, 0))
+        whole = [b.gather(g) for g, b in zip(grads, tree_leaves(layer_views(step.blocks)))]
+        params = take_blocks(p0, step.blocks)
+        opt = adamw_init(params)
+        losses, norms = [], []
+        for t in range(steps):
+            params, opt, m = step(params, opt, rows_batch(cfg, rows, t))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[name] = dict(loss=float(loss), met={k: float(v) for k, v in met.items()},
+                         grads=[g.numpy().copy() for g in whole], losses=losses, norms=norms)
+    cfg = config()
+    p0 = load_params(cfg, paths["qwen2.5-3b"])
+    mesh = meshes["pod2x2"]
+    step = make_train_step(get_model(cfg).loss_fn, cfg, mesh=mesh, rules=RULES, lr=LR,
+                           warmup=WARMUP, pod_compression=True)
+    _, _, grads = step.grads(take_blocks(p0, step.blocks), rows_batch(cfg, 2, 0))
+    whole = [b.gather(g) for g, b in zip(grads, tree_leaves(layer_views(step.blocks)))]
+    params = take_blocks(p0, step.blocks)
+    _, _, res, met = step(params, adamw_init(params), init_residuals(params),
+                          rows_batch(cfg, 2, 0))
+    index = {k: b.index() for k, b in _flatten(step.blocks)}
+    try:
+        step(params, adamw_init(params), init_residuals(params), rows_batch(cfg, 1, 0))
+        raised = ""
+    except ValueError as e:
+        raised = str(e)
+    out["pod2"] = dict(met={k: float(v) for k, v in met.items()}, res=host(res), index=index,
+                       coords=dict(mesh.coords), grads=[g.numpy().copy() for g in whole],
+                       raised=raised)
+    return out
