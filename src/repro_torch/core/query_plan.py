@@ -215,9 +215,9 @@ def build_host_plan(
 ) -> HostPlan:
     """One planning walk of ``model.edge_geometries()`` → a cached HostPlan.
 
-    ``model`` is the TNKDE instance (the walk charges its ``sp_seconds``).
-    Lixel-Sharing classification happens here — dominated candidates are
-    deferred into ``plan.dominated`` exactly as the inline path did.
+    ``model`` is the TNKDE instance. Lixel-Sharing classification happens
+    here — dominated candidates are deferred into ``plan.dominated`` exactly
+    as the inline path did.
     """
     from .lixel_sharing import classify_candidates
     from .plan import build_atoms

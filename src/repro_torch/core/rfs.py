@@ -70,9 +70,11 @@ from .aggregation import (
 from .events import EdgeEvents
 from .network import RoadNetwork
 from ..kernels import ops
+from .. import obs
 from .plan import AtomSet
 from .query_plan import PlanCache, group_atoms_by_edge
 from .torch_engine import (
+    FOLD_CHUNK,
     FlatAtoms,
     FlatDynamicForest,
     FlatForest,
@@ -621,19 +623,22 @@ class _DeviceEngine:
         over the same centers reuse one device object (and everything keyed
         on it downstream: node values, grouped node values)."""
         ts_key = tuple(float(t) for t in ts)
-        hit = self._wb_cache.get(ts_key)
-        if hit is not None:
-            return hit
-        t_lo, t_hi, lo_right, half, qt = make_window_batch(ctx, ts)
-        wb = WindowBatch(
-            t_lo=self._f64(t_lo),
-            t_hi=self._f64(t_hi),
-            lo_right=self._as(lo_right, torch.bool),
-            half=self._as(half, torch.int32),
-            qt=self._f64(qt),
-        )
-        self._wb_cache.put(ts_key, wb)
-        return wb
+        with obs.span("tnkde.window_batch") as sp:
+            hit = self._wb_cache.get(ts_key)
+            if sp is not None:
+                sp["hit"] = hit is not None
+            if hit is not None:
+                return hit
+            t_lo, t_hi, lo_right, half, qt = make_window_batch(ctx, ts)
+            wb = WindowBatch(
+                t_lo=self._f64(t_lo),
+                t_hi=self._f64(t_hi),
+                lo_right=self._as(lo_right, torch.bool),
+                half=self._as(half, torch.int32),
+                qt=self._f64(qt),
+            )
+            self._wb_cache.put(ts_key, wb)
+            return wb
 
     def new_heatmap(self, n_lixels: int, n_windows: int):
         """Fresh device [L, W] float64 accumulator. Flushes add into it IN
@@ -681,6 +686,12 @@ class _DeviceEngine:
         its real rows' lixels in plan order and, for a padded layout, the
         output slot of each. Built from host arrays, once per pack."""
         return ops.segment_index(lixel, slots, device=self.device)
+
+
+def _kernel_launches() -> int:
+    """Hand-written kernel launches an RFS flush makes (walk, tree query,
+    scatter); the plain versions on the CPU launch none."""
+    return ops.fused_walk.launches + ops.tree_query.launches + ops.segment_add.launches
 
 
 def _rfs_flush(tabs, entry, heat):
@@ -859,35 +870,38 @@ class FlatForestEngine(_DeviceEngine):
         (:meth:`_fused_pack`, :meth:`_kernel_pack`).
         """
         key = (plan.key, self.executor)
-        hit = self._pack_cache.get(key)
-        if hit is not None:
-            return hit
-        packs = []
-        for atoms in plan.blocks:
-            if self.executor == "fused":
-                packs.extend(self._fused_pack(atoms))
-                continue
-            if self.executor == "kernel":
-                packs.extend(self._kernel_pack(atoms))
-                continue
-            nl = self.rf.n_levels[atoms.edge]
-            cls = np.minimum(-(-nl // 3) * 3, self.max_levels).astype(np.int64)
-            for c in np.unique(cls):
-                sel = np.nonzero(cls == c)[0]
-                fa = self._device_atoms(atoms, sel)
-                if self.executor != "packed":  # search / cascade: no root ranks
-                    packs.append(dict(max_levels=int(c), fa=fa, m=len(sel),
-                                      seg=self._segments(atoms.lixel[sel])))
+        with obs.span("tnkde.packs") as sp:
+            hit = self._pack_cache.get(key)
+            if sp is not None:
+                sp["hit"] = hit is not None
+            if hit is not None:
+                return hit
+            packs = []
+            for atoms in plan.blocks:
+                if self.executor == "fused":
+                    packs.extend(self._fused_pack(atoms))
                     continue
-                r_lo, r_hi = packed_root_ranks(
-                    self._packed["pf"], fa, search_steps=self.search_steps
-                )
-                packs.append(
-                    dict(max_levels=int(c), fa=fa, m=len(sel), r_lo=r_lo, r_hi=r_hi,
-                         seg=self._segments(atoms.lixel[sel]))
-                )
-        self._pack_cache.put(key, packs)
-        return packs
+                if self.executor == "kernel":
+                    packs.extend(self._kernel_pack(atoms))
+                    continue
+                nl = self.rf.n_levels[atoms.edge]
+                cls = np.minimum(-(-nl // 3) * 3, self.max_levels).astype(np.int64)
+                for c in np.unique(cls):
+                    sel = np.nonzero(cls == c)[0]
+                    fa = self._device_atoms(atoms, sel)
+                    if self.executor != "packed":  # search / cascade: no root ranks
+                        packs.append(dict(max_levels=int(c), fa=fa, m=len(sel),
+                                          seg=self._segments(atoms.lixel[sel])))
+                        continue
+                    r_lo, r_hi = packed_root_ranks(
+                        self._packed["pf"], fa, search_steps=self.search_steps
+                    )
+                    packs.append(
+                        dict(max_levels=int(c), fa=fa, m=len(sel), r_lo=r_lo, r_hi=r_hi,
+                             seg=self._segments(atoms.lixel[sel]))
+                    )
+            self._pack_cache.put(key, packs)
+            return packs
 
     def _grouped(self, atoms):
         """The per-edge grouped [G, Qp] layout of one atom block, one entry
@@ -968,30 +982,36 @@ class FlatForestEngine(_DeviceEngine):
         table shared by every flush of the query.
         """
         key = (ts_key, self.executor, self.codec.name)
-        hit = self._tab_cache.get(key)
-        if hit is not None:
-            return hit
-        W = len(ts_key)
-        K = self.rf.ctx.K
-        if self._flat is not None:
-            tabs = rank_boundaries(self._flat, wb, search_steps=self.search_steps)
-            self.counters["rank_searches"] += 3 * W * self.rf.net.n_edges
+        with obs.span("tnkde.tables") as sp:
+            hit = self._tab_cache.get(key)
+            if sp is not None:
+                sp.update(hit=hit is not None, chunks=0)
+            if hit is not None:
+                return hit
+            W = len(ts_key)
+            K = self.rf.ctx.K
+            if self._flat is not None:
+                tabs = rank_boundaries(self._flat, wb, search_steps=self.search_steps)
+                self.counters["rank_searches"] += 3 * W * self.rf.net.n_edges
+                self._tab_cache.put(key, tabs)
+                return tabs
+            pk = self._packed
+            tabs = packed_node_tables(
+                pk["pf"], wb, pk["node_starts"],
+                steps_per_level=pk["steps_per_level"], k_t=int(self.rf.ctx.k_t),
+                out_dtype=self.codec.fold_dtype,
+            )
+            if sp is not None:  # the fold's _fold_node_level calls
+                sp["chunks"] = sum(-(-int(ns.shape[0]) // FOLD_CHUNK)
+                                   for ns in pk["node_starts"])
+            nn = max(pk["n_nodes"], 1)
+            self.counters["rank_searches"] += 3 * W * nn
+            self.counters["moment_gathers"] += 3 * W * nn
+            # fold gathers read paired raw-Φ prefix rows from the f64 host-layout
+            # tables (the codec shrinks only the derived window tables)
+            self.counters["bytes_moved"] += 3 * W * nn * N_COMBOS * K * 8
             self._tab_cache.put(key, tabs)
             return tabs
-        pk = self._packed
-        tabs = packed_node_tables(
-            pk["pf"], wb, pk["node_starts"],
-            steps_per_level=pk["steps_per_level"], k_t=int(self.rf.ctx.k_t),
-            out_dtype=self.codec.fold_dtype,
-        )
-        nn = max(pk["n_nodes"], 1)
-        self.counters["rank_searches"] += 3 * W * nn
-        self.counters["moment_gathers"] += 3 * W * nn
-        # fold gathers read paired raw-Φ prefix rows from the f64 host-layout
-        # tables (the codec shrinks only the derived window tables)
-        self.counters["bytes_moved"] += 3 * W * nn * N_COMBOS * K * 8
-        self._tab_cache.put(key, tabs)
-        return tabs
 
     # ------------------------------------------------------------ per query
     def flush_plan(self, heat, plan, wb, ts_key, **_):
@@ -1012,42 +1032,48 @@ class FlatForestEngine(_DeviceEngine):
         # the codec's fold dtype — the bytes-per-gather knob
         row_bytes = W * 2 * k_s * self.codec.fold_itemsize
         pk = self._packed
-        for entry in packs:
-            c, m = entry["max_levels"], entry["m"]
-            if self.executor in ("search", "cascade"):
-                cascade = self.executor == "cascade"
-                vals = eval_atoms_flat(self._flat, entry["fa"], wb, tabs, max_levels=c,
-                                       search_steps=self.search_steps, cascade=cascade)  # [Wh, M]
-                ops.segment_add(heat, vals.T, entry["seg"], halves=True)
-                # paired hi/lo prefix rows: cascade pays one stacked gather per
-                # (boundary, level); search two buckets of two rows per
-                # (half-window, level) — the reference's counts for these tiers
-                gathers = 2 * 3 * W * m * (c + 1) if cascade else 4 * 2 * W * m * c
-                self.counters["moment_gathers"] += gathers
-                self.counters["bytes_moved"] += gathers * 2 * self.rf.ctx.K * 8
-                continue
-            if self.executor == "kernel":
-                _rfs_kernel_flush(self._flat, tabs, entry, wb, heat)
-                # two buckets of two [4, K] prefix rows per (half-window,
-                # level) of every atom: the reference's count for this tier
-                gathers = 4 * 2 * W * m * c
-                self.counters["moment_gathers"] += gathers
-                self.counters["bytes_moved"] += gathers * N_COMBOS * self.rf.ctx.K * 8
-                continue
-            if self.executor == "packed":
-                fa = entry["fa"]
-                vals = eval_atoms_packed(
-                    tabs, pk["node_base_lvl"], fa, entry["r_lo"], entry["r_hi"],
-                    max_levels=c,
-                )  # [Wh, M]
-                ops.segment_add(heat, vals.T, entry["seg"], halves=True)
-            else:
-                _rfs_flush(tabs, entry, heat)
-                # ONE kernel launch answered the whole pack; the walk still
-                # touches the same node rows
-                self.counters["fused_launches"] += 1
-            self.counters["moment_gathers"] += 2 * c * m
-            self.counters["bytes_moved"] += 2 * c * m * row_bytes
+        with obs.span("tnkde.launch", packs=len(packs)) as sp:
+            launches0 = _kernel_launches() if sp is not None else 0
+            for entry in packs:
+                c, m = entry["max_levels"], entry["m"]
+                if self.executor in ("search", "cascade"):
+                    cascade = self.executor == "cascade"
+                    vals = eval_atoms_flat(
+                        self._flat, entry["fa"], wb, tabs, max_levels=c,
+                        search_steps=self.search_steps, cascade=cascade,
+                    )  # [Wh, M]
+                    ops.segment_add(heat, vals.T, entry["seg"], halves=True)
+                    # paired hi/lo prefix rows: cascade pays one stacked gather per
+                    # (boundary, level); search two buckets of two rows per
+                    # (half-window, level) — the reference's counts for these tiers
+                    gathers = 2 * 3 * W * m * (c + 1) if cascade else 4 * 2 * W * m * c
+                    self.counters["moment_gathers"] += gathers
+                    self.counters["bytes_moved"] += gathers * 2 * self.rf.ctx.K * 8
+                    continue
+                if self.executor == "kernel":
+                    _rfs_kernel_flush(self._flat, tabs, entry, wb, heat)
+                    # two buckets of two [4, K] prefix rows per (half-window,
+                    # level) of every atom: the reference's count for this tier
+                    gathers = 4 * 2 * W * m * c
+                    self.counters["moment_gathers"] += gathers
+                    self.counters["bytes_moved"] += gathers * N_COMBOS * self.rf.ctx.K * 8
+                    continue
+                if self.executor == "packed":
+                    fa = entry["fa"]
+                    vals = eval_atoms_packed(
+                        tabs, pk["node_base_lvl"], fa, entry["r_lo"], entry["r_hi"],
+                        max_levels=c,
+                    )  # [Wh, M]
+                    ops.segment_add(heat, vals.T, entry["seg"], halves=True)
+                else:
+                    _rfs_flush(tabs, entry, heat)
+                    # ONE kernel launch answered the whole pack; the walk still
+                    # touches the same node rows
+                    self.counters["fused_launches"] += 1
+                self.counters["moment_gathers"] += 2 * c * m
+                self.counters["bytes_moved"] += 2 * c * m * row_bytes
+            if sp is not None:
+                sp["launches"] = _kernel_launches() - launches0
         return heat
 
 

@@ -77,6 +77,7 @@ Everything the reference's ``TNKDE`` serves, this one serves.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time as _time
 from typing import List, Optional, Sequence
 
@@ -103,15 +104,16 @@ from .rfs import RangeForest
 from .shortest_path import adjacency_csr, bounded_dijkstra
 from .sps import sps_eval_edge
 from . import wal as _wal
+from .. import obs
 
 __all__ = ["TNKDE", "PendingQuery", "QueryStats"]
+
+_query_ids = itertools.count(1)  # PendingQuery ids in the spans, per process
 
 
 @dataclasses.dataclass
 class QueryStats:
     build_seconds: float = 0.0
-    query_seconds: float = 0.0
-    sp_seconds: float = 0.0
     n_atoms: int = 0
     n_pairs_dominated: int = 0
     n_pairs_out: int = 0
@@ -717,9 +719,7 @@ class TNKDE:
             verts = np.unique(
                 np.concatenate([net.edge_src[blk], net.edge_dst[blk]])
             )
-            t_sp = _time.perf_counter()
             rows = bounded_dijkstra(net, verts, radius, adj=self._adj)
-            self.stats.sp_seconds += _time.perf_counter() - t_sp
             vmap = {int(v): i for i, v in enumerate(verts)}
             for a in blk:
                 ra = rows[vmap[int(net.edge_src[a])]]
@@ -742,17 +742,20 @@ class TNKDE:
         """
         epoch = snap.epoch if snap is not None else self.epoch
         key = (epoch, self.ls)
-        plan = self._plan_cache.get(key)
-        if plan is None:
-            cap = (
-                self.atom_flush
-                if self._fe is None
-                # device blocks are capped so the walk state (O(W · M) per
-                # flush) stays within device memory
-                else min(self.atom_flush, 200_000)
-            )
-            plan = build_host_plan(self, key, flush_cap=cap, ls=self.ls)
-            self._plan_cache.put(key, plan)
+        with obs.span("tnkde.plan") as sp:
+            plan = self._plan_cache.get(key)
+            if sp is not None:
+                sp["hit"] = plan is not None
+            if plan is None:
+                cap = (
+                    self.atom_flush
+                    if self._fe is None
+                    # device blocks are capped so the walk state (O(W · M) per
+                    # flush) stays within device memory
+                    else min(self.atom_flush, 200_000)
+                )
+                plan = build_host_plan(self, key, flush_cap=cap, ls=self.ls)
+                self._plan_cache.put(key, plan)
         return plan
 
     def dispatch(self, ts: Sequence[float], *, at=None) -> "PendingQuery":
@@ -770,12 +773,16 @@ class TNKDE:
         if at is not None and self.solution != "drfs":
             raise ValueError("query(at=snapshot) requires solution='drfs'")
         ts = list(map(float, ts))
-        t0 = _time.perf_counter()
+        query = next(_query_ids)
+        with obs.span("tnkde.dispatch", query=query, windows=len(ts)):
+            return self._dispatch(ts, at, query)
+
+    def _dispatch(self, ts: List[float], at, query: int) -> "PendingQuery":
         W = len(ts)
         L = self.lix.n_lixels
         F = np.zeros((W, L))
         if W == 0:
-            return PendingQuery(self, ts, F)
+            return PendingQuery(self, ts, F, query=query)
         snap = at
         if snap is None and self.solution == "drfs":
             snap = self.index.snapshot()
@@ -786,8 +793,7 @@ class TNKDE:
                 sl = slice(geom.lix_base, geom.lix_base + geom.x.shape[0])
                 for w, t in enumerate(ts):
                     F[w, sl] += sps_eval_edge(geom, ee, ctx, t)
-            self.stats.query_seconds += _time.perf_counter() - t0
-            return PendingQuery(self, ts, F)
+            return PendingQuery(self, ts, F, query=query)
         # ---- packed plan: atoms + dominated work, cached per epoch ---------
         plan = self._host_plan(snap)
         self.stats.n_atoms += plan.n_atoms
@@ -813,8 +819,7 @@ class TNKDE:
                     else:
                         vals = idx.eval_atoms(atoms, t, cascade=self.cascade)
                     np.add.at(F[w], atoms.lixel, vals)
-        self.stats.query_seconds += _time.perf_counter() - t0
-        return PendingQuery(self, ts, F, heat=heat, idx=idx, plan=plan)
+        return PendingQuery(self, ts, F, query=query, heat=heat, idx=idx, plan=plan)
 
     def _consume_counters(self) -> None:
         """Fold the index/engine work counters into ``stats`` via cumulative
@@ -864,12 +869,13 @@ class PendingQuery:
     here already evaluated.
     """
 
-    __slots__ = ("_model", "_ts", "_F", "_heat", "_idx", "_plan", "_done")
+    __slots__ = ("_model", "_ts", "_F", "_query", "_heat", "_idx", "_plan", "_done")
 
-    def __init__(self, model, ts, F, *, heat=None, idx=None, plan=None):
+    def __init__(self, model, ts, F, *, query: int, heat=None, idx=None, plan=None):
         self._model = model
         self._ts = ts
         self._F = F
+        self._query = query  # the dispatch's id in the spans (repro_torch.obs)
         self._heat = heat
         self._idx = idx
         self._plan = plan
@@ -887,18 +893,18 @@ class PendingQuery:
         if self._done:
             return self._F
         model = self._model
-        t0 = _time.perf_counter()
-        if self._heat is not None:
-            # the blocking device->host transfer (everything enqueued by
-            # dispatch completes before the bytes land)
-            self._F += model._fe.to_numpy(self._heat)
-            self._heat = None
-        # ---- Lixel Sharing: dominated edges, batched across the network ----
-        if self._plan.dominated:
-            dominated_sweep(self._F, self._idx, model.ctx, self._plan.dominated,
-                            self._ts)
-        model._consume_counters()
-        model.stats.query_seconds += _time.perf_counter() - t0
+        with obs.span("tnkde.result", query=self._query):
+            if self._heat is not None:
+                # the blocking device->host transfer (everything enqueued by
+                # dispatch completes before the bytes land)
+                with obs.span("tnkde.wait"):
+                    self._F += model._fe.to_numpy(self._heat)
+                self._heat = None
+            # ---- Lixel Sharing: dominated edges, batched across the network ----
+            if self._plan.dominated:
+                dominated_sweep(self._F, self._idx, model.ctx, self._plan.dominated,
+                                self._ts)
+            model._consume_counters()
         model.stats.index_bytes = model.index.index_bytes
         self._done = True
         self._idx = self._plan = None  # drop the snapshot/plan pins

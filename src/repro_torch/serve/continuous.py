@@ -46,12 +46,14 @@ pass, so a sibling's fault never corrupts (only slows) a flush.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from . import errors as _errors
 from .cache import ResultCache
 from .errors import QueueFull, ServeError
@@ -300,11 +302,12 @@ class InFlightFlush:
     """One dispatched, unretired flush: the slots it owns, the pinned
     snapshot, the cache rows it reused and the PendingQuery it blocks on."""
 
-    __slots__ = ("slots", "profile", "epoch", "snapshot", "misses", "rowmap",
+    __slots__ = ("id", "slots", "profile", "epoch", "snapshot", "misses", "rowmap",
                  "deferred", "pending", "n_eval", "t_dispatch", "atoms",
                  "error")
 
-    def __init__(self, slots, profile, epoch, snapshot):
+    def __init__(self, id, slots, profile, epoch, snapshot):
+        self.id = id  # the flush's id in the spans (repro_torch.obs)
         self.slots = slots
         self.profile = profile
         self.epoch = epoch
@@ -351,6 +354,7 @@ class ContinuousCore:
             raise ValueError("flush_cap must be >= 1")
         self.slo_margin = None if slo_margin is None else float(slo_margin)
         self._inflight: List[InFlightFlush] = []
+        self._flush_ids = itertools.count(1)
         # flush-time EWMA (dispatch -> retire wall) driving the SLO shed
         self.flush_ewma_s: Optional[float] = None
 
@@ -408,14 +412,26 @@ class ContinuousCore:
 
     # ------------------------------------------------------------ dispatch
     def _dispatch_next(self, *, force: bool) -> Optional[InFlightFlush]:
-        server = self.server
         slots, snapshot = self.scheduler.head_group(
-            server.window_cap, self.flush_cap, force=force
+            self.server.window_cap, self.flush_cap, force=force
         )
         if not slots:
             return None
         req0 = slots[0].req
-        fl = InFlightFlush(slots, req0.profile, req0.epoch, snapshot)
+        fl = InFlightFlush(next(self._flush_ids), slots, req0.profile, req0.epoch, snapshot)
+        with obs.span("serve.dispatch", flush=fl.id) as sp:
+            self._dispatch(fl)
+            if sp is not None:
+                sp.update(requests=[s.req.id for s in slots],
+                          centres=len(fl.rowmap) + len(fl.deferred) + len(fl.misses),
+                          window_class=fl.n_eval, misses=len(fl.misses))
+        return fl
+
+    def _dispatch(self, fl: InFlightFlush) -> None:
+        """Probe the result cache for the flush's distinct centres and send
+        the misses, padded to their window class, to the engine."""
+        server = self.server
+        slots = fl.slots
         fl.t_dispatch = time.perf_counter()
         try:
             # distinct centers in arrival order; probe the epoch-keyed cache
@@ -440,7 +456,7 @@ class ContinuousCore:
             server.stats.n_flushes += 1
             server.stats.occupancy_sum += len(slots) / self.scheduler.n_slots
             if not fl.misses:
-                return fl  # cache hits + deferred rows: no engine pass
+                return  # cache hits + deferred rows: no engine pass
             model = server.models[fl.profile]
             wc = window_class(len(fl.misses), server.window_cap)
             eval_ts = fl.misses + [fl.misses[0]] * (wc - len(fl.misses))
@@ -458,7 +474,6 @@ class ContinuousCore:
             fl.error = ServeError(
                 code=_errors.INTERNAL, message=f"{type(e).__name__}: {e}"
             )
-        return fl
 
     # -------------------------------------------------------------- retire
     def _retire(self, fl: InFlightFlush) -> List:
@@ -608,10 +623,11 @@ class ContinuousCore:
             if not self._inflight:
                 break
             fl = self._inflight.pop(0)
-            try:
-                out.extend(self._retire(fl))
-            except Exception as e:  # defense in depth (see _fail_flush)
-                out.extend(self._fail_flush(fl, e))
+            with obs.span("serve.retire", flush=fl.id):
+                try:
+                    out.extend(self._retire(fl))
+                except Exception as e:  # defense in depth (see _fail_flush)
+                    out.extend(self._fail_flush(fl, e))
             if not force:
                 break
         server.stats.slots_occupied = self.scheduler.slots_occupied

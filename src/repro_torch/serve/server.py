@@ -29,7 +29,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from collections import OrderedDict, deque
+from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -248,11 +248,6 @@ class TNKDEServer:
         self.cache = ResultCache(cache_rows)
         self.stats = ServerStats()
         self._next_id = 0
-        # queue-depth time series (seconds since server start, n_queued),
-        # sampled at every pump tail — the observability hook perf_serve.py
-        # and stats_json() export (bounded: old samples roll off)
-        self._t_start = time.perf_counter()
-        self.depth_series = deque(maxlen=4096)
         # ---- fault envelope (DESIGN.md §8) ----
         self.default_deadline_s = default_deadline_s
         self.degrade_after = None if degrade_after is None else int(degrade_after)
@@ -476,7 +471,6 @@ class TNKDEServer:
         if self.continuous is not None:
             responses = self.continuous.pump(force=force)
             self.maybe_compact()
-            self._record_depth()
             return responses
         responses = []
         for batch in self.scheduler.form_batches(force=force):
@@ -496,13 +490,7 @@ class TNKDEServer:
                 )
                 self.stats.n_batches += 1
         self.maybe_compact()
-        self._record_depth()
         return responses
-
-    def _record_depth(self) -> None:
-        self.depth_series.append(
-            (time.perf_counter() - self._t_start, self.n_queued)
-        )
 
     # ---------------- response/fault helpers shared by both cores ----------
     def _mk_stats(
@@ -750,9 +738,9 @@ class TNKDEServer:
 
     # -------------------------------------------------------- observability
     def stats_json(self) -> dict:
-        """The observability export (consumed by ``benchmarks/perf_serve``
-        and the CLI's final report): counter roll-ups plus the continuous
-        engine's gauges and the bounded queue-depth time series."""
+        """The observability export (read by the CLI's final report and by
+        ``ReplicaRouter.stats_json``): counter roll-ups plus the continuous
+        engine's gauges. Spans of the serve path: ``repro_torch.obs``."""
         d = self.stats.as_dict()
         d["mode"] = self.mode
         d["n_queued"] = self.n_queued
@@ -763,9 +751,6 @@ class TNKDEServer:
             self.continuous.inflight_depth if self.continuous is not None else 0
         )
         d["jit_entries"] = jit_entries()
-        d["queue_depth"] = [
-            [round(t, 6), int(q)] for t, q in self.depth_series
-        ]
         return d
 
     # ----------------------------------------------------------- durability
