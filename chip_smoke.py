@@ -184,10 +184,14 @@ MINPLUS_SASS = ("DADD", "DMNMX", "DSETP", "FADD", "FMNMX", "FSETP", "FSEL", "SEL
 
 KERNEL_TOL = 1e-13  # f64, kernel vs its plain version; only association and FMA differ
 KERNELS = ("fused_walk", "fused_leaf", "tree_query", "dyn_leaf_query", "dyn_node_walk",
-           "minplus_matmul", "flash_attention", "segment_add")
+           "minplus_matmul", "flash_attention", "segment_add", "fold_node_tables")
 # segment_add launches per path (each read with that path's own counts, right
 # after it ran): every TN-KDE flush ends in the fixed-order scatter
 SEGMENT_LAUNCHES = {}
+# fold_node_tables launches per path, read the same way: one a fresh window
+# batch of the packed RFS executors (one a shard when sharded), none on a hit
+FOLD_LAUNCHES = {}
+FOLD_W = 24  # [fold-shapes]: berkeley's fresh queries fold 24 centres
 # segment_add's time at [main]'s largest pack and [drfs]'s largest block in its
 # earlier design (one thread per (lixel, window), loading its rows from device
 # memory one after the other; NVIDIA H100 80GB HBM3, 700.00 W), printed beside
@@ -335,6 +339,14 @@ def take_segment(counts, path):
     path ran) and record it under ``path`` for the kernels line."""
     n = counts.pop("segment_add")
     SEGMENT_LAUNCHES[path] = SEGMENT_LAUNCHES.get(path, 0) + n
+    return n
+
+
+def take_fold(counts, path):
+    """Pop fold_node_tables' count from a path's counts and record it under
+    ``path`` for the kernels line, as take_segment does for the scatter."""
+    n = counts.pop("fold_node_tables")
+    FOLD_LAUNCHES[path] = FOLD_LAUNCHES.get(path, 0) + n
     return n
 
 
@@ -925,10 +937,12 @@ def phase_main(args, device, card):
     counts = read_launches()
     launches = counts.pop("fused_walk")
     seg = take_segment(counts, "rfs")
+    fold = take_fold(counts, "rfs")
     warm_searches = m.stats.n_rank_searches - s0
     require(not any(counts.values()), f"[main] launched another kernel: {counts}")
     if device != "cpu":
         require(seg == launches, f"[main] segment_add launches {seg} for {launches} walks")
+        require(fold == 1, f"[main] fold_node_tables launched {fold} times for one fresh ts")
 
     packs = m._fe._pack_cache.get(((m.epoch, m.ls), "fused"))
     n_packs = len(packs)
@@ -1090,10 +1104,14 @@ def phase_main_codec(m, ts, F64, main, device, card):
         warm_bytes = fe.counters["bytes_moved"] - b0
         launches = counts.pop("fused_walk")
         seg = take_segment(counts, f"rfs-codec-{codec}")
+        fold = take_fold(counts, f"rfs-codec-{codec}")
         n_packs = len(fe._pack_cache.get(((m.epoch, m.ls), "fused")))
         require(not any(counts.values()), f"[main-codec] launched another kernel: {counts}")
         require(device == "cpu" or seg == launches, f"[main-codec] segment_add launches {seg}")
         if device != "cpu":
+            require(by_dtype["fold_node_tables"][dt] == fold == 1,
+                    f"[main-codec] {codec}: fold_node_tables launches "
+                    f"{by_dtype['fold_node_tables']} for one fresh ts")
             require(by_dtype["fused_walk"][dt] == launches == 2 * n_packs,
                     f"[main-codec] {codec}: fused_walk launches {by_dtype['fused_walk']} "
                     f"for {n_packs} packs")
@@ -4117,6 +4135,96 @@ def phase_segment_shapes(m, ts, device, card, tag="main-segment"):
     return 0.0, 0.0, shape, bound, timing
 
 
+def fold_bound(args, kw, out_itemsize=8):
+    """Least time the card could take for one fold, from this input: the
+    larger of bytes/bandwidth (the table written once at ``out_itemsize``
+    bytes a value; every node's run start; the prefix bytes the fold needs,
+    each read once: a row's 2K values of combos (0, 2) where it is a lo or
+    mid boundary, of combos (1, 3) where it is a mid or hi one — counted from
+    the searches the plain version makes on this input; the window batch)
+    and operations/peak f64 lane rate (a subtract, multiply and add per
+    (value, t))."""
+    from repro_torch.kernels.fold_tables import seg_search, window_boundaries
+
+    time_tab, cum_tab, starts, t_lo, t_hi, qt = args
+    lvl_ptr, steps, k_t = kw["lvl_ptr"], kw["steps"], kw["k_t"]
+    K = int(cum_tab.shape[2])
+    R, W, ks = int(starts.shape[0]), int(t_lo.shape[0]) // 2, K // k_t
+    t_b, right_b = window_boundaries(t_lo, t_hi)
+    keys = []  # row * 2 + (0: combos (0, 2), 1: combos (1, 3))
+    for lev in range(len(lvl_ptr) - 1):
+        ns = starts[lvl_ptr[lev]:lvl_ptr[lev + 1]]
+        for c0 in range(0, ns.shape[0], 1 << 16):
+            s_lo = ns[c0:c0 + (1 << 16)]
+            i = seg_search(time_tab, s_lo[None, None], (s_lo + (1 << lev))[None, None],
+                           t_b[..., None], right_b[..., None], int(steps[lev]))
+            for b, groups in ((0, (0,)), (1, (0, 1)), (2, (1,))):
+                rows = (i[b] - 1)[i[b] > s_lo[None]]
+                keys += [torch.unique(rows * 2 + g) for g in groups]
+    n_keys = int(torch.unique(torch.cat(keys)).numel()) if keys else 0
+    values = R * 2 * W * 2 * ks
+    nbytes = values * out_itemsize + R * 8 + n_keys * 2 * K * 8 + 2 * W * (2 + k_t) * 8
+    ops_n = values * k_t * 3
+    t_b_, t_o = nbytes / PEAK_BYTES_PER_S, ops_n / PEAK_F64_LANE_OPS
+    return dict(bound_ms=max(t_b_, t_o) * 1e3, bound_by="bytes" if t_b_ >= t_o else "operations",
+                bytes=nbytes, table_bytes=values * out_itemsize, prefix_bytes=n_keys * 2 * K * 8,
+                ops=ops_n)
+
+
+def phase_fold_shapes(m, device, card, tag="fold-shapes"):
+    """``[fold-shapes]``: ops.fold_node_tables at the main path's forest and
+    FOLD_W fresh centres (berkeley's fresh queries) against its plain version
+    on the same tables — float64 within KERNEL_TOL of max|F|, float32 and
+    bfloat16 equal to the plain version's cast or one unit in the last place
+    where the float64 tables differ — then, on the card, the float64 kernel
+    timed with L2 flushed beside its bound (fold_bound) and the plain
+    version's time."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fold_tables import fold_node_tables_ref
+
+    fe = m._fe
+    pk = fe._packed
+    t_min, span = float(m.ee.time.min()), float(m.ee.time.max() - m.ee.time.min())
+    rng = np.random.default_rng(FOLD_W)
+    ts = tuple(float(t) for t in t_min + span * rng.uniform(0.0, 1.0, FOLD_W))
+    wb = fe.window_batch(m.ctx, ts)
+    starts, lvl_ptr = pk["starts"], pk["lvl_ptr"]
+    args = (pk["pf"].pm_time, pk["pf"].pm_cum, starts, wb.t_lo, wb.t_hi, wb.qt)
+    kw = dict(lvl_ptr=lvl_ptr, steps=pk["steps_per_level"], k_t=int(m.ctx.k_t))
+    want64 = fold_node_tables_ref(*args, **kw)
+    got64 = ops.fold_node_tables(*args, **kw)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    scale = float(want64.abs().max())
+    require(scale > 0.0 and bool(torch.isfinite(got64).all()), f"[{tag}] empty or non-finite")
+    abs_err = float((got64 - want64).abs().max())
+    require(abs_err <= KERNEL_TOL * scale, f"[{tag}] f64 vs plain: {abs_err / scale}")
+    ulps = {}
+    for dtype, view in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+        got, want = ops.fold_node_tables(*args, **kw, out_dtype=dtype), want64.to(dtype)
+        d = (got.view(view).int() - want.view(view).int()).abs()
+        require(bool(((d == 0) | ((d <= 1) & (got64 != want64))).all()),
+                f"[{tag}] {dtype} differs from the plain version's cast")
+        ulps[str(dtype).removeprefix("torch.")] = int(d.max())
+        del got, want, d
+    shape = dict(nodes=int(starts.shape[0]), levels=len(lvl_ptr) - 1, W=FOLD_W,
+                 k_s=int(m.ctx.k_s), k_t=int(m.ctx.k_t), rows=int(got64.shape[0]))
+    bound = fold_bound(args, kw)
+    timing = dict(ms=None, plain_ms=None)
+    if device != "cpu":
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)  # 256 MB > L2
+        del got64, want64
+        free(device)
+        timing["ms"] = time_ms(lambda: ops.fold_node_tables(*args, **kw), flush=flush)
+        timing["plain_ms"] = time_ms(lambda: fold_node_tables_ref(*args, **kw), reps=3,
+                                     flush=flush)
+        del flush
+    say(tag, card=card, **shape, max_rel_err=abs_err / scale, narrow_max_ulps=json.dumps(ulps),
+        ms=timing["ms"], plain_ms=timing["plain_ms"], bound_ms=bound["bound_ms"],
+        bound_by=bound["bound_by"], bytes=bound["bytes"], prefix_bytes=bound["prefix_bytes"])
+    return abs_err, abs_err / scale, shape, bound, timing
+
+
 def phase_segment_shapes_drfs(m, ts, device, card, tag="drfs-segment"):
     """segment_add at the shapes ``[drfs]``'s flushes gave it: per atom block
     of the last plan, the tree phase's [G·Qp, W] slots (``gseg``) and the
@@ -4256,8 +4364,10 @@ def phase_sharded(m, ts, F_main, host, device, card):
         warm_s = time.perf_counter() - t1
         counts = read_launches()
         seg = take_segment(counts, f"sharded-rfs-{S}")
+        fold = take_fold(counts, f"sharded-rfs-{S}")
         require(not any(counts.values()), f"[sharded] launched another kernel: {counts}")
         require(device == "cpu" or seg > 0, "[sharded] the scatter never launched")
+        require(device == "cpu" or fold == S, f"[sharded] S={S}: {fold} folds, one a shard")
         require(np.array_equal(F, F_cold), f"[sharded] S={S}: warm query differs from cold")
         require(np.array_equal(F[1], F[4]), f"[sharded] S={S}: duplicate centres differ")
         err = float(np.abs(F - F_main).max()) / fmax
@@ -4271,7 +4381,8 @@ def phase_sharded(m, ts, F_main, host, device, card):
             vs_main=err, bytes_per_shard=m.stats.bytes_per_shard, single_bytes=single_bytes,
             bytes_frac=round(frac, 4), frac_gate=round(1.0 / S + 0.25, 4),
             events_per_shard=json.dumps(loads.astype(int).tolist()), segment_add=seg,
-            device_bytes=fe.device_bytes, max_memory_allocated=peak, build_s=round(build_s, 3),
+            fold_node_tables=fold, device_bytes=fe.device_bytes, max_memory_allocated=peak,
+            build_s=round(build_s, 3),
             cold_s=round(cold_s, 4), warm_s=round(warm_s, 4))
         out[S] = dict(err=err, frac=frac, cold_s=cold_s, warm_s=warm_s, peak=peak)
         m._fe, m.mesh, m._counter_cursor = fused_fe, None, {}
@@ -4628,10 +4739,12 @@ def phase_dryrun_kde(args, device, card, ts, F_main):
     warm_s = time.perf_counter() - t1
     counts = read_launches()
     seg = take_segment(counts, "dryrun-kde")
+    fold = take_fold(counts, "dryrun-kde")
     require(not any(counts.values()), f"[dryrun-kde] launched another kernel: {counts}")
     if device != "cpu":
         require(seg == 2 * lo.launches, f"[dryrun-kde] segment_add launched {seg} times, the "
                 f"account says {lo.launches} a query")
+        require(fold == S, f"[dryrun-kde] {fold} folds for one fresh ts on {S} shards")
     real = [_device_nbytes(fe._shard_parts(s)) for s in range(S)]
     want = [sh["bytes"] for sh in lo.shards]
     require(real == want, f"[dryrun-kde] per-shard bytes {real} != the account's {want}")
@@ -4704,6 +4817,7 @@ def build_kernels():
     from repro_torch.kernels._build import build_log
     from repro_torch.kernels.dyn_query import dyn_leaf_query_library
     from repro_torch.kernels.flash_attention import flash_library
+    from repro_torch.kernels.fold_tables import fold_tables_library
     from repro_torch.kernels.fused_walk import fused_leaf_library, fused_walk_library
     from repro_torch.kernels.minplus import minplus_library
     from repro_torch.kernels.segment_add import segment_add_library
@@ -4712,7 +4826,7 @@ def build_kernels():
     builders = dict(fused_walk=fused_walk_library, fused_leaf=fused_leaf_library,
                     tree_query=tree_query_library, dyn_leaf_query=dyn_leaf_query_library,
                     minplus=minplus_library, flash_attention=flash_library,
-                    segment_add=segment_add_library)
+                    segment_add=segment_add_library, fold_tables=fold_tables_library)
     t1 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as pool:  # nvcc runs outside the GIL
         futures = {name: pool.submit(b, verbose=True) for name, b in builders.items()}
@@ -4801,6 +4915,7 @@ def main():
     m, ts, F_main, launches, secs = phase_main(args, device, card)
     abs2, rel2, shape, bound, timing = phase_main_shapes(m, ts, device, card)
     seg_main = phase_segment_shapes(m, ts, device, card)
+    fold_main = phase_fold_shapes(m, device, card)
     say("main", seconds=round(time.perf_counter() - t1, 1))
     t1 = time.perf_counter()
     search = phase_search(m, ts, F_main, device, card)
@@ -4905,6 +5020,8 @@ def main():
                 "a [drfs-codec] path never launched its kernel instantiation")
         require(all(n > 0 for n in SEGMENT_LAUNCHES.values()),
                 f"a TN-KDE path never launched segment_add: {SEGMENT_LAUNCHES}")
+        require(all(n > 0 for n in FOLD_LAUNCHES.values()),
+                f"a packed RFS path never launched fold_node_tables: {FOLD_LAUNCHES}")
 
     def entry(name, path, n, err_abs, err_rel, shp, bnd, tm, replaces, source=None,
               table_dtype="float64", **extra):
@@ -5037,6 +5154,12 @@ def main():
                                                   checks=dry["checks"])))):
         kernels.append(entry("segment_add", path, n, ea, er, eshape, ebound, etiming,
                              seg_replaces, main_path=dict(scale=args.scale), **extra))
+    # the window-table fold of the packed RFS executors, timed at berkeley's
+    # W = 24; its entry lists every path's launches
+    kernels.append(entry("fold_node_tables", "rfs", FOLD_LAUNCHES["rfs"], *fold_main,
+                         "none: added by the port, no TPU counterpart (the reference folds with "
+                         "jitted jnp, src/repro/core/jax_engine.py:581)", source="fold_tables",
+                         launches_by_path=dict(FOLD_LAUNCHES), main_path=dict(scale=args.scale)))
     say("done", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.cpu_rehearsal:

@@ -160,8 +160,8 @@ def segmented_searchsorted(
     seg_hi[i]]) of query[i] into the ascending slice vals[seg_lo[i]:seg_hi[i]],
     with 'right' bisection where right[i] else 'left'.
 
-    Branch-free fixed-trip binary search — the loop ``torch_engine._seg_search``
-    repeats on device tensors.
+    Branch-free fixed-trip binary search — the loop
+    ``kernels.fold_tables.seg_search`` repeats on device tensors.
     """
     lo = np.asarray(seg_lo, dtype=np.int64).copy()
     hi = np.asarray(seg_hi, dtype=np.int64).copy()

@@ -389,18 +389,21 @@ class ShardedForestEngine(_ShardedBase):
         self.sf = sf = build_sharded_packed(rf, self.n_shards)
         self.max_levels = sf.max_levels
         self.search_steps = sf.search_steps
-        self._pf, self._nbl, self._node_starts = [], [], []
+        # every slab's node starts share one level split (padded per level)
+        self._lvl_ptr = tuple(np.cumsum([0] + [ns.shape[1] for ns in sf.node_starts]).tolist())
+        self._pf, self._nbl, self._starts = [], [], []
         for s in range(self.n_shards):
-            pf, ns = self._slab(s)
+            pf, starts = self._slab(s)
             self._nbl.append(pf.node_base)
             self._pf.append(pf)
-            self._node_starts.append(ns)
+            self._starts.append(starts)
         self._tab_cache = PlanCache(2)
         self._pack_cache = PlanCache(2)
 
     def _slab(self, s, device=None):
         """Shard ``s``'s slab on its device (or on ``device``): the
-        ``PackedForest`` and the per-level node starts."""
+        ``PackedForest`` and the node starts, flat and level-major (levels
+        split at ``self._lvl_ptr``)."""
         sf = self.sf
         put = lambda a, dt=None: self._put(a[s], s, dt, device)  # noqa: E731
         nbl = put(sf.node_base_lvl, torch.int64)
@@ -413,10 +416,12 @@ class ShardedForestEngine(_ShardedBase):
             # accounting counts it once
             node_base=nbl,
         )
-        return pf, tuple(put(ns, torch.int64) for ns in sf.node_starts)
+        starts = self._put(np.concatenate([ns[s] for ns in sf.node_starts]), s, torch.int64,
+                           device)
+        return pf, starts
 
     def _shard_parts(self, s):
-        return [self._pf[s], list(self._node_starts[s]),
+        return [self._pf[s], self._starts[s],
                 [t[s] for t in self._tab_cache.values()],
                 [e["shards"][s] for packs in self._pack_cache.values() for e in packs]]
 
@@ -429,10 +434,12 @@ class ShardedForestEngine(_ShardedBase):
         if hit is not None:
             return hit
         W = len(ts_key)
-        tabs = [packed_node_tables(self._pf[s], self._shard_wb(wb, ts_key, s),
-                                   self._node_starts[s], steps_per_level=self.sf.steps_per_level,
+        l0 = ops.fold_node_tables.launches
+        tabs = [packed_node_tables(self._pf[s], self._shard_wb(wb, ts_key, s), self._starts[s],
+                                   lvl_ptr=self._lvl_ptr, steps_per_level=self.sf.steps_per_level,
                                    k_t=int(self.rf.ctx.k_t))
                 for s in range(self.n_shards)]
+        self.counters["fold_launches"] += ops.fold_node_tables.launches - l0
         nn = self.sf.n_nodes * self.n_shards
         self.counters["rank_searches"] += 3 * W * nn
         self.counters["moment_gathers"] += 3 * W * nn
@@ -493,7 +500,9 @@ class ShardedForestEngine(_ShardedBase):
                   for atoms in plan.blocks]
         shards = []
         for s in range(self.n_shards):
-            pf, ns = self._slab(s, meta)
+            pf, starts = self._slab(s, meta)
+            # the reference's slab holds one node-start array a level
+            ns = torch.split(starts, np.diff(self._lvl_ptr).tolist())
             packs = []
             for b in blocks:
                 sh = dict(b[s])

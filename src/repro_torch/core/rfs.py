@@ -74,7 +74,6 @@ from .. import obs
 from .plan import AtomSet
 from .query_plan import PlanCache, group_atoms_by_edge
 from .torch_engine import (
-    FOLD_CHUNK,
     FlatAtoms,
     FlatDynamicForest,
     FlatForest,
@@ -595,9 +594,12 @@ class _DeviceEngine:
         # executors dispatch. fused_launches counts the fused executor's
         # launches (exactly ONE per atom pack); as in the reference, the
         # kernel executor's launches are not counted there (the wrappers'
-        # own ``launches`` counts are).
+        # own ``launches`` counts are). fold_launches counts the window-table
+        # fold's kernel launches (one per fold of the packed executors on the
+        # card, one per shard and fold when sharded; none on the CPU).
         self.counters = {
             "rank_searches": 0,
+            "fold_launches": 0,
             "moment_gathers": 0,
             "bytes_moved": 0,
             "fused_launches": 0,
@@ -985,7 +987,7 @@ class FlatForestEngine(_DeviceEngine):
         with obs.span("tnkde.tables") as sp:
             hit = self._tab_cache.get(key)
             if sp is not None:
-                sp.update(hit=hit is not None, chunks=0)
+                sp.update(hit=hit is not None, launches=0)
             if hit is not None:
                 return hit
             W = len(ts_key)
@@ -996,14 +998,16 @@ class FlatForestEngine(_DeviceEngine):
                 self._tab_cache.put(key, tabs)
                 return tabs
             pk = self._packed
+            l0 = ops.fold_node_tables.launches
             tabs = packed_node_tables(
-                pk["pf"], wb, pk["node_starts"],
+                pk["pf"], wb, pk["starts"], lvl_ptr=pk["lvl_ptr"],
                 steps_per_level=pk["steps_per_level"], k_t=int(self.rf.ctx.k_t),
                 out_dtype=self.codec.fold_dtype,
             )
-            if sp is not None:  # the fold's _fold_node_level calls
-                sp["chunks"] = sum(-(-int(ns.shape[0]) // FOLD_CHUNK)
-                                   for ns in pk["node_starts"])
+            launched = ops.fold_node_tables.launches - l0  # 1 on the card, 0 on the CPU
+            self.counters["fold_launches"] += launched
+            if sp is not None:
+                sp["launches"] = launched
             nn = max(pk["n_nodes"], 1)
             self.counters["rank_searches"] += 3 * W * nn
             self.counters["moment_gathers"] += 3 * W * nn

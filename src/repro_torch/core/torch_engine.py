@@ -15,13 +15,14 @@ vector q_s, its edge block — is stored once per atom.
 The **packed-plan** executor (:class:`PackedForest` / :func:`packed_walk`,
 DESIGN.md §7): a position-major transpose of the merge tree whose per-node
 window values are q_t-folded once per (snapshot, window batch) at node-count
-scale (:func:`packed_node_tables`), leaving the per-atom walk one paired
-gather per level with window-independent [M] state. The ``fused`` executor
-replaces that walk with one CUDA launch (``repro_torch.kernels.fused_walk``)
-over the same tables. The ``kernel`` executor reads the time-major
-RangeForest tables instead (:class:`FlatForest`): its window-side state is
-the [3, W, E] time-rank table of :func:`rank_boundaries`, and its flush is
-one ``tree_query`` launch (``repro_torch.kernels.tree_query``).
+scale (:func:`packed_node_tables`, on the card one kernel launch), leaving
+the per-atom walk one paired gather per level with window-independent [M]
+state. The ``fused`` executor replaces that walk with one CUDA launch
+(``repro_torch.kernels.fused_walk``) over the same tables. The ``kernel``
+executor reads the time-major RangeForest tables instead
+(:class:`FlatForest`): its window-side state is the [3, W, E] time-rank
+table of :func:`rank_boundaries`, and its flush is one ``tree_query``
+launch (``repro_torch.kernels.tree_query``).
 
 The **DRFS** half (:class:`FlatDynamicForest`, :func:`dyn_window_tables`,
 :func:`dyn_node_tables`, :func:`eval_atoms_dyn`) serves the streaming index
@@ -48,10 +49,13 @@ Differences from the reference that matter to a reader:
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..kernels import fold_tables, ops
+from ..kernels.fold_tables import fold_level, seg_search, take, window_boundaries
 
 __all__ = [
     "FlatAtoms",
@@ -72,11 +76,6 @@ __all__ = [
     "packed_walk",
     "rank_boundaries",
 ]
-
-# node rows folded per step of packed_node_tables: bounds the transient
-# [3, W, chunk, 4, K] prefix gather (the level-0 fold of a full-size forest
-# would otherwise materialise several GB at once)
-FOLD_CHUNK = 1 << 18
 
 # fold   = dtype of the q_t-folded node-value tables (nodeval rows)
 # moment = dtype of the leaf-prefix moment tables (quantized DRFS lcum)
@@ -280,9 +279,10 @@ def packed_forest_from_numpy(host: dict, device):
     node_base, node_starts, n_nodes, steps_per_level``) — from this package
     or from the reference's ``repro.core.rfs.build_packed_host_tables``, so
     index state built there can be served here. Float tables become float64
-    tensors, index tables int64. ``meta`` carries the per-level node-start
-    tensors, the [Lmax, E] walk-level node bases, the per-level search trip
-    counts and the node count.
+    tensors, index tables int64. ``meta`` carries the node starts (one flat
+    level-major tensor, ``starts``, and its host level offsets, ``lvl_ptr``),
+    the [Lmax, E] walk-level node bases, the per-level search trip counts and
+    the node count.
     """
     dev = torch.device(device)
 
@@ -303,49 +303,16 @@ def packed_forest_from_numpy(host: dict, device):
         node_base=i64(host["node_base"]),
     )
     meta = dict(
-        node_starts=tuple(i64(s) for s in host["node_starts"]),
+        # every node's run start, level-major, flat: level ℓ's nodes are
+        # starts[lvl_ptr[ℓ]:lvl_ptr[ℓ+1]]
+        starts=i64(np.concatenate(host["node_starts"])),
+        lvl_ptr=tuple(np.cumsum([0] + [len(s) for s in host["node_starts"]]).tolist()),
         # walk-level -> node base, transposed for per-level row indexing
         node_base_lvl=i64(np.asarray(host["node_base"]).T),
         steps_per_level=tuple(int(s) for s in host["steps_per_level"]),
         n_nodes=int(host["n_nodes"]),
     )
     return pf, meta
-
-
-def _take(table, idx):
-    """``table[idx]`` with idx clamped into [0, len - 1], as jnp gathers clamp."""
-    return table[idx.clamp(0, table.shape[0] - 1)]
-
-
-def _seg_search(vals, seg_lo, seg_hi, q, right, steps: int):
-    """Branch-free binary search of q within vals[seg_lo:seg_hi], batched
-    over arbitrary leading dims (all args broadcast to a common shape).
-    ``steps`` fixed trips; a finished lane (lo == hi) reads vals[0] and
-    keeps its state, so ±inf pads search to the segment end. The gather is
-    clamped into ``vals`` (as jnp gathers clamp): the dead lanes of the
-    search executors may hold bounds outside the table, and their answers
-    are masked off."""
-    lo, hi, q, right = torch.broadcast_tensors(seg_lo, seg_hi, q, right)
-    lo, hi = lo.clone(), hi.clone()
-    zero = torch.zeros((), dtype=lo.dtype, device=lo.device)
-    for _ in range(steps):
-        live = lo < hi
-        mid = (lo + hi) >> 1
-        v = _take(vals, torch.where(live, mid, zero))
-        go = torch.where(right, v <= q, v < q) & live
-        lo, hi = torch.where(go, mid + 1, lo), torch.where(go | ~live, hi, mid)
-    return lo
-
-
-def _dyn_boundaries(wb: WindowBatch):
-    """(t_b [3, W], right_b [3, W]): the (lo, mid, hi) time boundaries per
-    window center — mid is shared by both halves, so W centers carry 3 rank
-    boundaries instead of 4 (the paired ``make_window_batch`` layout)."""
-    W = wb.t_lo.shape[0] // 2
-    t_b = torch.stack([wb.t_lo[0::2], wb.t_hi[0::2], wb.t_hi[1::2]])
-    right_b = torch.zeros((3, W), dtype=torch.bool, device=t_b.device)
-    right_b[1:] = True
-    return t_b, right_b
 
 
 def rank_boundaries(forest: FlatForest, wb: WindowBatch, *, search_steps: int):
@@ -357,9 +324,9 @@ def rank_boundaries(forest: FlatForest, wb: WindowBatch, *, search_steps: int):
     """
     tp = forest.time_ptr
     s_lo = tp[:-1][None, None, :]
-    t_b, right_b = _dyn_boundaries(wb)
-    r_b = _seg_search(forest.time_flat, s_lo, tp[1:][None, None, :],
-                      t_b[..., None], right_b[..., None], search_steps) - s_lo
+    t_b, right_b = window_boundaries(wb.t_lo, wb.t_hi)
+    r_b = seg_search(forest.time_flat, s_lo, tp[1:][None, None, :],
+                     t_b[..., None], right_b[..., None], search_steps) - s_lo
     return r_b.to(torch.int32)
 
 
@@ -423,8 +390,8 @@ def _engine_search(forest: FlatForest, atoms: FlatAtoms, wb: WindowBatch, combo,
         b = torch.stack([l, r - 1])  # [2, Wh, M]
         seg_lo = base + lev * npad + (b << lev)
         seg_hi = seg_lo + (1 << lev)
-        i = _seg_search(forest.pos_flat, seg_lo[None], seg_hi[None], q, right,
-                        min(search_steps, lev + 1))  # [3, 2, Wh, M]
+        i = seg_search(forest.pos_flat, seg_lo[None], seg_hi[None], q, right,
+                       min(search_steps, lev + 1))  # [3, 2, Wh, M]
         i_lo = torch.maximum(i[1], i[2])
         active = l < r
         emit_l = active & ((l & 1) == 1)
@@ -468,8 +435,8 @@ def _engine_cascade(forest: FlatForest, atoms: FlatAtoms, wb: WindowBatch, ranks
     q = torch.stack([atoms.pos_hi, atoms.pos_lo1, atoms.pos_lo2])
     ones = torch.ones(M, dtype=torch.bool, device=dev)
     right = torch.stack([ones, atoms.lo1_right, ~ones])
-    j = _seg_search(forest.pos_flat, root_lo[None], (root_lo + npad)[None], q, right,
-                    search_steps)  # [3, M]
+    j = seg_search(forest.pos_flat, root_lo[None], (root_lo + npad)[None], q, right,
+                   search_steps)  # [3, M]
     root_loc = torch.stack([j[0], torch.maximum(j[1], j[2])]) - root_lo[None]  # [2, M]
 
     cum2 = forest.cum_flat.reshape(-1, 2, 2 * K)
@@ -492,7 +459,7 @@ def _engine_cascade(forest: FlatForest, atoms: FlatAtoms, wb: WindowBatch, ranks
         half = (one << lev) >> 1
         go_right = active & (lev > 0) & (k >= a0 + half)
         nf = bsb + lev * npb + a0  # the parent bucket's flat offset
-        bl = torch.where(loc > 0, _take(forest.bridge, nf[None] + (loc - 1).clamp_min(0)), 0)
+        bl = torch.where(loc > 0, take(forest.bridge, nf[None] + (loc - 1).clamp_min(0)), 0)
         bl = bl.to(torch.int64)
         emit_leaf = active & (lev == 0)
         on = go_right | emit_leaf
@@ -555,88 +522,43 @@ def packed_root_ranks(pf: PackedForest, atoms: FlatAtoms, *, search_steps: int):
             torch.zeros(M, dtype=torch.bool, device=dev),
         ]
     )
-    j = _seg_search(pf.pm_pos, s_lo[None], s_hi[None], q, right, search_steps) - s_lo[None]
+    j = seg_search(pf.pm_pos, s_lo[None], s_hi[None], q, right, search_steps) - s_lo[None]
     r_hi = j[0]
     r_lo = torch.minimum(torch.maximum(j[1], j[2]), r_hi)
     return r_lo.to(torch.int32), r_hi.to(torch.int32)
 
 
-def _fold_node_level(time_tab, cum_tab, s_lo, s_hi, t_b, right_b, qtl, qtr,
-                     steps: int, k_t: int, out_dtype=None):
-    """One level's q_t-folded paired node values: [NL·2, W, 2k_s].
-
-    Per (boundary, window, node) binary search in the node's time-sorted run
-    [s_lo, s_hi), raw-Φ prefix difference (node-local rounding), combo slice
-    per side/half, q_t contraction, and the paired [k_s left | k_s right] row
-    packing with W inside the row — exactly the layout :func:`packed_walk`
-    and the fused kernel consume. All of it in f64; ``out_dtype`` (the
-    codec's fold dtype) casts only the finished values.
-    """
-    NL = s_lo.shape[0]
-    W = qtl.shape[0]
-    K = cum_tab.shape[-1]
-    k_s = K // k_t
-    i_b = _seg_search(
-        time_tab, s_lo[None, None], s_hi[None, None],
-        t_b[..., None], right_b[..., None], steps,
-    )  # [3, W, NL]
-
-    def pref(i, combos):
-        v = cum_tab[:, combos][(i - 1).clamp_min(0)]  # [W, NL, 2, K]
-        return torch.where((i > s_lo[None])[..., None, None], v, 0.0)
-
-    # combos (0, 2) = (ψ_c, ψ_d) × left half; (1, 3) = the same × right half
-    left = (pref(i_b[1], slice(0, None, 2)) - pref(i_b[0], slice(0, None, 2)))
-    right = (pref(i_b[2], slice(1, None, 2)) - pref(i_b[1], slice(1, None, 2)))
-    left = left.reshape(W, NL, 2, k_s, k_t)
-    right = right.reshape(W, NL, 2, k_s, k_t)
-    vl = left[..., 0] * qtl[:, None, None, None, 0]
-    vr = right[..., 0] * qtr[:, None, None, None, 0]
-    for t in range(1, k_t):
-        vl = vl + left[..., t] * qtl[:, None, None, None, t]
-        vr = vr + right[..., t] * qtr[:, None, None, None, t]
-    vv = torch.cat([vl, vr], dim=-1)  # [W, NL, 2, 2k_s]
-    out = vv.permute(1, 2, 0, 3).reshape(NL * 2, W, 2 * k_s)
-    return out if out_dtype is None else out.to(out_dtype)
-
-
 def packed_node_tables(
     pf: PackedForest,
     wb: WindowBatch,
-    node_starts: Sequence[torch.Tensor],
+    starts: torch.Tensor,
     *,
+    lvl_ptr: tuple,
     steps_per_level: tuple,
     k_t: int,
     out_dtype=None,
 ):
     """q_t-folded paired window values of EVERY position-rank node: [R·2, W, C].
 
-    ``node_starts`` is a tuple of per-level index tensors: the flat pm_time
-    offsets of every level-ℓ node's time-sorted run (length 2^ℓ). Per node
+    ``starts`` holds the flat pm_time offset of every node's time-sorted run,
+    level-major: level ℓ's nodes, runs of 2^ℓ, are
+    ``starts[lvl_ptr[ℓ]:lvl_ptr[ℓ+1]]`` (``packed_forest_from_numpy``'s meta). Per node
     the three window boundaries are binary-searched in the run — O(nodes)
     total, NOT O(atoms) — the raw-Φ prefix rows are differenced node-locally
     and contracted with the temporal query vectors immediately, so the walk
     gathers finished values. Row (node, side) = [k_s left-half | k_s right],
     with the W axis inside the row: one walk gather moves every window's
     value for a node at once. Node ids follow ``pf.node_base`` level-major.
-    Levels are folded ``FOLD_CHUNK`` nodes at a time (same values, bounded
-    transient memory). The fold runs in f64; ``out_dtype`` (the codec's fold
-    dtype) casts each chunk before the concatenation, so the whole f64 table
-    is never held beside its narrow copy.
+    The fold is :func:`repro_torch.kernels.ops.fold_node_tables`: on the card
+    one launch for every level, writing the table once in ``out_dtype`` (the
+    codec's fold dtype); on the CPU its plain version, ``FOLD_CHUNK`` nodes
+    at a time (same values, bounded transient memory), each chunk cast before
+    the concatenation, so the whole f64 table is never held beside its
+    narrow copy.
     """
-    t_b, right_b = _dyn_boundaries(wb)
-    qtl, qtr = wb.qt[0::2], wb.qt[1::2]
-    parts = []
-    for lev, ns in enumerate(node_starts):
-        for c0 in range(0, ns.shape[0], FOLD_CHUNK):
-            s_lo = ns[c0 : c0 + FOLD_CHUNK]
-            parts.append(
-                _fold_node_level(
-                    pf.pm_time, pf.pm_cum, s_lo, s_lo + (1 << lev), t_b, right_b,
-                    qtl, qtr, int(steps_per_level[lev]), k_t, out_dtype,
-                )
-            )
-    return torch.cat(parts, dim=0)
+    return ops.fold_node_tables(pf.pm_time, pf.pm_cum, starts, wb.t_lo, wb.t_hi, wb.qt,
+                                lvl_ptr=lvl_ptr, steps=steps_per_level, k_t=k_t,
+                                out_dtype=out_dtype)
 
 
 def packed_walk(nodeval, node_base_lvl, eid, side, r_lo, r_hi, *, max_levels: int):
@@ -758,8 +680,8 @@ def dyn_window_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: i
     paired moment vector [K left-half | K right-half] for every window (W
     rides INSIDE the row). Raw Φ space: q_t is applied only after the caller
     differences two prefixes, the association of the NumPy path. Leaves are
-    resolved ``FOLD_CHUNK`` at a time (same values, bounded transient
-    memory).
+    resolved ``fold_tables.FOLD_CHUNK`` at a time (same values, bounded
+    transient memory).
 
     ``out_dtype`` (the codec's moment dtype) stores the table delta-encoded:
     each per-leaf value is quantized to ``out_dtype`` first, the prefix is
@@ -772,12 +694,13 @@ def dyn_window_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: i
     E = forest.pend_ptr.shape[0] - 1
     nleaf = 1 << hq
     s_lo_all, s_hi_all = _dyn_level_runs(forest, hq, Np)
-    t_b, right_b = _dyn_boundaries(wb)
+    t_b, right_b = window_boundaries(wb.t_lo, wb.t_hi)
     parts = []
-    for c0 in range(0, E * nleaf, FOLD_CHUNK):
-        s_lo = s_lo_all[c0 : c0 + FOLD_CHUNK]
-        i_b = _seg_search(
-            forest.time_lvl, s_lo[None, None], s_hi_all[c0 : c0 + FOLD_CHUNK][None, None],
+    chunk = fold_tables.FOLD_CHUNK
+    for c0 in range(0, E * nleaf, chunk):
+        s_lo = s_lo_all[c0 : c0 + chunk]
+        i_b = seg_search(
+            forest.time_lvl, s_lo[None, None], s_hi_all[c0 : c0 + chunk][None, None],
             t_b[..., None], right_b[..., None], search_steps,
         )  # [3, W, n]
         v = forest.cum_lvl[(i_b - 1).clamp_min(0)]  # [3, W, n, 4, K]
@@ -808,7 +731,7 @@ def dyn_node_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: int
 
     The exact-mode companion of :func:`dyn_window_tables`: each node's time
     window is resolved in its own run (per-level trip counts) and q_t is
-    folded immediately (:func:`_fold_node_level`), so the per-atom canonical
+    folded immediately (``fold_tables.fold_level``), so the per-atom canonical
     walk gathers node-local values — the rounding locality of the NumPy
     node decomposition.
 
@@ -820,16 +743,17 @@ def dyn_node_tables(forest: FlatDynamicForest, wb: WindowBatch, *, n_levels: int
     """
     Np = forest.time_lvl.shape[0] // n_levels
     k_t = wb.qt.shape[1]
-    t_b, right_b = _dyn_boundaries(wb)
+    t_b, right_b = window_boundaries(wb.t_lo, wb.t_hi)
     qtl, qtr = wb.qt[0::2], wb.qt[1::2]
+    chunk = fold_tables.FOLD_CHUNK
     parts = []
     for d in range(hq + 1):
         s_lo, s_hi = _dyn_level_runs(forest, d, Np)
-        for c0 in range(0, s_lo.shape[0], FOLD_CHUNK):
+        for c0 in range(0, s_lo.shape[0], chunk):
             parts.append(
-                _fold_node_level(
-                    forest.time_lvl, forest.cum_lvl, s_lo[c0 : c0 + FOLD_CHUNK],
-                    s_hi[c0 : c0 + FOLD_CHUNK], t_b, right_b, qtl, qtr,
+                fold_level(
+                    forest.time_lvl, forest.cum_lvl, s_lo[c0 : c0 + chunk],
+                    s_hi[c0 : c0 + chunk], t_b, right_b, qtl, qtr,
                     int(steps_per_level[d]), k_t, out_dtype,
                 )
             )
@@ -880,7 +804,7 @@ def eval_atoms_dyn(forest: FlatDynamicForest, atoms: FlatAtoms, wb: WindowBatch,
     eid = atoms.edge
     side = atoms.side_feat.to(torch.int64)
     nleaf = 1 << hq
-    t_b, _ = _dyn_boundaries(wb)
+    t_b, _ = window_boundaries(wb.t_lo, wb.t_hi)
     k_s = atoms.qs.shape[1]
     k_t = wb.qt.shape[1]
 

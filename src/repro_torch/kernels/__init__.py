@@ -19,6 +19,10 @@
   minplus_matmul — the (min, +) product, one launch per Bellman-Ford round
                    of ``core.shortest_path.minplus_bellman_ford``
                    (``csrc/minplus.cu``, f32 and f64)
+  fold_node_tables — the packed RFS executors' window-table fold: every
+                   node's time searches, prefix differences and q_t
+                   contraction, one CUDA launch per fold writing the table in
+                   the codec's fold dtype (``csrc/fold_tables.cu``)
   flash_attention — forward online-softmax attention of the LM prefill /
                    forward path with ``attn_impl='kernel'``, one launch per
                    layer (``csrc/flash_attention.cu``, bf16 and f32 inputs)

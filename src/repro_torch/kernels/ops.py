@@ -18,6 +18,10 @@ executor's quantized flush) in ``dyn_leaf_query.launches``.
 query vectors on ``csrc/dyn_leaf_query.cu``. ``segment_add``
 (``csrc/segment_add.cu``, counted in ``segment_add.launches``) is the
 fixed-order scatter that ends every flush; it has no TPU counterpart.
+``fold_node_tables`` (``csrc/fold_tables.cu``, counted in
+``fold_node_tables.launches`` and per table dtype) is the packed RFS
+executors' window-table fold, one launch a fold; it has no TPU counterpart
+either.
 
 The flat walk and leaf wrappers take the window table in the storage dtype
 of the engine's table codec — float64, float32 or bfloat16 for the walk
@@ -47,6 +51,8 @@ from .fused_walk import (
     leaf_index,
     walk_index,
 )
+from .fold_tables import fold_node_tables_ref, fold_tables_library
+from .fold_tables import MAX_LEVELS as FOLD_MAX_LEVELS
 from .flash_attention import HEAD_DIMS, LOG2E, check_seq_len, flash_attention_ref, flash_library
 from .minplus import minplus_library, minplus_matmul_ref, minplus_vec
 from .segment_add import (
@@ -59,13 +65,13 @@ from .segment_add import (
 from .tree_query import tree_query_library, tree_query_ref
 
 __all__ = ["FlatIndex", "dyn_leaf_query", "dyn_leaf_query_flat", "dyn_node_walk",
-           "dyn_node_walk_flat", "flash_attention", "fused_leaf", "fused_leaf_flat", "fused_walk",
-           "fused_walk_flat", "leaf_index", "minplus_matmul", "segment_add", "segment_index",
-           "tree_query", "walk_index"]
+           "dyn_node_walk_flat", "flash_attention", "fold_node_tables", "fused_leaf",
+           "fused_leaf_flat", "fused_walk", "fused_walk_flat", "leaf_index", "minplus_matmul",
+           "segment_add", "segment_index", "tree_query", "walk_index"]
 
 # the table dtypes each kernel source is instantiated for, by the suffix of
-# its C entry (the walk: every fold dtype of the table codec; the leaf: the
-# moment dtypes, float64 and float32)
+# its C entry (the walk and the fold: every fold dtype of the table codec;
+# the leaf: the moment dtypes, float64 and float32)
 WALK_DTYPES = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16"}
 LEAF_DTYPES = {torch.float64: "f64", torch.float32: "f32"}
 TABLE_DTYPES = ("float64", "float32", "bfloat16")  # keys of launches_by_dtype
@@ -154,13 +160,13 @@ def _device_index(dev) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
-def _table_suffix(kernel, table, dtypes) -> str:
-    """The suffix of the C entry for the table's storage dtype (``f64``,
+def _table_suffix(kernel, dtype, dtypes) -> str:
+    """The suffix of the C entry for a table's storage dtype (``f64``,
     ``f32``, ``bf16``); a dtype the source is not instantiated for raises."""
-    suffix = dtypes.get(table.dtype)
+    suffix = dtypes.get(dtype)
     if suffix is None:
         raise TypeError(f"{kernel}: the table must be one of "
-                        f"{', '.join(str(d) for d in dtypes)}, got {table.dtype}")
+                        f"{', '.join(str(d) for d in dtypes)}, got {dtype}")
     return suffix
 
 
@@ -200,7 +206,7 @@ def _walk_launch(kernel, table, lvl_base, edges, r_lo, r_hi, side, qs, out, *, n
         )
     W = WC // (2 * ks)
     dev = table.device
-    suffix = _table_suffix(kernel, table, WALK_DTYPES)
+    suffix = _table_suffix(kernel, table.dtype, WALK_DTYPES)
     _check(kernel, "table", table, table.dtype, (N2, WC), dev)
     _check(kernel, "lvl_base", lvl_base, torch.int64, tuple(lvl_base.shape), dev)
     _check(kernel, "edges", edges, torch.int64, (G,), dev)
@@ -388,7 +394,7 @@ def _leaf_launch(kernel, lcum, edges, R, leaf_lo, leaf_hi, side, qs, qtl, qtr, o
             f"k_t={kt}, or the [W, k_t] vectors and two rows exceed {LEAF_SMEM_MAX} bytes"
         )
     dev = lcum.device
-    suffix = _table_suffix(kernel, lcum, LEAF_DTYPES)
+    suffix = _table_suffix(kernel, lcum.dtype, LEAF_DTYPES)
     _check(kernel, "lcum", lcum, lcum.dtype, (N, WK), dev)
     _check(kernel, "edges", edges, torch.int64, (G,), dev)
     _check(kernel, "qs", qs, torch.float64, (G, Q, ks), dev)
@@ -726,3 +732,68 @@ def segment_add(heat, src, index: SegmentIndex, *, halves: bool = False) -> torc
 
 
 segment_add.launches = 0
+
+
+def fold_node_tables(time_tab, cum_tab, starts, t_lo, t_hi, qt, *, lvl_ptr, steps, k_t,
+                     out_dtype=None) -> torch.Tensor:
+    """The packed RFS executors' window-table fold (see fold_tables.py):
+    every node's q_t-folded paired window values, ``[R·2, W, 2k_s]`` in
+    ``out_dtype`` (the table codec's fold dtype; float64 if None).
+
+    ``time_tab [T]`` and ``cum_tab [T, 4, K]`` float64 (the packed forest's
+    ``pm_time`` / ``pm_cum``, K = k_s·k_t), ``starts [R]`` int64 (every
+    node's run start, level-major: level ℓ's nodes are
+    ``starts[lvl_ptr[ℓ]:lvl_ptr[ℓ+1]]``, runs of 2^ℓ searched in
+    ``steps[ℓ]`` trips; ``lvl_ptr`` and ``steps`` host ints),
+    ``t_lo/t_hi [2W]`` and ``qt [2W, k_t]`` float64 (the paired
+    half-window batch), all contiguous and on one device. On the card: one
+    launch for every level, the table allocated once and written in place,
+    counted in ``fold_node_tables.launches`` and per table dtype; launches
+    on the current stream and does not synchronise.
+    """
+    kernel = "fold_node_tables"
+    lvl_ptr = tuple(int(p) for p in lvl_ptr)
+    steps = tuple(int(s) for s in steps)
+    dev = time_tab.device
+    if time_tab.dim() != 1 or cum_tab.dim() != 3 or qt.dim() != 2:
+        raise ValueError(f"{kernel}: time_tab must be [T], cum_tab [T, 4, K] and qt [2W, k_t]")
+    T, K = int(time_tab.shape[0]), int(cum_tab.shape[2])
+    R, Wh = int(starts.shape[0]), int(t_lo.shape[0])
+    nlev = len(lvl_ptr) - 1
+    if k_t < 1 or K % k_t or Wh % 2 or T == 0:
+        raise ValueError(f"{kernel}: K={K} is not k_s*k_t for k_t={k_t}, {Wh} half-windows "
+                         f"are not paired, or the time table is empty")
+    if not 1 <= nlev <= FOLD_MAX_LEVELS or lvl_ptr[0] != 0 or lvl_ptr[-1] != R \
+            or any(b < a for a, b in zip(lvl_ptr, lvl_ptr[1:])) or len(steps) < nlev:
+        raise ValueError(f"{kernel}: lvl_ptr {lvl_ptr} does not split {R} nodes into 1 to "
+                         f"{FOLD_MAX_LEVELS} levels, or steps has fewer than {nlev} entries")
+    out_dtype = torch.float64 if out_dtype is None else out_dtype
+    suffix = _table_suffix(kernel, out_dtype, WALK_DTYPES)
+    _check(kernel, "time_tab", time_tab, torch.float64, (T,), dev)
+    _check(kernel, "cum_tab", cum_tab, torch.float64, (T, 4, K), dev)
+    _check(kernel, "starts", starts, torch.int64, (R,), dev)
+    _check(kernel, "t_lo", t_lo, torch.float64, (Wh,), dev)
+    _check(kernel, "t_hi", t_hi, torch.float64, (Wh,), dev)
+    _check(kernel, "qt", qt, torch.float64, (Wh, k_t), dev)
+    if dev.type == "cpu":
+        return fold_node_tables_ref(time_tab, cum_tab, starts, t_lo, t_hi, qt, lvl_ptr=lvl_ptr,
+                                    steps=steps, k_t=k_t, out_dtype=out_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {dev}")
+    W, ks = Wh // 2, K // k_t
+    out = torch.empty((R * 2, W, 2 * ks), dtype=out_dtype, device=dev)
+    if out.numel() == 0:
+        return out  # nothing to launch
+    fn = getattr(fold_tables_library(), f"fold_tables_{suffix}")
+    err = fn(time_tab.data_ptr(), T, cum_tab.data_ptr(), starts.data_ptr(), R,
+             (ctypes.c_longlong * len(lvl_ptr))(*lvl_ptr), (ctypes.c_int * nlev)(*steps[:nlev]),
+             nlev, t_lo.data_ptr(), t_hi.data_ptr(), qt.data_ptr(), out.data_ptr(), W, ks, k_t,
+             _device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed (cudaError {err})")
+    _count(fold_node_tables, out)
+    return out
+
+
+fold_node_tables.launches = 0
+fold_node_tables.launches_by_dtype = dict.fromkeys(TABLE_DTYPES, 0)

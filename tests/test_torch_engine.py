@@ -30,6 +30,7 @@ import repro.data.spatial as ref_spatial
 import repro_torch.core.rfs as port_rfs
 import repro_torch.core.torch_engine as te
 import repro_torch.data.spatial as port_spatial
+import repro_torch.kernels.fold_tables as fold_tables
 from repro.core import TNKDE as RefTNKDE
 from repro.core.query_plan import build_host_plan as ref_build_host_plan
 from repro_torch.core import TNKDE
@@ -190,17 +191,51 @@ def test_packed_root_ranks_padded_atoms_are_empty(both_sides):
     assert torch.equal(r_lo, r_hi)
 
 
-def test_packed_node_tables_match(both_sides, monkeypatch):
-    fe, _, t_wb, jx = both_sides
+def _fold_case(models, hosts, ts, temporal):
+    """(port engine, its window batch at ``ts``, the reference's node tables
+    at ``ts``) on the shared world, or on the same world with another
+    temporal kernel (another k_t)."""
+    if temporal is None:
+        (ref, port), (href, _) = models, hosts
+    else:
+        ref = RefTNKDE(*_world(ref_spatial), solution="rfs", engine="numpy",
+                       temporal_kernel=temporal, **KW)
+        port = TNKDE(*_world(port_spatial), solution="rfs", engine="numpy",
+                     temporal_kernel=temporal, **KW)
+        href = ref_rfs.build_packed_host_tables(ref.index)
+    fe = port_rfs.FlatForestEngine(port.index, executor="packed", device="cpu")
+    with jax.enable_x64(True):
+        pf = je.PackedForest(**{k: jnp.asarray(href[k]) for k in HOST_KEYS})
+        wb = je.WindowBatch(*(jnp.asarray(x) for x in ref_rfs.make_window_batch(ref.ctx, ts)))
+        j_tabs = np.asarray(je.packed_node_tables(
+            pf, wb, tuple(jnp.asarray(s) for s in href["node_starts"]),
+            steps_per_level=href["steps_per_level"], k_t=int(ref.ctx.k_t)))
+    return fe, fe.window_batch(port.ctx, ts), j_tabs
+
+
+# W = 3 on the shared world (the engine fixture's tables); W = 1 and W = 5;
+# the Epanechnikov temporal kernel (k_t = 3 where the triangular has 2)
+@pytest.mark.parametrize("ts,temporal", [(TS, None), (TS[:1], None),
+                                         (TS + [1.5 * 86400.0, 7 * 86400.0], None),
+                                         (TS, "epanechnikov")],
+                         ids=["W3", "W1", "W5", "W3-kt3"])
+def test_packed_node_tables_match(both_sides, models, hosts, monkeypatch, ts, temporal):
+    if ts is TS and temporal is None:
+        fe, _, t_wb, jx = both_sides
+        j_tabs = jx["tabs"]
+    else:
+        fe, t_wb, j_tabs = _fold_case(models, hosts, ts, temporal)
     pk = fe._packed
-    kw = dict(steps_per_level=pk["steps_per_level"], k_t=int(fe.rf.ctx.k_t))
-    tabs = te.packed_node_tables(pk["pf"], t_wb, pk["node_starts"], **kw)
-    assert tabs.dtype == torch.float64 and tuple(tabs.shape) == jx["tabs"].shape
-    scale = np.abs(jx["tabs"]).max()
-    assert scale > 0 and np.abs(tabs.numpy() - jx["tabs"]).max() <= 1e-13 * scale
+    kw = dict(lvl_ptr=pk["lvl_ptr"], steps_per_level=pk["steps_per_level"],
+              k_t=int(fe.rf.ctx.k_t))
+    tabs = te.packed_node_tables(pk["pf"], t_wb, pk["starts"], **kw)
+    assert tabs.dtype == torch.float64 and tuple(tabs.shape) == j_tabs.shape
+    assert tabs.shape[1] == len(ts) and tabs.shape[2] == 2 * fe.rf.ctx.k_s
+    scale = np.abs(j_tabs).max()
+    assert scale > 0 and np.abs(tabs.numpy() - j_tabs).max() <= 1e-13 * scale
     # folding a level in several chunks changes nothing
-    monkeypatch.setattr(te, "FOLD_CHUNK", 37)
-    assert torch.equal(te.packed_node_tables(pk["pf"], t_wb, pk["node_starts"], **kw), tabs)
+    monkeypatch.setattr(fold_tables, "FOLD_CHUNK", 37)
+    assert torch.equal(te.packed_node_tables(pk["pf"], t_wb, pk["starts"], **kw), tabs)
 
 
 def test_packed_walk_and_eval_atoms_match(both_sides):
@@ -242,7 +277,9 @@ def test_packed_forest_from_numpy_types(hosts):
     assert pf.node_base.dtype == pf.pos_base.dtype == torch.int64
     assert meta["node_base_lvl"].shape == pf.node_base.T.shape
     assert meta["n_nodes"] == hosts[1]["n_nodes"]
-    assert sum(int(s.shape[0]) for s in meta["node_starts"]) >= meta["n_nodes"]
+    assert meta["starts"].dtype == torch.int64
+    assert int(meta["starts"].shape[0]) == meta["lvl_ptr"][-1] >= meta["n_nodes"]
+    assert np.diff(meta["lvl_ptr"]).tolist() == [len(s) for s in hosts[1]["node_starts"]]
 
 
 # ------------------------------------------- kernel executor (time-major)
@@ -378,7 +415,8 @@ def test_dyn_window_tables_match(dyn_sides, monkeypatch):
     args = dict(n_levels=kw["n_levels"], hq=kw["hq"], search_steps=kw["search_steps"])
     lcum = te.dyn_window_tables(forest, wb, **args)
     _close(lcum, jx["lcum"])
-    monkeypatch.setattr(te, "FOLD_CHUNK", 37)  # resolving leaves in chunks changes nothing
+    # resolving leaves in chunks changes nothing
+    monkeypatch.setattr(fold_tables, "FOLD_CHUNK", 37)
     assert torch.equal(te.dyn_window_tables(forest, wb, **args), lcum)
 
 
@@ -387,7 +425,7 @@ def test_dyn_node_tables_match(dyn_sides, monkeypatch):
     args = dict(n_levels=kw["n_levels"], hq=kw["hq"], steps_per_level=kw["steps_per_level"])
     nodeval = te.dyn_node_tables(forest, wb, **args)
     _close(nodeval, jx["nodeval"])
-    monkeypatch.setattr(te, "FOLD_CHUNK", 37)
+    monkeypatch.setattr(fold_tables, "FOLD_CHUNK", 37)
     assert torch.equal(te.dyn_node_tables(forest, wb, **args), nodeval)
 
 

@@ -135,7 +135,7 @@ def test_account_equals_a_real_flush(monkeypatch, S):
     assert [_device_nbytes(fe._shard_parts(s)) for s in range(S)] == \
         [sh["bytes"] for sh in lo.shards]
     assert fe.bytes_per_shard == lo.bytes_per_shard
-    assert lo.slab_bytes_per_shard == max(_device_nbytes([fe._pf[s], list(fe._node_starts[s])])
+    assert lo.slab_bytes_per_shard == max(_device_nbytes([fe._pf[s], fe._starts[s]])
                                           for s in range(S))
 
 

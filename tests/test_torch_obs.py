@@ -75,12 +75,18 @@ def test_no_profiler_records_nothing(world, path):
 def test_query_span_tree(world, executor):
     m = _model(world, executor)
     m.query(TS)  # plan and packs cached before the profiled queries
+    s0 = m._fe.counters["rank_searches"]
     with _cpu_profile():
         p_new = m.dispatch(TS_NEW)
         F_new = p_new.result()
         F_rep = m.query(TS_NEW)
     recs = obs.records()
     np.testing.assert_array_equal(F_new, F_rep)
+    # one fold over every node on the new ts (the kernel executor: one rank
+    # table over the edges instead), none on the repeat
+    fe = m._fe
+    searched = fe._packed["n_nodes"] if executor != "kernel" else fe.rf.net.n_edges
+    assert fe.counters["rank_searches"] - s0 == 3 * len(TS_NEW) * searched
     dispatches = sorted((r for r in recs if r.name == "tnkde.dispatch"), key=lambda r: r.t0_ns)
     results = sorted((r for r in recs if r.name == "tnkde.result"), key=lambda r: r.t0_ns)
     assert len(dispatches) == len(results) == 2
@@ -95,8 +101,7 @@ def test_query_span_tree(world, executor):
         assert kids["tnkde.plan"].attrs["hit"] and kids["tnkde.packs"].attrs["hit"]
         assert kids["tnkde.window_batch"].attrs["hit"] is not new
         assert kids["tnkde.tables"].attrs["hit"] is not new
-        folded = new and executor != "kernel"  # the kernel executor folds nothing
-        assert (kids["tnkde.tables"].attrs["chunks"] > 0) is folded
+        assert kids["tnkde.tables"].attrs["launches"] == 0  # the plain fold on the CPU
         launch = kids["tnkde.launch"].attrs
         assert launch["packs"] > 0 and launch["launches"] == 0  # plain versions on the CPU
         assert [r.name for r in _children(recs, res)] == ["tnkde.wait"]
