@@ -1082,6 +1082,14 @@ class FlatForestEngine(_DeviceEngine):
 
 
 # ===================================================================== DRFS
+def _dyn_kernel_launches() -> int:
+    """Hand-written kernel launches a DRFS flush makes (tree phase of
+    either mode and executor, scatter); the plain versions on the CPU
+    launch none."""
+    return (ops.fused_walk.launches + ops.fused_leaf.launches + ops.dyn_node_walk.launches
+            + ops.dyn_leaf_query.launches + ops.segment_add.launches)
+
+
 def _dyn_plain_flush(forest, fa, seg, wb, tables, heat, *, n_levels: int, hq: int,
                      scan_steps: int, pend_steps: int, exact: bool, tree: bool = True):
     """heat[L, W] += one atom block through :func:`eval_atoms_dyn` (all
@@ -1354,36 +1362,39 @@ class FlatDynamicEngine(_DeviceEngine):
         never on the pending buffers.
         """
         key = (ts_key, snap.revision, snap.depth, int(hq), bool(exact), self.codec.name)
-        hit = self._tab_cache.get(key)
-        if hit is not None:
-            self._tab_cache.move_to_end(key)
-            return hit
+        with obs.span("tnkde.tables") as sp:
+            hit = self._tab_cache.get(key)
+            if sp is not None:
+                sp["hit"] = hit is not None
+            if hit is not None:
+                self._tab_cache.move_to_end(key)
+                return hit
 
-        def steps(occ):
-            return max(int(np.ceil(np.log2(int(occ) + 1))) + 1, 1)
+            def steps(occ):
+                return max(int(np.ceil(np.log2(int(occ) + 1))) + 1, 1)
 
-        E = snap.net.n_edges
-        W = len(ts_key)
-        K = snap.ctx.K
-        forest = self._forest(sealed, self._get_pending(snap))
-        if exact:
-            spl = tuple(steps(o) for o in sealed.max_occ[: hq + 1])
-            tabs = (dyn_node_tables(forest, wb, n_levels=sealed.n_levels, hq=int(hq),
-                                    steps_per_level=spl, out_dtype=self.codec.fold_dtype),)
-            nn = E * ((1 << (hq + 1)) - 1)
-        else:
-            tabs = (dyn_window_tables(forest, wb, n_levels=sealed.n_levels, hq=int(hq),
-                                      search_steps=steps(sealed.max_occ[hq]),
-                                      out_dtype=self.codec.moment_dtype),)
-            nn = E * (1 << hq)
-        self.counters["rank_searches"] += 3 * W * nn
-        self.counters["moment_gathers"] += 3 * W * nn
-        # table folds gather raw-Φ prefix rows from the f64 level tables
-        self.counters["bytes_moved"] += 3 * W * nn * N_COMBOS * K * 8
-        self._tab_cache[key] = tabs
-        while len(self._tab_cache) > 4 * self.max_snapshots:
-            self._tab_cache.popitem(last=False)
-        return tabs
+            E = snap.net.n_edges
+            W = len(ts_key)
+            K = snap.ctx.K
+            forest = self._forest(sealed, self._get_pending(snap))
+            if exact:
+                spl = tuple(steps(o) for o in sealed.max_occ[: hq + 1])
+                tabs = (dyn_node_tables(forest, wb, n_levels=sealed.n_levels, hq=int(hq),
+                                        steps_per_level=spl, out_dtype=self.codec.fold_dtype),)
+                nn = E * ((1 << (hq + 1)) - 1)
+            else:
+                tabs = (dyn_window_tables(forest, wb, n_levels=sealed.n_levels, hq=int(hq),
+                                          search_steps=steps(sealed.max_occ[hq]),
+                                          out_dtype=self.codec.moment_dtype),)
+                nn = E * (1 << hq)
+            self.counters["rank_searches"] += 3 * W * nn
+            self.counters["moment_gathers"] += 3 * W * nn
+            # table folds gather raw-Φ prefix rows from the f64 level tables
+            self.counters["bytes_moved"] += 3 * W * nn * N_COMBOS * K * 8
+            self._tab_cache[key] = tabs
+            while len(self._tab_cache) > 4 * self.max_snapshots:
+                self._tab_cache.popitem(last=False)
+            return tabs
 
     def _atom_packs(self, plan):
         """Device atom blocks for a HostPlan, LRU-cached per plan: the flat
@@ -1480,26 +1491,39 @@ class FlatDynamicEngine(_DeviceEngine):
                      else W * 2 * K * self.codec.moment_itemsize)
         scan_kw = dict(n_levels=sealed.n_levels, hq=int(hq), scan_steps=int(scan_steps),
                        pend_steps=int(pend.pend_steps), exact=exact)
-        for entry in self._atom_packs(plan):
-            atoms = entry["atoms"]
-            # work accounting (same units as the NumPy scans: (atom, event)
-            # pairs examined, per half-window for partials / window pending)
-            snap.counters["pending"] += snap.pending_scan_pairs(atoms) * W
-            if exact:
-                snap.counters["partial"] += snap.partial_scan_pairs(atoms, hq) * 2 * W
-            gathers = 2 * (hq + 1) * entry["m"] if exact else 2 * entry["m"]
-            self.counters["moment_gathers"] += gathers
-            self.counters["bytes_moved"] += gathers * row_bytes
-            if self.executor == "packed":
-                _dyn_plain_flush(forest, entry["fa"], entry["seg"], wb, tables, heat, **scan_kw)
-                continue
-            # tree phase: ONE kernel launch; scans stay in plain torch
-            tab, index = self.tree_table(tables, entry, hq=int(hq), exact=exact)
-            _dyn_flush(forest, tab, index, entry, wb, heat, hq=int(hq), exact=exact,
-                       executor=self.executor)
-            if self.executor == "fused":
-                self.counters["fused_launches"] += 1
-            if scan_steps or pend.pend_steps:
-                _dyn_plain_flush(forest, entry["fa"], entry["seg"], wb, (), heat, tree=False,
-                                 **scan_kw)
+        blocks = self._atom_packs(plan)
+        with obs.span("tnkde.launch", blocks=len(blocks)) as sp:
+            launches0 = _dyn_kernel_launches() if sp is not None else 0
+            for entry in blocks:
+                atoms = entry["atoms"]
+                # work accounting (same units as the NumPy scans: (atom, event)
+                # pairs examined, per half-window for partials / window pending),
+                # counted on the host once per block and epoch
+                pkey = (snap.revision, snap.pend_revision, snap.depth, int(hq), exact)
+                if entry.get("scan_pairs", (None,))[0] != pkey:
+                    entry["scan_pairs"] = (pkey, snap.pending_scan_pairs(atoms),
+                                           snap.partial_scan_pairs(atoms, hq) if exact else 0)
+                _, n_pend, n_part = entry["scan_pairs"]
+                snap.counters["pending"] += n_pend * W
+                if exact:
+                    snap.counters["partial"] += n_part * 2 * W
+                gathers = 2 * (hq + 1) * entry["m"] if exact else 2 * entry["m"]
+                self.counters["moment_gathers"] += gathers
+                self.counters["bytes_moved"] += gathers * row_bytes
+                if self.executor == "packed":
+                    _dyn_plain_flush(forest, entry["fa"], entry["seg"], wb, tables, heat, **scan_kw)
+                    continue
+                # tree phase: ONE kernel launch; scans stay in plain torch
+                tab, index = self.tree_table(tables, entry, hq=int(hq), exact=exact)
+                _dyn_flush(forest, tab, index, entry, wb, heat, hq=int(hq), exact=exact,
+                           executor=self.executor)
+                if self.executor == "fused":
+                    self.counters["fused_launches"] += 1
+                if scan_steps or pend.pend_steps:
+                    with obs.span("tnkde.scan", scan_steps=int(scan_steps),
+                                  pend_steps=int(pend.pend_steps)):
+                        _dyn_plain_flush(forest, entry["fa"], entry["seg"], wb, (), heat,
+                                         tree=False, **scan_kw)
+            if sp is not None:
+                sp["launches"] = _dyn_kernel_launches() - launches0
         return heat
